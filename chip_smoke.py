@@ -1,31 +1,43 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one card, at real sizes.
 
-Drives the port's flat-bias ``random_walk`` (the paper's MAIN loop) through
-the hand-written CUDA walk-step kernels and checks what comes out.  One walk
-per vertex, depth 40 (DeepWalk's walk length):
+Drives the port's ``random_walk`` (the paper's MAIN loop) through every
+transition-program mode and every hand-written CUDA kernel, and checks what
+comes out.  One walk per vertex, depth 40 (DeepWalk's walk length):
 
 1. main path — ``deepwalk``, auto plan (rejection in every cohort, rejection
    tail) on R-MAT scale 21, edge factor 16: 2.1M vertices and about 60M CSR
    entries, the edge count of SNAP soc-LiveJournal1;
-2. ITS path — ``weighted_random_walk`` pinned to ITS on a 1M-vertex
-   power-law graph (maximum degree about 1k, so the chunked ITS tail stays
-   at two chunks or fewer);
-3. alias path — ``weighted_random_walk``, auto plan (alias in every cohort)
-   on the same power-law graph;
-4. per kernel — each kernel against its plain PyTorch version on the card,
-   on its path's first-step inputs for every cohort, with its time per step,
-   its bound (bytes over 3.35 TB/s, or f32 operations over 67 TFLOP/s, the
-   larger) and the plain version's time;
-5. cross-check — the first 4,096 walkers of each path, rerun on the CPU by
-   the plain versions, equal the card's walks; every hop is a graph edge.
+2. node2vec — ``node2vec()`` (p = 2, q = 0.5) on the same graph: window
+   plan (128, 512) plus the chunked window tail, ``walk_step_window``, at
+   depth ``NODE2VEC_DEPTH`` (the hook runs in plain PyTorch over every
+   chunk of hub rows up to degree 102,664: seconds per step);
+3. mhrw, jump (p = 0.15), restart_home (p = 0.15, back to the walk's seed)
+   — flat uniform bias with the MH and teleport epilogues on the same
+   graph, auto plan (rejection), at depth ``EPILOGUE_DEPTH``;
+4. its — ``weighted_random_walk`` pinned to ITS on a 1M-vertex power-law
+   graph (maximum degree about 1k, so the chunked ITS tail stays at two
+   chunks or fewer);
+5. alias — ``weighted_random_walk``, auto plan (alias in every cohort), on
+   the same power-law graph;
+6. opaque — ``weighted_random_walk`` with its flat form and program stripped
+   (an arbitrary edge-bias hook) on the same power-law graph: the dense
+   context and ``its_select`` with K = 1;
+7. per kernel — each kernel against its plain PyTorch version on the card,
+   on its path's first-step inputs, with its time per step, its bound (bytes
+   over 3.35 TB/s, or f32 operations over 67 TFLOP/s, the larger) and the
+   plain version's time; ``its_select`` also at K = 8 with 32 rounds on the
+   same rows, so collisions and region search run;
+8. cross-check — the first 4,096 walkers of each path, rerun on the CPU by
+   the plain versions, equal the card's walks; every hop is a graph edge (or
+   an MH stay, a jump to a valid vertex, a restart to the walk's seed).
 
 Each path runs with the kernels' launch counts set to 0 just before and read
 just after; a kernel its path never launched fails the run.
 
-Each path also records its counted-RNG time per step, and a torch.profiler
-trace of two steps: device busy time, idle share and the kernels that took
-the most device time.
+Each path also records its counted-RNG time per step (flat paths), and a
+torch.profiler trace of two steps: device busy time, idle share and the
+kernels that took the most device time.
 
 Usage, from the root of a checkout (builds the kernels into build/kernels/):
 
@@ -55,9 +67,15 @@ RMAT_SCALE = 21
 POWERLAW_VERTICES = 1_000_000
 SEED = 7
 DEPTH = 40
+NODE2VEC_DEPTH = 10  # cut from 40: keeps the run inside half its time limit
+EPILOGUE_DEPTH = 40
 CHECK_WALKERS = 4096
+TELEPORT_PROB = 0.15
+#: its_select's collision check: K draws, ITERS rounds
+SELECT_K, SELECT_ITERS = 8, 32
 TIMING_REPS = 20
 PLAIN_CHUNK = 1 << 18  # walkers per plain-version call (bounds its temporaries)
+KERNELS = ("reject_step", "alias_step", "walk_step", "walk_step_window", "its_select")
 
 
 def _fail(msg: str) -> int:
@@ -79,19 +97,19 @@ class Smoke:
         import torch
 
         from repro_torch import kernels
-        from repro_torch.core import algorithms, backend, methods, rng, select, transition
-        from repro_torch.core.engine import flat_method_plan, random_walk
+        from repro_torch.core import algorithms, backend, engine, methods, rng, select, transition
         from repro_torch.graph import generators
         from repro_torch.kernels import _build, ref
 
         self.torch, self.kernels, self.alg = torch, kernels, algorithms
-        self.bk, self.mt, self.rng, self.sel, self.tp = backend, methods, rng, select, transition
-        self.flat_method_plan, self.random_walk = flat_method_plan, random_walk
+        self.bk, self.eng, self.mt, self.rng, self.tp = backend, engine, methods, rng, transition
+        self.sel = select
         self.gen, self.build, self.ref = generators, _build, ref
         self.dev = torch.device("cuda")
         self.key = rng.PRNGKey(SEED)
         self.paths: list[dict] = []
         self.kernel_rows: dict[str, dict] = {}
+        self._cpu_graphs: dict = {}
 
     # -- helpers -----------------------------------------------------------
 
@@ -110,11 +128,20 @@ class Smoke:
         self.sync()
         return start.elapsed_time(end) / reps
 
-    def check_walks(self, g, res, seeds):
-        """Every hop is an edge; walks start at their seeds; no walker revives."""
+    def cpu_graph(self, g):
+        """One CPU copy per graph, shared by its paths' cross-checks."""
+        if g.uid not in self._cpu_graphs:
+            self._cpu_graphs = {g.uid: g.to("cpu")}
+        return self._cpu_graphs[g.uid]
+
+    def check_walks(self, g, res, seeds, depth, hop_rule):
+        """Every hop is an edge, or what the path's epilogue allows instead:
+        an MH stay (``"stay"``), a jump to any vertex (``"any"``), a restart
+        to the walk's seed (``"seed"``).  Walks start at their seeds; no
+        walker revives.  Returns (hops, hops that are not edges)."""
         torch = self.torch
         walks = res.walks
-        _require(walks.shape == (seeds.shape[0], DEPTH + 1), f"walks of shape {walks.shape}")
+        _require(walks.shape == (seeds.shape[0], depth + 1), f"walks of shape {walks.shape}")
         _require(torch.equal(walks[:, 0], seeds), "walks do not start at their seeds")
         alive = walks >= 0
         _require(not (alive[:, 1:] & ~alive[:, :-1]).any(), "a walker came back to life")
@@ -124,82 +151,146 @@ class Smoke:
         edge_key = row * v + g.indices.long()  # ascending: rows are sorted
         a, b = walks[:, :-1].reshape(-1).long(), walks[:, 1:].reshape(-1).long()
         hop = b >= 0
-        q = a[hop] * v + b[hop]
+        a, b = a[hop], b[hop]
+        q = a * v + b
         pos = torch.searchsorted(edge_key, q).clamp(max=edge_key.shape[0] - 1)
-        bad = int((edge_key[pos] != q).sum())
-        _require(bad == 0, f"{bad} hops are not edges of the graph")
+        is_edge = edge_key[pos] == q
+        ok = is_edge
+        if hop_rule == "stay":
+            ok = ok | (b == a)
+        elif hop_rule == "any":
+            ok = ok | (b < v)
+        elif hop_rule == "seed":
+            home = seeds.long()[:, None].expand(-1, depth).reshape(-1)[hop]
+            ok = ok | (b == home)
+        bad = int((~ok).sum())
+        _require(bad == 0, f"{bad} hops are neither edges nor allowed by the epilogue")
         _require(int(res.sampled_edges) == int(hop.sum()), "sampled_edges disagrees with the walks")
-        return int(hop.sum())
+        return int(hop.sum()), int((~is_edge).sum())
 
     # -- one path ----------------------------------------------------------
 
-    def run_path(self, name, g, spec, expect_plan, kernel_name, gen_s):
-        torch = self.torch
+    def run_path(self, name, g, spec, kernel_name, gen_s, *, expect_plan=None, depth=DEPTH,
+                 hop_rule=None):
+        torch, bk = self.torch, self.bk
         program = self.tp.lower(spec)
         max_degree = g.max_degree()
+        methods, tables, buckets = (), None, ()
         t0 = time.perf_counter()
-        methods, tables = self.flat_method_plan(g, program, max_degree)
+        if program.mode == "flat":
+            methods, tables = self.eng.flat_method_plan(g, program, max_degree)
+            buckets, use_chunked = bk.walk_bucket_plan(max_degree)
+            plan = self.mt.describe_plan(methods, buckets, use_chunked)
+            _require(methods == expect_plan, f"{name}: planned {methods}, expected {expect_plan}")
+            _require(use_chunked, f"{name}: the graph has no huge-degree tail")
+        elif program.mode == "window":
+            buckets, use_chunked = bk.walk_bucket_plan_window(max_degree)
+            plan = {"window_buckets": list(buckets), "chunked_window_tail": use_chunked}
+        else:
+            plan = {"dense_width": max_degree, "its_select_width": -(-max_degree // bk.LANES) * bk.LANES}
         plan_s = time.perf_counter() - t0
-        buckets, use_chunked = self.bk.walk_bucket_plan(max_degree)
-        plan = self.mt.describe_plan(methods, buckets, use_chunked)
         _log(f"[{name}] V={g.num_vertices} E={g.num_edges} max_degree={max_degree} plan={plan}")
-        _require(methods == expect_plan, f"{name}: planned {methods}, expected {expect_plan}")
-        _require(use_chunked, f"{name}: the graph has no huge-degree tail")
 
         seeds = torch.arange(g.num_vertices, dtype=torch.int32, device=self.dev)
-        walk = dict(depth=DEPTH, spec=spec, max_degree=max_degree, device=self.dev)
-        self.random_walk(g, seeds, self.key, **dict(walk, depth=1))  # warm-up
+        walk = dict(depth=depth, spec=spec, max_degree=max_degree, device=self.dev)
+        self.eng.random_walk(g, seeds, self.key, **dict(walk, depth=1))  # warm-up
         self.sync()
         torch.cuda.reset_peak_memory_stats()
         self.kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        res = self.random_walk(g, seeds, self.key, **walk)
+        res = self.eng.random_walk(g, seeds, self.key, **walk)
         self.sync()
         seconds = time.perf_counter() - t0
         launches = self.kernels.launch_counts()
         _require(launches[kernel_name] > 0, f"{name}: {kernel_name} never launched: {launches}")
-        edges = self.check_walks(g, res, seeds)
+        edges, off_edge = self.check_walks(g, res, seeds, depth, hop_rule)
         row = dict(
-            path=name, spec=spec.name, method=program.method, vertices=g.num_vertices,
-            csr_entries=g.num_edges, max_degree=max_degree, walkers=g.num_vertices,
-            depth=DEPTH, plan=plan, launches=launches, sampled_edges=edges,
-            seconds=seconds, seps=edges / seconds, ms_per_step=1e3 * seconds / DEPTH,
+            path=name, spec=spec.name, mode=program.mode, method=program.method,
+            vertices=g.num_vertices, csr_entries=g.num_edges, max_degree=max_degree,
+            walkers=g.num_vertices, depth=depth, plan=plan, launches=launches,
+            sampled_edges=edges, off_edge_hops=off_edge, seconds=seconds,
+            seps=edges / seconds, ms_per_step=1e3 * seconds / depth,
             peak_gib=torch.cuda.max_memory_allocated() / 2**30, graph_s=gen_s, plan_s=plan_s,
         )
         _log(f"[{name}] {json.dumps(row)}")
 
         # cross-check: the first walkers again, on the CPU, by the plain versions
         n = min(CHECK_WALKERS, g.num_vertices)
-        cpu = self.random_walk(g.to("cpu"), seeds[:n].cpu(), self.key, **dict(walk, device="cpu"))
+        t0 = time.perf_counter()
+        cpu = self.eng.random_walk(self.cpu_graph(g), seeds[:n].cpu(), self.key,
+                                   **dict(walk, device="cpu"))
         same = torch.equal(cpu.walks, res.walks[:n].cpu())
         _require(same, f"{name}: card walks differ from the CPU walks of the first {n} walkers")
         row["cpu_check_walkers"] = n
-        row["rng_ms_per_step"] = self.rng_ms(g.num_vertices, methods)
+        row["cpu_check_s"] = time.perf_counter() - t0
+        row["rng_ms_per_step"] = self.rng_ms(g.num_vertices, methods) if methods else None
         self.paths.append(row)
-
-        self.measure_kernels(name, g, spec, methods, tables, buckets, kernel_name)
-        row["kernel_ms_per_step"] = self.kernel_rows[kernel_name]["ms"]
-        row.update(self.profile(name, g, seeds, walk))
         del res, cpu
+
+        if kernel_name not in self.kernel_rows:
+            if kernel_name == "walk_step_window":
+                entries = self.measure_window(name, g, spec)
+            elif kernel_name == "its_select":
+                entries = self.measure_select(name, g, spec)
+            else:
+                entries = self.measure_flat(name, g, spec, methods, tables, buckets, kernel_name)
+            self.kernel_row(kernel_name, name, entries)
+            row["kernel_ms_per_step"] = self.kernel_rows[kernel_name]["ms"]
+        row.update(self.profile(name, g, seeds, walk))
         return row
 
     def rng_ms(self, w, methods):
         """Time of one step's counted-RNG draws at W walkers, as
         ``walk_step_adaptive`` makes them (bucket uniform, rejection budget,
         tail uniform)."""
-        rng, sel = self.rng, self.sel
-        kf = rng.fold_in(rng.fold_in(self.key, 0), 1)
+        rng = self.rng
 
         def draws():
+            kf = rng.fold_in(rng.fold_in(self.key, 0), 1)
             rng.uniform(rng.fold_in(kf, 0), (w,), device=self.dev)
             if "rejection" in methods:
-                sel.rejection_randoms(rng.fold_in(kf, 2), (w,), device=self.dev)
+                self.sel.rejection_randoms(rng.fold_in(kf, 2), (w,), device=self.dev)
             if methods[-1] != "rejection":
                 rng.uniform(rng.fold_in(kf, 1), (w,), device=self.dev)
 
         return self.event_ms(draws, 5)
 
     # -- per-kernel comparison, time and bound ------------------------------
+
+    def compare(self, path, kernel_name, label, launch, plain, nbytes, nops, **extra):
+        """Run a kernel and its plain version on the same inputs, count the
+        mismatches (must be 0), and time both."""
+        got, want = launch(), plain()
+        self.sync()
+        if isinstance(got, tuple):  # its_select: (idx, stats)
+            mismatches = sum(int((a != b).sum()) for a, b in zip(got, want))
+            err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+        else:
+            mismatches = int((got != want).sum())
+            err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        _require(mismatches == 0, f"{path}/{kernel_name} {label}: {mismatches} mismatches")
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+        entry = dict(
+            cohort=label, mismatches=mismatches, max_abs_err=err,
+            ms=self.event_ms(launch, TIMING_REPS), plain_ms=self.event_ms(plain, 2),
+            bound_ms=max(by_bytes, by_ops) * 1e3,
+            bound_by="bytes" if by_bytes >= by_ops else "operations",
+            bytes=nbytes, ops=nops, **extra,
+        )
+        _log(f"[{path}] {kernel_name} {json.dumps(entry)}")
+        return entry
+
+    def chunked(self, fn, w):
+        """A plain version over W walkers, in chunks (bounds its temporaries)."""
+        torch = self.torch
+
+        def run():
+            outs = [fn(slice(i, i + PLAIN_CHUNK)) for i in range(0, w, PLAIN_CHUNK)]
+            if isinstance(outs[0], tuple):
+                return tuple(torch.cat(parts) for parts in zip(*outs))
+            return torch.cat(outs)
+
+        return run
 
     def cohort_inputs(self, g, methods, tables, buckets):
         """The first step's cohort inputs, built as ``walk_step_adaptive``
@@ -213,7 +304,8 @@ class Smoke:
         deg = g.indptr[safe + 1] - starts
         common = dict(r=rng.uniform(rng.fold_in(kf, 0), (w,), device=self.dev))
         if "rejection" in methods:
-            common["rej"] = self.sel.rejection_randoms(rng.fold_in(kf, 2), (w,), device=self.dev)
+            common["rej"] = self.sel.rejection_randoms(rng.fold_in(kf, 2), (w,),
+                                                              device=self.dev)
             common["rm"] = tables.row_max[safe]
         cohorts, lo = [], 0
         for seg in buckets:
@@ -224,12 +316,11 @@ class Smoke:
         cohorts.append((None, torch.where(huge, starts, 0), torch.where(huge, deg, 0)))
         return common, cohorts
 
-    def measure_kernels(self, path, g, spec, methods, tables, buckets, kernel_name):
+    def measure_flat(self, path, g, spec, methods, tables, buckets, kernel_name):
         torch, ref, K = self.torch, self.ref, self.kernels
         bias = self.tp.lower(spec).bias.fn(g)
         common, cohorts = self.cohort_inputs(g, methods, tables, buckets)
         r = common["r"]
-        counts_before = K.launch_counts()
         entries = []
         for seg, st, dg in cohorts:
             if kernel_name == "walk_step":
@@ -251,45 +342,11 @@ class Smoke:
                 plain_fn = lambda s, st=st, dg=dg, seg=seg: ref.reject_step_block_ref(
                     st[s], dg[s], g.indices, bias, rm[s], rej[s], seg=seg)
             w = st.shape[0]
-            plain = lambda plain_fn=plain_fn: torch.cat(
-                [plain_fn(slice(i, i + PLAIN_CHUNK)) for i in range(0, w, PLAIN_CHUNK)])
-            got, want = launch(), plain()
-            self.sync()
-            mismatches = int((got != want).sum())
-            err = int((got.long() - want.long()).abs().max())
-            _require(mismatches == 0, f"{path}/{kernel_name} seg={seg}: {mismatches} mismatches")
-            nbytes, nops = self.work(kernel_name, seg, st, dg, got, bias, common)
-            bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S) * 1e3
-            entry = dict(
-                seg=seg, walkers=w, live=int((dg > 0).sum()), mismatches=mismatches,
-                max_abs_err=err, ms=self.event_ms(launch, TIMING_REPS),
-                plain_ms=self.event_ms(plain, 2), bound_ms=bound,
-                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= nops / F32_OPS_PER_S else "operations",
-                bytes=nbytes, ops=nops,
-            )
-            _log(f"[{path}] {kernel_name} {json.dumps(entry)}")
-            entries.append(entry)
-        # comparison launches are not the main path's: restore its counts
-        for fn in K.KERNEL_WRAPPERS:
-            fn.launches = counts_before[fn.__name__]
-        total = lambda k: sum(e[k] for e in entries)
-        by_bytes = sum(e["bytes"] for e in entries) / HBM_BYTES_PER_S
-        by_ops = sum(e["ops"] for e in entries) / F32_OPS_PER_S
-        src = {
-            "reject_step": "src/repro/kernels/walk_step.py:267",
-            "alias_step": "src/repro/kernels/alias_select.py:66",
-            "walk_step": "src/repro/kernels/walk_step.py:158",
-        }
-        self.kernel_rows[kernel_name] = dict(
-            name=kernel_name, route="cuda", source="src/repro_torch/kernels/csrc/walk_kernels.cu",
-            replaces=src[kernel_name], path=path,
-            launches=self.paths[-1]["launches"][kernel_name],
-            launches_per_step=len(entries), mismatches=total("mismatches"),
-            max_abs_err=max(e["max_abs_err"] for e in entries),
-            ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
-            bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=None,
-            cohorts=entries,
-        )
+            nbytes, nops = self.work(kernel_name, seg, st, dg, launch(), bias, common)
+            entries.append(self.compare(path, kernel_name, f"seg={seg}", launch,
+                                        self.chunked(plain_fn, w), nbytes, nops,
+                                        walkers=w, live=int((dg > 0).sum())))
+        return entries
 
     def work(self, kernel_name, seg, st, dg, out, bias, common):
         """Bytes and f32 operations this launch needs on this data: each
@@ -301,7 +358,7 @@ class Smoke:
         n_live = int(live.sum())
         n_out = int((out >= 0).sum())
         nbytes = 8 * w + 8 * n_live + 4 * n_out  # degs + out; starts + r or rm; ids
-        if kernel_name == "walk_step":
+        if kernel_name in ("walk_step", "walk_step_window"):
             nbytes += 4 * int(dg[live].long().sum())
             nops = 2 * (2 * seg) * n_live  # the window's adds and compares
         elif kernel_name == "alias_step":
@@ -323,6 +380,111 @@ class Smoke:
             nops = 3 * n_rounds
         return nbytes, nops
 
+    def measure_window(self, path, g, spec):
+        """``walk_step_window`` on the first step's cohorts, built as
+        ``walk_step_bucketed_window`` builds them: members only, their bias
+        rows from the node2vec hook."""
+        torch, rng, bk, ref, K = self.torch, self.rng, self.bk, self.ref, self.kernels
+        w = g.num_vertices
+        md = g.max_degree()
+        program = self.tp.lower(spec)
+        cur = torch.arange(w, dtype=torch.int32, device=self.dev)
+        bias_of = self.eng._window_bias_fn(g, program, cur, torch.full_like(cur, -1), 0, md)
+        kf = rng.fold_in(rng.fold_in(self.key, 0), 1)
+        r = rng.uniform(rng.fold_in(kf, 0), (w,), device=self.dev)
+        starts = g.indptr[:-1]
+        deg = g.indptr[1:] - starts
+        buckets, use_chunked = bk.walk_bucket_plan_window(md)
+        entries, lo = [], 0
+        for i, seg in enumerate(buckets):
+            absorb = i == len(buckets) - 1 and not use_chunked
+            rows = torch.nonzero((deg > lo) & ((deg <= seg) | absorb)).squeeze(1)
+            lo = seg
+            st, dg = starts[rows], torch.clamp(deg[rows], max=seg)
+            bias = bk.window_bias_rows(g.indices, g.weights, st, dg, rows, bias_of, seg)
+            rr = r[rows]
+            launch = lambda st=st, dg=dg, bias=bias, rr=rr, seg=seg: K.walk_step_window(
+                st, dg, g.indices, bias, rr, max_seg=seg)
+            plain_fn = lambda s, st=st, dg=dg, bias=bias, rr=rr, seg=seg: ref.walk_step_window_block_ref(
+                st[s], dg[s], g.indices, bias[s], rr[s], seg=seg)
+            nbytes, nops = self.work("walk_step_window", seg, st, dg, launch(), None, None)
+            entries.append(self.compare(path, "walk_step_window", f"seg={seg}", launch,
+                                        self.chunked(plain_fn, rows.shape[0]), nbytes, nops,
+                                        walkers=rows.shape[0], live=rows.shape[0]))
+        return entries
+
+    def measure_select(self, path, g, spec):
+        """``its_select`` on the opaque path's first-step rows (the dense
+        context's masked biases, padded to 128 lanes), in the engine's
+        blocks: at K = 1 with the step's uniforms, and at K = 8 with 32
+        rounds of a counted budget, so collisions and region search run."""
+        torch, rng, bk, ref, K = self.torch, self.rng, self.bk, self.ref, self.kernels
+        w = g.num_vertices
+        md = g.max_degree()
+        cur = torch.arange(w, dtype=torch.int32, device=self.dev)
+        kf = rng.fold_in(rng.fold_in(self.key, 0), 1)
+        r = rng.uniform(kf, (w, 1, 1), device=self.dev)
+        entries = []
+        for b, s in enumerate(range(0, w, self.eng.GATHER_BLOCK)):
+            blk = slice(s, s + self.eng.GATHER_BLOCK)
+            ctx, mask = self.eng._edge_ctx(g, cur[blk], torch.full_like(cur[blk], -1), 0, md,
+                                           spec.needs_prev_neighbors)
+            biases = bk.pad_lanes(bk._masked(torch.where(mask, spec.edge_bias(ctx), 0.0), mask))
+            biases = biases.contiguous()
+            del ctx, mask
+            n, p = biases.shape
+            rr = r[blk].contiguous()
+            r8 = rng.uniform(rng.fold_in(kf, 100 + b), (n, SELECT_ITERS, SELECT_K), device=self.dev)
+            launch8 = lambda biases=biases, r8=r8: K.its_select(biases, r8)
+            plain8 = self.chunked(lambda s, biases=biases, r8=r8: ref.its_select_ref(biases[s], r8[s]), n)
+            k8 = self.compare(path, "its_select", f"block={b} K={SELECT_K}", launch8, plain8,
+                              *self.select_work(n, p, SELECT_ITERS, SELECT_K))
+            stats8 = launch8()[1].double().mean(dim=0).tolist()
+            launch = lambda biases=biases, rr=rr: K.its_select(biases, rr)
+            plain = self.chunked(lambda s, biases=biases, rr=rr: ref.its_select_ref(biases[s], rr[s]), n)
+            entries.append(self.compare(
+                path, "its_select", f"block={b} K=1", launch, plain, *self.select_work(n, p, 1, 1),
+                walkers=n, width=p, k8_ms=k8["ms"], k8_plain_ms=k8["plain_ms"],
+                k8_bound_ms=k8["bound_ms"], k8_mismatches=k8["mismatches"],
+                k8_mean_iters=stats8[0], k8_mean_searches=stats8[1]))
+            del biases, r8
+        return entries
+
+    @staticmethod
+    def select_work(n, p, iters, k):
+        """its_select's bytes (the bias rows, the budget, indices and stats)
+        and operations (the scan's adds and divides, two binary searches per
+        draw and round)."""
+        nbytes = 4 * n * p + 4 * n * iters * k + 4 * n * k + 8 * n
+        nops = 2 * n * p + 2 * n * iters * k * max(1, (p - 1).bit_length())
+        return nbytes, nops
+
+    def kernel_row(self, kernel_name, path, entries):
+        K = self.kernels
+        total = lambda k: sum(e[k] for e in entries)  # noqa: E731
+        by_bytes = sum(e["bytes"] for e in entries) / HBM_BYTES_PER_S
+        by_ops = sum(e["ops"] for e in entries) / F32_OPS_PER_S
+        src = {
+            "reject_step": "src/repro/kernels/walk_step.py:267",
+            "alias_step": "src/repro/kernels/alias_select.py:66",
+            "walk_step": "src/repro/kernels/walk_step.py:158",
+            "walk_step_window": "src/repro/kernels/walk_step.py:211",
+            "its_select": "src/repro/kernels/its_select.py:113",
+        }
+        self.kernel_rows[kernel_name] = dict(
+            name=kernel_name, route="cuda", source="src/repro_torch/kernels/csrc/walk_kernels.cu",
+            replaces=src[kernel_name], path=path,
+            launches=self.paths[-1]["launches"][kernel_name],
+            launches_per_step=len(entries), mismatches=total("mismatches"),
+            max_abs_err=max(e["max_abs_err"] for e in entries),
+            ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+            bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=None,
+            cohorts=entries,
+        )
+        # comparison launches are not the main path's: only the path's count stays
+        for fn in K.KERNEL_WRAPPERS:
+            fn.launches = 0
+
     # -- profile ------------------------------------------------------------
 
     def profile(self, name, g, seeds, walk) -> dict:
@@ -333,7 +495,7 @@ class Smoke:
         self.sync()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            self.random_walk(g, seeds, self.key, **dict(walk, depth=2))
+            self.eng.random_walk(g, seeds, self.key, **dict(walk, depth=2))
             self.sync()
             wall = time.perf_counter() - t0
         # device-side events only: the aten ops on the host carry their
@@ -356,7 +518,7 @@ class Smoke:
     # -- the run ------------------------------------------------------------
 
     def run(self):
-        torch = self.torch
+        torch, alg = self.torch, self.alg
         t0 = time.perf_counter()
         self.build.load()
         _log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
@@ -368,20 +530,34 @@ class Smoke:
         g = self.gen.rmat_graph(RMAT_SCALE, edge_factor=16, seed=SEED, weighted=True,
                                 device=self.dev)
         gen_s = time.perf_counter() - t0
-        self.run_path("main", g, self.alg.deepwalk(), ("rejection",) * 3, "reject_step", gen_s)
+        rejection = ("rejection",) * 3
+        self.run_path("main", g, alg.deepwalk(), "reject_step", gen_s, expect_plan=rejection)
+        self.run_path("node2vec", g, alg.node2vec(), "walk_step_window", gen_s,
+                      depth=NODE2VEC_DEPTH)
+        for name, spec, rule in [
+            ("mhrw", alg.metropolis_hastings_walk(), "stay"),
+            ("jump", alg.random_walk_with_jump(TELEPORT_PROB, g.num_vertices), "any"),
+            ("restart_home", alg.random_walk_with_restart(TELEPORT_PROB), "seed"),
+        ]:
+            self.run_path(name, g, spec, "reject_step", gen_s, expect_plan=rejection,
+                          depth=EPILOGUE_DEPTH, hop_rule=rule)
         del g
+        self._cpu_graphs.clear()
         self.mt.clear_plan_cache()
         torch.cuda.empty_cache()
 
         t0 = time.perf_counter()
         g = self.gen.powerlaw_graph(POWERLAW_VERTICES, seed=SEED, weighted=True, device=self.dev)
         gen_s = time.perf_counter() - t0
-        its = dataclasses.replace(self.alg.weighted_random_walk(), selection_method="its")
-        self.run_path("its", g, its, ("its",) * 3, "walk_step", gen_s)
-        self.run_path("alias", g, self.alg.weighted_random_walk(), ("alias",) * 3, "alias_step",
-                      gen_s)
+        its = dataclasses.replace(alg.weighted_random_walk(), selection_method="its")
+        self.run_path("its", g, its, "walk_step", gen_s, expect_plan=("its",) * 3)
+        self.run_path("alias", g, alg.weighted_random_walk(), "alias_step", gen_s,
+                      expect_plan=("alias",) * 3)
+        opaque = dataclasses.replace(alg.weighted_random_walk(), transition=None,
+                                     flat_edge_bias=None)
+        self.run_path("opaque", g, opaque, "its_select", gen_s)
 
-        for k in ("reject_step", "walk_step", "alias_step"):
+        for k in KERNELS:
             row = self.kernel_rows[k]
             _require(row["launches"] > 0 and row["mismatches"] == 0, f"kernel row {row}")
 
@@ -413,8 +589,7 @@ def main() -> int:
     smoke = Smoke()
     smoke.run()
     print(json.dumps({"paths": smoke.paths, "seconds": time.perf_counter() - t0}))
-    print(json.dumps({"kernels": [smoke.kernel_rows[k] for k in
-                                  ("reject_step", "alias_step", "walk_step")]}))
+    print(json.dumps({"kernels": [smoke.kernel_rows[k] for k in KERNELS]}))
     print(_card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

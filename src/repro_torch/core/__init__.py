@@ -1,12 +1,22 @@
-"""C-SAW core, flat-bias random walks: the spec API, transition programs,
-counted RNG, selection, the adaptive method planner, the degree-bucketed
-scheduler and the walk engine."""
+"""C-SAW core, random walks: the spec API, transition programs, counted
+RNG, selection, the adaptive method planner, the degree-bucketed scheduler
+and the walk engine."""
 from repro_torch.core import algorithms, backend, methods, rng, select, transition
-from repro_torch.core.api import SamplingSpec
+from repro_torch.core.api import EdgeCtx, SamplingSpec
 from repro_torch.core.engine import WalkResult, flat_method_plan, random_walk
-from repro_torch.core.transition import FlatBias, IdentityEpilogue, TransitionProgram
+from repro_torch.core.transition import (
+    FlatBias,
+    IdentityEpilogue,
+    MHAcceptEpilogue,
+    OpaqueBias,
+    OpaqueEpilogue,
+    TeleportEpilogue,
+    TransitionProgram,
+    WindowBias,
+)
 
 __all__ = [
+    "EdgeCtx",
     "SamplingSpec",
     "WalkResult",
     "flat_method_plan",
@@ -19,5 +29,10 @@ __all__ = [
     "transition",
     "FlatBias",
     "IdentityEpilogue",
+    "MHAcceptEpilogue",
+    "OpaqueBias",
+    "OpaqueEpilogue",
+    "TeleportEpilogue",
     "TransitionProgram",
+    "WindowBias",
 ]

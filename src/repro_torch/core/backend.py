@@ -1,14 +1,20 @@
-"""Degree-bucketed walk scheduling with a per-cohort selection method.
+"""Degree-bucketed walk scheduling, and the ITS draw of the dense path.
 
 Per step, walkers are split by degree into cohorts — ``(0, 128]`` and
 ``(128, 512]`` — each served by one walk-step kernel with a per-cohort row
 cap, and degrees above the top bucket take a tail (the workload-aware
 scheduling of the paper, as ``repro.core.backend`` runs it).
 
-There is one scheduler, :func:`walk_step_adaptive`; the device of its
-tensors decides what runs.  On the card every cohort launches its CUDA
-kernel (ITS, alias or rejection); on the CPU the kernels' plain versions
-run.  An all-ITS plan is ``methods=("its", …)``.
+- :func:`walk_step_adaptive` — flat biases, a selection method per cohort
+  (ITS, alias or rejection); an all-ITS plan is ``methods=("its", …)``.
+- :func:`walk_step_bucketed_window` — window biases (node2vec): the hook is
+  evaluated on each cohort's compact row windows, the pick runs the
+  ``walk_step_window`` kernel, and the tail is the chunked window scan.
+- :func:`select_with_replacement` — the opaque path's ITS draw over dense
+  candidate rows, through the ``its_select`` kernel.
+
+The device of the tensors decides what runs: on the card every cohort
+launches its CUDA kernel, on the CPU the kernels' plain versions run.
 """
 from __future__ import annotations
 
@@ -18,7 +24,11 @@ import torch
 from repro_torch.core import select as sel
 from repro_torch.core.rng import fold_in, uniform
 from repro_torch.kernels.alias_select import alias_step
-from repro_torch.kernels.walk_step import reject_step, walk_step
+from repro_torch.kernels.its_select import its_select
+from repro_torch.kernels.walk_step import reject_step, walk_step, walk_step_window
+
+#: candidate pools are padded to multiples of the reference's lane width
+LANES = 128
 
 #: default degree-bucket ladder for the walk fast path:
 #: deg ∈ (0, 128] → small cohort, (128, 512] → medium cohort, > 512 → tail
@@ -28,12 +38,56 @@ WALK_BUCKETS = (128, 512)
 CHUNK = 512
 
 
-def walk_bucket_plan(max_degree: int, segs: tuple = WALK_BUCKETS) -> tuple[tuple, bool]:
+def pad_lanes(biases: torch.Tensor) -> torch.Tensor:
+    """Pad the candidate (last) dim to a lane multiple with zero bias."""
+    pad = (-biases.shape[-1]) % LANES
+    return torch.nn.functional.pad(biases, (0, pad)) if pad else biases
+
+
+def _masked(biases: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    b = torch.clamp(biases.to(torch.float32), min=0.0)
+    return b if mask is None else torch.where(mask, b, 0.0)
+
+
+def select_with_replacement(
+    key,
+    biases: torch.Tensor,
+    mask: torch.Tensor | None,
+    k: int,
+    *,
+    rand: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """ITS draw *with* replacement over ``(W, P)`` candidate rows.
+
+    ``k == 1`` runs the ``its_select`` kernel with a one-round budget (a
+    single draw cannot collide, so selection without replacement computes
+    the with-replacement draw): the uniform is ``uniform(key, (W, 1, 1))``,
+    the bits of the reference's ``(W, 1)`` draw, and the rows are padded to
+    a lane multiple with zeros as the reference pads them.  ``rand``
+    overrides that draw with ``(W, 1, 1)`` uniforms (the engine slices
+    one full-batch draw into blocks).  All-zero rows give ``P - 1`` like
+    the reference.  Larger ``k`` runs :func:`select.select_with_replacement`.
+    """
+    if k != 1:
+        return sel.select_with_replacement(key, biases, mask, k)
+    p = biases.shape[-1]
+    if rand is None:
+        rand = uniform(key, (biases.shape[0], 1, 1), device=biases.device)
+    idx, _ = its_select(pad_lanes(_masked(biases, mask)).contiguous(), rand.contiguous())
+    return torch.where(idx >= 0, idx, p - 1)
+
+
+def walk_bucket_plan(
+    max_degree: int, segs: tuple = WALK_BUCKETS, exact: bool = False
+) -> tuple[tuple, bool]:
     """Static per-graph schedule: kernel segment sizes + need for the tail.
 
     Returns ``(buckets, use_chunked)``: one cohort per bucket segment the
     graph can populate, plus the huge-degree tail for degrees above the last
-    segment.
+    segment.  With ``exact=True`` the caller asserts ``max_degree`` is the
+    true max row degree, and the top segment shrinks to the smallest
+    multiple of the bucket below it that covers it (a graph with max degree
+    219 runs its top cohort in 256-wide windows).
     """
     buckets = []
     lo = 0
@@ -43,22 +97,40 @@ def walk_bucket_plan(max_degree: int, segs: tuple = WALK_BUCKETS) -> tuple[tuple
         lo = s
     if not buckets:
         buckets = [segs[0]]
+    if exact:
+        base = buckets[-2] if len(buckets) > 1 else LANES
+        fit = max(-(-max(max_degree, 1) // base) * base, LANES)
+        buckets[-1] = min(buckets[-1], fit)
     return tuple(buckets), max_degree > segs[-1]
 
 
-def _chunked_tail(key, indptr, indices, flat_bias, safe, deg, seg_hi, nxt):
-    """Route walkers with ``deg > seg_hi`` through the two-pass chunked scan
-    (only those walkers: the scan runs to their longest row)."""
+def walk_bucket_plan_window(max_degree: int, segs: tuple = WALK_BUCKETS) -> tuple[tuple, bool]:
+    """Bucket plan for the window-bias path: exact, and ladder-merged.
+
+    Every cohort re-evaluates the hook, so the ladder collapses into the top
+    cohort when that is at most twice the bottom one.  Degrees above the
+    top segment take the chunked window tail.
+    """
+    buckets, use_chunked = walk_bucket_plan(max_degree, segs, exact=True)
+    if len(buckets) > 1 and buckets[-1] <= 2 * buckets[0]:
+        buckets = buckets[-1:]
+    return tuple(buckets), use_chunked
+
+
+def _chunked_tail(key, indptr, indices, safe, deg, seg_hi, nxt, scan):
+    """Route walkers with ``deg > seg_hi`` through a two-pass chunked scan
+    (only those walkers: the scan runs to their longest row).
+    ``scan(huge, vertices, rand)`` returns each one's edge offset, -1 for a
+    dead end; its uniforms are ``uniform(key, (W,))`` sliced to them."""
     huge = torch.nonzero(deg > seg_hi).squeeze(1)
     if huge.numel() == 0:
         return nxt
     rand = uniform(key, (nxt.shape[0],), device=nxt.device)[huge]
     rows = safe[huge]
-    off = sel.walk_transition_chunked(key, indptr, flat_bias, rows, chunk=CHUNK, rand=rand)
+    off = scan(huge, rows, rand)
     eidx = torch.clamp(indptr[rows].long() + torch.clamp(off, min=0), 0, indices.shape[0] - 1)
-    cand = torch.where(off >= 0, indices[eidx], -1)
     nxt = nxt.clone()
-    nxt[huge] = cand
+    nxt[huge] = torch.where(off >= 0, indices[eidx], -1)
     return nxt
 
 
@@ -135,6 +207,86 @@ def walk_step_adaptive(
             nxt = torch.where(huge, cand, nxt)
         else:
             nxt = _chunked_tail(
-                fold_in(key, 1), indptr, indices, flat_bias, safe, deg, buckets[-1], nxt
+                fold_in(key, 1), indptr, indices, safe, deg, buckets[-1], nxt,
+                lambda huge, rows, rand: sel.walk_transition_chunked(
+                    None, indptr, flat_bias, rows, chunk=CHUNK, rand=rand),
             )
+    return nxt
+
+
+def window_bias_rows(indices, weights, st, dg, rows, bias_of, seg: int) -> torch.Tensor:
+    """The ``(n, seg)`` bias rows of one window cohort: walkers ``rows``
+    with row starts ``st`` and capped degrees ``dg`` gather their ids and
+    weights, and the hook's bias, clipped at 0, fills columns ``< dg``
+    (zeros elsewhere).  Evaluated in blocks of ``select.ROW_BLOCK`` walkers,
+    which bounds the hook's temporaries."""
+    bias = torch.empty((rows.shape[0], seg), dtype=torch.float32, device=st.device)
+    offs = torch.arange(seg, device=st.device)
+    for b in range(0, rows.shape[0], sel.ROW_BLOCK):
+        blk = slice(b, b + sel.ROW_BLOCK)
+        cmask = offs < dg[blk, None]
+        eidx = torch.where(cmask, st[blk, None].long() + offs, 0)
+        u = torch.where(cmask, indices[eidx], -1)
+        wt = torch.where(cmask, weights[eidx], 0.0)
+        bias[blk] = torch.where(cmask, torch.clamp(bias_of(rows[blk], u, wt, cmask), min=0.0), 0.0)
+    return bias
+
+
+def walk_step_bucketed_window(
+    key: np.ndarray,
+    indptr: torch.Tensor,
+    indices: torch.Tensor,
+    weights: torch.Tensor,
+    cur: torch.Tensor,
+    bias_of,
+    *,
+    buckets: tuple,
+    use_chunked: bool,
+) -> torch.Tensor:
+    """One window-bias (dynamic) transition for all walkers, by degree.
+
+    Per bucket, the cohort's members (only those: the reference evaluates
+    every walker at every width, which would not fit the card at full size)
+    gather their compact ``(n, seg)`` row windows — ids and weights — and
+    ``bias_of(rows, u, w, mask)`` evaluates the hook on them (``rows``
+    index the walkers; :func:`window_bias_rows`); the clipped, masked bias
+    rows go to one ``walk_step_window`` launch as they are.  The hook is
+    per-edge, so each member's bias equals the reference's.  Degrees above
+    the last bucket take :func:`select.walk_transition_chunked_window`.
+
+    Counted RNG as the reference: the bucket uniform is ``fold_in(key, 0)``
+    and the tail's ``fold_in(key, 1)``, each drawn over all W walkers and
+    sliced.  Returns next vertices (W,) int32, -1 for finished walkers and
+    dead ends.
+    """
+    dev = cur.device
+    w = cur.shape[0]
+    safe = torch.clamp(cur, min=0).long()
+    starts = indptr[safe]
+    deg = torch.where(cur >= 0, indptr[safe + 1] - starts, 0)
+    r = uniform(fold_in(key, 0), (w,), device=dev)
+
+    nxt = torch.full_like(cur, -1)
+    lo = 0
+    for i, seg in enumerate(buckets):
+        # an understated max_degree degrades to neighborhood truncation (the
+        # top cohort absorbs larger degrees, capped at its window), never
+        # silent walker death
+        absorb = i == len(buckets) - 1 and not use_chunked
+        rows = torch.nonzero((deg > lo) & ((deg <= seg) | absorb)).squeeze(1)
+        lo = seg
+        if rows.numel() == 0:
+            continue
+        st = starts[rows]
+        dg = torch.clamp(deg[rows], max=seg)
+        bias = window_bias_rows(indices, weights, st, dg, rows, bias_of, seg)
+        nxt[rows] = walk_step_window(st, dg, indices, bias, r[rows], max_seg=seg)
+
+    if use_chunked:
+        nxt = _chunked_tail(
+            fold_in(key, 1), indptr, indices, safe, deg, buckets[-1], nxt,
+            lambda huge, rows, rand: sel.walk_transition_chunked_window(
+                None, indptr, indices, weights, rows,
+                lambda sub, u, wt, m: bias_of(huge[sub], u, wt, m), chunk=CHUNK, rand=rand),
+        )
     return nxt

@@ -64,18 +64,53 @@ def fold_in(key: np.ndarray, data: int) -> np.ndarray:
     return np.array([a, b], dtype=np.uint32)
 
 
+def split(key: np.ndarray, num: int = 2) -> np.ndarray:
+    """``(num, 2)`` keys, as ``jax.random.split(key, num)``'s raw words."""
+    return np.stack([fold_in(key, i) for i in range(int(num))])
+
+
+def _shape(shape) -> tuple:
+    return tuple(int(d) for d in shape) if isinstance(shape, (tuple, list)) else (int(shape),)
+
+
 def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     return mant.view(torch.float32) - 1.0
 
 
+def random_bits(key: np.ndarray, shape, device="cpu") -> torch.Tensor:
+    """32 random bits per element (in int64), as ``jax.random.bits``."""
+    shape = _shape(shape)
+    k0, k1 = (int(k) for k in key)
+    i = torch.arange(int(np.prod(shape)), dtype=torch.int64, device=device)
+    a, b = threefry2x32(k0, k1, i >> 32, i & _MASK)
+    return (a ^ b).reshape(shape)
+
+
 def uniform(key: np.ndarray, shape, device="cpu") -> torch.Tensor:
     """f32 uniforms in ``[0, 1)`` with ``jax.random.uniform(key, shape)``'s
-    bits (1-D draws; element ``i`` hashes counter ``i``)."""
-    shape = tuple(shape) if isinstance(shape, (tuple, list)) else (int(shape),)
-    if len(shape) != 1:
-        raise ValueError(f"uniform draws 1-D shapes only, got {shape}")
-    return uniform_many(key[None, :], shape[0], device)[0]
+    bits, for any shape (element ``i`` of the row-major order hashes
+    counter ``i``)."""
+    return _bits_to_unit_float(random_bits(key, shape, device))
+
+
+def randint(key: np.ndarray, shape, minval: int, maxval: int, device="cpu") -> torch.Tensor:
+    """int32 integers in ``[minval, maxval)``, as ``jax.random.randint``.
+
+    Two 32-bit draws per element (keys ``split(key)``), combined modulo
+    the span: ``(hi % span · m + lo % span) % span`` with
+    ``m = (2^16 % span)^2 % span``.  JAX does these products in uint32 and
+    lets them wrap, so every product here is masked back to 32 bits (for a
+    span of ``2^16`` or more, ``m`` itself wraps: at ``2^21`` it is 0).
+    """
+    k_hi, k_lo = split(key)
+    span = max(int(maxval) - int(minval), 1)
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & _MASK) % span
+    hi = random_bits(k_hi, shape, device) % span
+    lo = random_bits(k_lo, shape, device) % span
+    off = ((((hi * mult) & _MASK) + lo) & _MASK) % span
+    return (off + int(minval)).to(torch.int32)
 
 
 def uniform_many(keys: np.ndarray, n: int, device="cpu") -> torch.Tensor:

@@ -1,9 +1,12 @@
-"""Bias-based vertex selection for flat-bias walks (paper §II-B, §IV).
+"""Bias-based vertex selection for random walks (paper §II-B, §IV).
 
-The flat parts of ``repro.core.select``:
+The walk parts of ``repro.core.select``:
 
-- the chunked two-pass ITS scan for rows above the top degree bucket
-  (:func:`walk_transition_chunked`);
+- the CTPS and ITS draw with replacement (:func:`build_ctps`,
+  :func:`its_search`, :func:`select_with_replacement`);
+- the chunked two-pass ITS scan for rows above the top degree bucket, over
+  a flat bias (:func:`walk_transition_chunked`) or a window-bias hook
+  (:func:`walk_transition_chunked_window`);
 - the adaptive runtime's O(1) methods: alias tables (:func:`build_alias`,
   host numpy) and rejection envelopes (:func:`build_row_max`), their
   counted random budget (:func:`rejection_randoms`) and their uncapped
@@ -47,6 +50,82 @@ def row_sum(w: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def build_ctps(biases: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Inclusive normalized prefix sum of biases: the CTPS (paper Eq. 1).
+
+    Region of candidate ``j`` is ``[ctps[j-1], ctps[j])``; masked and
+    zero-bias candidates get zero-width regions.  The scan is
+    ``kernels.ref.padded_cumsum``, XLA-CPU's association for any width.
+    """
+    if mask is not None:
+        biases = torch.where(mask, biases, 0.0)
+    sums = ref.padded_cumsum(torch.clamp(biases.to(torch.float32), min=0.0))
+    return sums / torch.clamp(sums[..., -1:], min=ref._EPS)
+
+
+def its_search(ctps: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Index of the CTPS region holding each ``r``: the count of region
+    bounds ``<= r`` (``r`` is ``ctps.shape[:-1] + (k,)``), clipped."""
+    idx = (ctps[..., None, :] <= r[..., :, None]).sum(dim=-1)
+    return torch.clamp(idx, 0, ctps.shape[-1] - 1).to(torch.int32)
+
+
+def select_with_replacement(key, biases: torch.Tensor, mask: torch.Tensor | None,
+                            k: int) -> torch.Tensor:
+    """ITS selection *with* replacement (random-walk case, paper Table I):
+    ``k`` draws per instance from ``uniform(key, batch + (k,))``."""
+    ctps = build_ctps(biases, mask)
+    r = uniform(key, tuple(ctps.shape[:-1]) + (k,), device=ctps.device)
+    return its_search(ctps, r)
+
+
+#: rows per block of a chunked scan: (block, chunk) temporaries at any W
+ROW_BLOCK = 1 << 18
+
+
+def _chunked_scan(deg: torch.Tensor, rand: torch.Tensor, chunk: int, chunk_bias) -> torch.Tensor:
+    """Two-pass chunked ITS: pass 1 totals each row chunk by chunk
+    (:func:`row_sum`), pass 2 finds the first edge whose running sum
+    (:func:`~repro_torch.kernels.ref.blocked_cumsum`) exceeds ``r·total``.
+
+    ``chunk_bias(rows, c)`` gives the ``(len(rows), chunk)`` biases of
+    chunk ``c`` of those rows, zero past their degree.  Chunk ``c`` runs
+    only over the rows it reaches — the reference adds zeros for the
+    others, which changes no total and no crossing — in blocks of
+    :data:`ROW_BLOCK` rows.  Returns each row's edge offset (int32), -1 for
+    a dead end.
+    """
+    dev = deg.device
+    n = deg.shape[0]
+    order = torch.argsort(deg, descending=True)
+    nchunks = max((int(deg.max()) + chunk - 1) // chunk, 1) if n else 0
+    # rows reaching chunk c: a prefix of ``order``
+    firsts = torch.arange(nchunks, device=dev) * chunk
+    reach = (deg[None, :] > firsts[:, None]).sum(dim=1).tolist()
+    blocks = [(c, order[s:min(s + ROW_BLOCK, reach[c])])
+              for c in range(nchunks) for s in range(0, reach[c], ROW_BLOCK)]
+
+    total = torch.zeros(n, dtype=torch.float32, device=dev)
+    for c, rows in blocks:
+        total[rows] = total[rows] + row_sum(chunk_bias(rows, c))
+    target = rand * total
+
+    cum = torch.zeros(n, dtype=torch.float32, device=dev)
+    found = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    offs = torch.arange(chunk, device=dev)
+    for c, rows in blocks:
+        m = c * chunk + offs < deg[rows, None]
+        cw = ref.blocked_cumsum(chunk_bias(rows, c)) + cum[rows, None]
+        hit = (cw > target[rows, None]) & m & (found[rows, None] < 0)
+        first = hit.to(torch.uint8).argmax(dim=-1) + c * chunk
+        found[rows] = torch.where((found[rows] < 0) & hit.any(dim=-1), first, found[rows])
+        cum[rows] = cw[:, -1]
+    live = (deg > 0) & (total > 0)
+    # numerical edge: r*total == total -> take the last edge of the row
+    found = torch.where((found < 0) & live, deg - 1, found)
+    return torch.where(live, found, -1).to(torch.int32)
+
+
 def walk_transition_chunked(
     key: np.ndarray,
     indptr: torch.Tensor,
@@ -55,49 +134,61 @@ def walk_transition_chunked(
     chunk: int = 512,
     rand: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """One weighted ITS draw per walker over arbitrarily large rows.
+    """One weighted ITS draw per walker over arbitrarily large rows
+    (:func:`_chunked_scan` over the flat bias ``weights``).
 
-    Two-pass chunked scan: pass 1 accumulates each row's total chunk by
-    chunk, pass 2 finds the first edge whose running sum exceeds
-    ``r * total``.  Returns the edge offset within each row (int32), -1 for
-    a dead end.  The loops run to the longest row among ``cur`` only, so
-    callers pass just the walkers that need the scan.  ``rand`` overrides
+    Returns the edge offset within each row (int32), -1 for a dead end.
+    Callers pass just the walkers that need the scan.  ``rand`` overrides
     the uniforms ``uniform(key, cur.shape)``.
     """
-    dev = cur.device
-    n = cur.shape[0]
     cur = cur.long()
     start = indptr[cur].long()
     deg = indptr[cur + 1].long() - start
     if rand is None:
-        rand = uniform(key, (n,), device=dev)
-    nchunks = max((int(deg.max()) + chunk - 1) // chunk, 1) if n else 0
-    offs = torch.arange(chunk, device=dev)
+        rand = uniform(key, (cur.shape[0],), device=cur.device)
+    offs = torch.arange(chunk, device=cur.device)
 
-    def chunk_weights(c):
+    def chunk_bias(rows, c):
         pos = c * chunk + offs
-        m = pos < deg[:, None]
-        eidx = torch.where(m, start[:, None] + pos, 0)
-        return torch.where(m, weights[eidx], 0.0), m
+        m = pos < deg[rows, None]
+        return torch.where(m, weights[torch.where(m, start[rows, None] + pos, 0)], 0.0)
 
-    total = torch.zeros(n, dtype=torch.float32, device=dev)
-    for c in range(nchunks):
-        total = total + row_sum(chunk_weights(c)[0])
-    target = rand * total
+    return _chunked_scan(deg, rand, chunk, chunk_bias)
 
-    cum = torch.zeros(n, dtype=torch.float32, device=dev)
-    found = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    for c in range(nchunks):
-        w, m = chunk_weights(c)
-        cw = ref.blocked_cumsum(w) + cum[:, None]
-        hit = (cw > target[:, None]) & m & (found[:, None] < 0)
-        first = hit.to(torch.uint8).argmax(dim=-1) + c * chunk
-        found = torch.where((found < 0) & hit.any(dim=-1), first, found)
-        cum = cw[:, -1]
-    live = (deg > 0) & (total > 0)
-    # numerical edge: r*total == total -> take the last edge of the row
-    found = torch.where((found < 0) & live, deg - 1, found)
-    return torch.where(live, found, -1).to(torch.int32)
+
+def walk_transition_chunked_window(
+    key: np.ndarray,
+    indptr: torch.Tensor,
+    indices: torch.Tensor,
+    weights: torch.Tensor,
+    cur: torch.Tensor,
+    bias_of,
+    chunk: int = 512,
+    rand: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Window-bias variant of :func:`walk_transition_chunked`: the bias of
+    each ``(n, chunk)`` edge window is ``bias_of(rows, u, w, mask)``, the
+    transition program's hook over candidate ids ``u`` and weights ``w``
+    of walkers ``rows`` (indices into ``cur``), clipped at 0 and masked.
+    Both passes evaluate the hook on identical windows.  Returns per-row
+    edge offsets, -1 for dead ends.
+    """
+    cur = cur.long()
+    start = indptr[cur].long()
+    deg = indptr[cur + 1].long() - start
+    if rand is None:
+        rand = uniform(key, (cur.shape[0],), device=cur.device)
+    offs = torch.arange(chunk, device=cur.device)
+
+    def chunk_bias(rows, c):
+        pos = c * chunk + offs
+        m = pos < deg[rows, None]
+        eidx = torch.where(m, start[rows, None] + pos, 0)
+        u = torch.where(m, indices[eidx], -1)
+        w = torch.where(m, weights[eidx], 0.0)
+        return torch.where(m, torch.clamp(bias_of(rows, u, w, m), min=0.0), 0.0)
+
+    return _chunked_scan(deg, rand, chunk, chunk_bias)
 
 
 # ---------------------------------------------------------------------------

@@ -3,6 +3,7 @@ from repro_torch.graph.csr import (
     CSRGraph,
     csr_from_arrays,
     csr_from_edges,
+    neighbors_padded,
     resolve_device,
 )
 from repro_torch.graph.generators import erdos_renyi_graph, powerlaw_graph, rmat_graph
@@ -11,6 +12,7 @@ __all__ = [
     "CSRGraph",
     "csr_from_arrays",
     "csr_from_edges",
+    "neighbors_padded",
     "resolve_device",
     "rmat_graph",
     "erdos_renyi_graph",

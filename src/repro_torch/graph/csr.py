@@ -114,3 +114,23 @@ def csr_from_edges(
     indptr = np.zeros(num_vertices + 1, dtype=np.int32)
     np.cumsum(counts, out=indptr[1:])
     return csr_from_arrays(indptr, dst, w, device=device)
+
+
+def neighbors_padded(
+    graph: CSRGraph, vertices: torch.Tensor, max_degree: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Padded neighbor lists of a batch of vertices (all ``>= 0``).
+
+    Returns ``(neighbors, weights, mask)``, each ``vertices.shape +
+    (max_degree,)``; padded slots hold neighbor -1, weight 0, mask False.
+    Degrees above ``max_degree`` are truncated.
+    """
+    v = vertices.long()
+    start = graph.indptr[v].long()
+    deg = graph.indptr[v + 1].long() - start
+    offs = torch.arange(max_degree, device=v.device)
+    mask = offs < deg[..., None]
+    safe = torch.where(mask, start[..., None] + offs, 0)
+    nbrs = torch.where(mask, graph.indices[safe], -1)
+    wts = torch.where(mask, graph.weights[safe], 0.0)
+    return nbrs, wts, mask

@@ -1,17 +1,22 @@
-"""Walk-step kernels for Hopper, each beside its plain PyTorch version.
+"""Walk-step and selection kernels for Hopper, each beside its plain
+PyTorch version.
 
-- ``walk_step``    — flat-bias ITS step (replaces ``walk_step_pallas``)
-- ``reject_step``  — counted-budget rejection step (``reject_step_pallas``)
-- ``alias_step``   — O(1) alias-table step (``alias_step_pallas``)
-- ``ref``          — the plain versions, and ``blocked_cumsum``
+- ``walk_step``        — flat-bias ITS step (replaces ``walk_step_pallas``)
+- ``walk_step_window`` — window-bias ITS step (``walk_step_window_pallas``)
+- ``reject_step``      — counted-budget rejection step (``reject_step_pallas``)
+- ``alias_step``       — O(1) alias-table step (``alias_step_pallas``)
+- ``its_select``       — K-of-P ITS selection with region search
+  (``its_select_pallas``)
+- ``ref``              — the plain versions, and the scan rule
 
 The CUDA sources live in ``csrc/`` and are built at first use
 (``_build``); importing this package builds nothing.
 """
 from repro_torch.kernels.alias_select import alias_step
-from repro_torch.kernels.walk_step import reject_step, walk_step
+from repro_torch.kernels.its_select import its_select
+from repro_torch.kernels.walk_step import reject_step, walk_step, walk_step_window
 
-KERNEL_WRAPPERS = (walk_step, reject_step, alias_step)
+KERNEL_WRAPPERS = (walk_step, reject_step, alias_step, walk_step_window, its_select)
 
 
 def launch_counts() -> dict:
@@ -26,8 +31,10 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "alias_step",
+    "its_select",
     "reject_step",
     "walk_step",
+    "walk_step_window",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -34,6 +34,8 @@ _SIGNATURES = {
     "reject_step_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "alias_step_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "walk_step_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "walk_step_window_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "its_select_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -124,5 +126,6 @@ def require_cuda(name: str, walkers: tuple, tables: tuple) -> None:
             raise ValueError(f"{name}: operands must be contiguous")
     if len({t.shape[0] for t, _ in walkers}) != 1:
         raise ValueError(f"{name}: per-walker operands of different lengths")
-    if len({t.dim() for t, _ in tables} | {1}) != 1 or len({t.shape[0] for t, _ in tables}) != 1:
+    if tables and (len({t.dim() for t, _ in tables} | {1}) != 1
+                   or len({t.shape[0] for t, _ in tables}) != 1):
         raise ValueError(f"{name}: CSR-aligned operands must be 1-D of one length")

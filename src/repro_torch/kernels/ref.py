@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the walk-step kernels.
+"""Plain PyTorch versions of the walk-step and selection kernels.
 
 Each function computes what its CUDA kernel computes, with the same f32
 arithmetic in the same order, so the two agree bit for bit; each is also
@@ -12,9 +12,12 @@ positions outside the row are masked to zero before they are read.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _EPS = 1e-12
+#: the BRS clip bound ``1 - 1e-12`` as JAX applies it to f32 (1.0)
+_ONE_MINUS_EPS = float(np.float32(1.0 - _EPS))
 
 #: block width of XLA-CPU's scan association (see :func:`blocked_cumsum`)
 SCAN_BLOCK = 16
@@ -27,28 +30,43 @@ def _sequential_cumsum(x: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
-def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
+def padded_cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive f32 prefix sums over the last axis, associated exactly as
-    XLA-CPU's ``jnp.cumsum``: a recursive base-16 blocked scan.
+    XLA-CPU's ``jnp.cumsum``, for any width: a recursive base-16 blocked
+    scan.
 
     Sequential inside each 16-wide block; the block totals are scanned by the
     same rule; each block but the first then adds its exclusive prefix (the
-    scanned total of the block before it) to its in-block sums.  Blocks are
-    counted from position 0 of ``x`` — for a walk-step window, the block
-    origin ``start // seg * seg``, not the row start.  Written as explicit
-    column adds, which round the same on every device (``torch.cumsum``
-    associates differently on both CPU and CUDA).  Widths of at most 16, or
-    multiples of 16 whose block counts obey the same rule, are accepted.
+    scanned total of the block before it) to its in-block sums.  Each level
+    is zero-padded to a multiple of 16 first, as XLA pads it, which changes
+    no prefix.  Blocks are counted from position 0 of ``x`` — for a
+    walk-step window, the block origin ``start // seg * seg``, not the row
+    start.  Written as explicit column adds, which round the same on every
+    device (``torch.cumsum`` associates differently on both CPU and CUDA).
     """
     n = x.shape[-1]
     if n <= SCAN_BLOCK:
         return _sequential_cumsum(x)
-    if n % SCAN_BLOCK:
-        raise ValueError(f"blocked_cumsum needs a width <= 16 or a multiple of 16, got {n}")
-    s = _sequential_cumsum(x.reshape(*x.shape[:-1], n // SCAN_BLOCK, SCAN_BLOCK))
-    totals = blocked_cumsum(s[..., SCAN_BLOCK - 1])
+    pad = (-n) % SCAN_BLOCK
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    m = n + pad
+    s = _sequential_cumsum(x.reshape(*x.shape[:-1], m // SCAN_BLOCK, SCAN_BLOCK))
+    totals = padded_cumsum(s[..., SCAN_BLOCK - 1])
     out = torch.cat([s[..., :1, :], s[..., 1:, :] + totals[..., :-1, None]], dim=-2)
-    return out.reshape(x.shape)
+    return out.reshape(*x.shape[:-1], m)[..., :n]
+
+
+def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """:func:`padded_cumsum` for the walk-step windows, whose widths need no
+    padding: at most 16, or multiples of 16 whose block counts obey the same
+    rule."""
+    n = x.shape[-1]
+    while n > SCAN_BLOCK:
+        if n % SCAN_BLOCK:
+            raise ValueError(f"blocked_cumsum needs a width <= 16 or a multiple of 16, got {x.shape[-1]}")
+        n //= SCAN_BLOCK
+    return padded_cumsum(x)
 
 
 def _cap(degs: torch.Tensor, seg: int | None) -> torch.Tensor:
@@ -61,6 +79,30 @@ def _gather(table: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return table[pos.long().clamp(0, table.shape[0] - 1)]
 
 
+def _window_pick(local, blk0, degs, mask, wts, rand, indices) -> torch.Tensor:
+    """The ITS pick over block-aligned windows: the masked cumsum, the
+    count of prefixes ``<= r·total``, and the neighbor id at that offset;
+    -1 where the degree is 0 or the total is ``<= 1e-12``."""
+    cum = blocked_cumsum(wts)
+    total = cum[:, -1]
+    target = rand * total
+    pick = ((cum <= target[:, None]) & mask).sum(dim=-1, dtype=torch.int32)
+    pick = torch.minimum(local + pick, local + torch.clamp(degs - 1, min=0))
+    cand = _gather(indices, blk0 + pick)
+    dead = (degs <= 0) | (total <= _EPS)
+    return torch.where(dead, -1, cand).to(torch.int32)
+
+
+def _block_window(starts: torch.Tensor, degs: torch.Tensor, seg: int):
+    """Each row's place in its ``2·seg`` window from the block origin
+    ``blk0 = start // seg * seg``: ``(local, blk0, offs, mask)``, the row at
+    offsets ``[local, local + deg)``."""
+    local = starts % seg
+    offs = torch.arange(2 * seg, dtype=torch.int32, device=starts.device)
+    mask = (offs >= local[:, None]) & (offs < (local + degs)[:, None])
+    return local, starts - local, offs, mask
+
+
 def walk_step_block_ref(
     starts: torch.Tensor,
     degs: torch.Tensor,
@@ -70,28 +112,38 @@ def walk_step_block_ref(
     *,
     seg: int,
 ) -> torch.Tensor:
-    """One flat-bias ITS cohort (``walk_step`` kernel): the masked cumsum
-    over the block-aligned ``2·seg`` window, the count of prefixes
-    ``<= r·total``, and the neighbor id at that offset; -1 where the degree
-    is 0 or the total is ``<= 1e-12``.
+    """One flat-bias ITS cohort (``walk_step`` kernel): the pick of
+    :func:`_window_pick` over the block-aligned ``2·seg`` window.
 
     starts/degs: (W,) int32 with ``degs <= seg``; indices/bias: flat CSR
     arrays (padded or not); rand: (W,) f32.  Returns (W,) int32.
     """
-    width = 2 * seg
-    local = starts % seg
-    blk0 = starts - local
-    offs = torch.arange(width, dtype=torch.int32, device=starts.device)
-    mask = (offs >= local[:, None]) & (offs < (local + degs)[:, None])
+    local, blk0, offs, mask = _block_window(starts, degs, seg)
     wts = torch.where(mask, _gather(bias, blk0[:, None] + offs), 0.0)
-    cum = blocked_cumsum(wts)
-    total = cum[:, -1]
-    target = rand * total
-    pick = ((cum <= target[:, None]) & mask).sum(dim=-1, dtype=torch.int32)
-    pick = torch.minimum(local + pick, local + torch.clamp(degs - 1, min=0))
-    cand = _gather(indices, blk0 + pick)
-    dead = (degs <= 0) | (total <= _EPS)
-    return torch.where(dead, -1, cand).to(torch.int32)
+    return _window_pick(local, blk0, degs, mask, wts, rand, indices)
+
+
+def walk_step_window_block_ref(
+    starts: torch.Tensor,
+    degs: torch.Tensor,
+    indices: torch.Tensor,
+    bias_rows: torch.Tensor,
+    rand: torch.Tensor,
+    *,
+    seg: int,
+) -> torch.Tensor:
+    """One window-bias ITS cohort (``walk_step_window`` kernel).
+
+    ``bias_rows`` is ``(W, seg)`` f32, row-aligned: column ``j`` holds the
+    computed bias of the walker's edge ``start + j`` (``j < deg``).  The
+    values are placed at offset ``start % seg`` of the ``2·seg`` window —
+    the reference's ``(W, 2·seg)`` operand, value for value — and picked as
+    :func:`walk_step_block_ref` picks.
+    """
+    local, blk0, offs, mask = _block_window(starts, degs, seg)
+    src = torch.clamp(offs - local[:, None], 0, seg - 1).long()
+    wts = torch.where(mask, torch.gather(bias_rows, 1, src), 0.0)
+    return _window_pick(local, blk0, degs, mask, wts, rand, indices)
 
 
 def alias_step_block_ref(
@@ -164,3 +216,63 @@ def reject_step_block_ref(
     nxt = _gather(indices, starts + torch.clamp(chosen, min=0))
     dead = (degs <= 0) | (row_max <= 0) | (chosen < 0)
     return torch.where(dead, -1, nxt).to(torch.int32)
+
+
+def its_select_ref(biases: torch.Tensor, rands: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """ITS + bipartite region search, K of P without replacement
+    (``its_select`` kernel, ``its_select_pallas(..., with_stats=True)``).
+
+    biases: (I, P) f32 (``<= 0`` unselectable); rands: (I, ITERS, K) f32,
+    the counted retry budget.  The CTPS is ``cumsum(max(b, 0)) /
+    max(total, 1e-12)`` (:func:`padded_cumsum`, counted from position 0).
+    Round ``t`` draws ``r1``, searches its region (the count of CTPS
+    entries ``<= r1``, clipped to ``P - 1``) and, when that region is
+    taken, moves to ``r2 = r1·(1-δ)`` shifted past the region by ``δ`` and
+    clipped to ``[0, 1]``; a candidate needs mass, and among equal
+    candidates the lowest lane wins.  Returns ``(idx (I, K) int32, -1
+    unfilled; stats (I, 2) int32 = (rounds with a pending draw, CTPS
+    searches))``.
+    """
+    n, p = biases.shape
+    iters, k = rands.shape[1], rands.shape[2]
+    dev = biases.device
+    b = torch.clamp(biases.to(torch.float32), min=0.0)
+    sums = padded_cumsum(b)
+    ctps = (sums / torch.clamp(sums[:, -1:], min=_EPS)).contiguous()
+    lower = torch.cat([torch.zeros_like(ctps[:, :1]), ctps[:, :-1]], dim=-1)
+    want = torch.clamp((b > 0).sum(dim=-1), max=k)
+    lane = torch.arange(k, device=dev)
+    beats = torch.tril(torch.ones(k, k, dtype=torch.bool, device=dev), diagonal=-1)
+    done = lane >= want[:, None]
+    out = torch.full((n, k), -1, dtype=torch.int32, device=dev)
+    taken = torch.zeros((n, p + 1), dtype=torch.bool, device=dev)  # column p: losers
+    rounds = torch.zeros(n, dtype=torch.int32, device=dev)
+    searches = torch.zeros(n, dtype=torch.int32, device=dev)
+
+    def search(r):
+        # the CTPS is nondecreasing: the upper bound of r is the count <= r
+        return torch.clamp(torch.searchsorted(ctps, r.contiguous(), right=True), max=p - 1)
+
+    for it in range(iters):
+        pending = ~done
+        if not bool(pending.any()):
+            break  # no draw pending: later rounds change nothing
+        r1 = rands[:, it, :]
+        idx1 = search(r1)
+        hit1 = torch.gather(taken, 1, idx1)
+        rounds += pending.any(dim=-1).to(torch.int32)
+        searches += pending.sum(dim=-1, dtype=torch.int32) + (pending & hit1).sum(dim=-1, dtype=torch.int32)
+        lo = torch.gather(lower, 1, idx1)
+        delta = torch.gather(ctps, 1, idx1) - lo
+        r2 = r1 * (1.0 - delta)
+        r2 = torch.clamp(torch.where(r2 < lo, r2, r2 + delta), 0.0, _ONE_MINUS_EPS)
+        idx2 = search(r2)
+        hit2 = torch.gather(taken, 1, idx2)
+        cand = torch.where(hit1, idx2, idx1)
+        ok = ~done & ~torch.where(hit1, hit2, hit1) & (torch.gather(b, 1, cand) > 0)
+        same = (cand[:, :, None] == cand[:, None, :]) & ok[:, :, None] & ok[:, None, :]
+        win = ok & ~(same & beats).any(dim=-1)
+        out = torch.where(win, cand.to(torch.int32), out)
+        taken.scatter_(1, torch.where(win, cand, p), True)
+        done = done | win
+    return out, torch.stack([rounds, searches], dim=-1)

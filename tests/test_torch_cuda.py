@@ -114,3 +114,94 @@ def test_card_walks_equal_cpu_walks(cuda_device, method):
     gpu = random_walk(g, seeds, PRNGKey(2), depth=6, spec=spec, max_degree=600, device=cuda_device)
     np.testing.assert_array_equal(gpu.walks.cpu().numpy(), cpu.walks.numpy())
     assert sum(kernels.launch_counts().values()) > 0
+
+
+def _window_case(seed: int, w: int, seg: int):
+    """Row-aligned window bias rows for walkers on rows of degree 0..seg,
+    some zero-bias entries and zero-total rows."""
+    rng = np.random.default_rng(seed)
+    e = 1 << 16
+    degs = rng.integers(0, seg + 1, w).astype(np.int32)
+    degs[:8] = seg
+    starts = rng.integers(0, e - seg, w).astype(np.int32)
+    bias = (rng.random((w, seg)) * (rng.random((w, seg)) > 0.1)).astype(np.float32)
+    bias[np.arange(seg)[None, :] >= degs[:, None]] = 0.0
+    bias[10] = 0.0
+    arrays = dict(starts=starts, degs=degs, bias=bias,
+                  indices=rng.integers(0, 1 << 30, e).astype(np.int32),
+                  rand=rng.random(w).astype(np.float32))
+    return {k: torch.from_numpy(v) for k, v in arrays.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg", [128, 256, 512])
+def test_window_kernel_matches_plain_version(cuda_device, seg):
+    cpu = _window_case(seg, 4096, seg)
+    gpu = {k: v.to(cuda_device) for k, v in cpu.items()}
+    kernels.reset_launch_counts()
+    args = ("starts", "degs", "indices", "bias", "rand")
+    want = kernels.walk_step_window(*(cpu[k] for k in args), max_seg=seg)
+    got = kernels.walk_step_window(*(gpu[k] for k in args), max_seg=seg)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert (want == -1).any() and (want >= 0).any()
+    assert kernels.launch_counts()["walk_step_window"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,iters", [(1, 1), (4, 8), (8, 32), (32, 32)])
+@pytest.mark.parametrize("p", [37, 128, 1000, 4096])
+def test_its_select_kernel_matches_plain_version(cuda_device, k, iters, p):
+    rng = np.random.default_rng(p + k)
+    n = 2048
+    b = (rng.random((n, p)) * (rng.random((n, p)) > 0.3)).astype(np.float32)
+    b[:16] = 0.0  # no candidate
+    b[16:32, 3:] = 0.0  # fewer candidates than K
+    b[32:48] = (rng.random((16, p)) > 0.5) * 1.0  # equal biases
+    r = rng.random((n, iters, k)).astype(np.float32)
+    want_idx, want_stats = kernels.its_select(torch.from_numpy(b), torch.from_numpy(r))
+    kernels.reset_launch_counts()
+    got_idx, got_stats = kernels.its_select(torch.from_numpy(b).to(cuda_device),
+                                            torch.from_numpy(r).to(cuda_device))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got_idx.cpu().numpy(), want_idx.numpy())
+    np.testing.assert_array_equal(got_stats.cpu().numpy(), want_stats.numpy())
+    assert kernels.launch_counts()["its_select"] == 1
+
+
+@pytest.mark.cuda
+def test_its_select_kernel_refuses_outside_its_limits(cuda_device):
+    b = torch.ones(4, 4097, device=cuda_device)
+    with pytest.raises(ValueError, match="P <= 4096"):
+        kernels.its_select(b, torch.zeros(4, 1, 1, device=cuda_device))
+    with pytest.raises(ValueError, match="K <= 32"):
+        kernels.its_select(b[:, :64], torch.zeros(4, 1, 33, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["node2vec", "mhrw", "jump", "restart_home", "opaque"])
+def test_card_walks_equal_cpu_walks_for_every_mode(cuda_device, name):
+    rng = np.random.default_rng(2)
+    leaves = np.arange(1, 601)
+    src = np.concatenate([np.zeros(600, np.int64), leaves, rng.integers(1, 601, 2000)])
+    dst = np.concatenate([leaves, np.roll(leaves, 1), rng.integers(1, 601, 2000)])
+    g = csr_from_edges(601, src, dst, weights=rng.random(src.size) + 0.1, symmetrize=True,
+                       device="cpu")
+    spec = {
+        "node2vec": alg.node2vec(3.0, 0.7),
+        "mhrw": alg.metropolis_hastings_walk(),
+        "jump": alg.random_walk_with_jump(0.2, 601),
+        "restart_home": alg.random_walk_with_restart(0.2),
+        "opaque": dataclasses.replace(alg.weighted_random_walk(), transition=None,
+                                      flat_edge_bias=None),
+    }[name]
+    seeds = rng.integers(0, 601, 512).astype(np.int32)
+    seeds[:32] = 0
+    md = g.max_degree()
+    cpu = random_walk(g, seeds, PRNGKey(3), depth=8, spec=spec, max_degree=md, device="cpu")
+    kernels.reset_launch_counts()
+    gpu = random_walk(g, seeds, PRNGKey(3), depth=8, spec=spec, max_degree=md, device=cuda_device)
+    np.testing.assert_array_equal(gpu.walks.cpu().numpy(), cpu.walks.numpy())
+    launched = kernels.launch_counts()
+    want = {"node2vec": "walk_step_window", "opaque": "its_select"}.get(name, "reject_step")
+    assert launched[want] > 0, launched

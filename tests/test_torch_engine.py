@@ -94,7 +94,8 @@ def test_cpu_walk_launches_no_kernel():
     kernels.reset_launch_counts()
     _, tg, seeds = _graph("star")
     random_walk(tg, seeds, PRNGKey(0), depth=3, spec=talg.deepwalk(), max_degree=600, device="cpu")
-    assert kernels.launch_counts() == {"walk_step": 0, "reject_step": 0, "alias_step": 0}
+    assert kernels.launch_counts() == {"walk_step": 0, "reject_step": 0, "alias_step": 0,
+                                       "walk_step_window": 0, "its_select": 0}
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -108,26 +109,22 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         powerlaw_graph(64, seed=0)
 
 
-def test_window_and_epilogue_programs_name_the_next_slice():
-    from repro_torch.core import transition as tp
-
-    for make in (tp.WindowBias, tp.MHAcceptEpilogue, tp.TeleportEpilogue):
-        with pytest.raises(NotImplementedError, match="window-bias slice"):
-            make()
-
-
 _ISOLATION_CHILD = """
-import json, sys
+import dataclasses, json, sys
 from repro_torch.core import algorithms as alg
 from repro_torch.core.engine import random_walk
 from repro_torch.core.rng import PRNGKey
 from repro_torch.graph import powerlaw_graph
 g = powerlaw_graph(200, seed=3, weighted=True, device="cpu")
-res = random_walk(g, list(range(16)), PRNGKey(1), depth=4, spec=alg.weighted_random_walk(),
-                  max_degree=g.max_degree(), device="cpu")
+opaque = dataclasses.replace(alg.weighted_random_walk(), transition=None, flat_edge_bias=None)
+walked = 0
+for spec in (alg.weighted_random_walk(), alg.node2vec(), alg.metropolis_hastings_walk(), opaque):
+    res = random_walk(g, list(range(16)), PRNGKey(1), depth=4, spec=spec,
+                      max_degree=g.max_degree(), device="cpu")
+    walked += int(res.sampled_edges > 0)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(json.dumps({"bad": bad, "edges": int(res.sampled_edges)}))
+print(json.dumps({"bad": bad, "walked": walked}))
 """
 
 
@@ -138,4 +135,4 @@ def test_port_imports_neither_jax_nor_repro():
     assert out.returncode == 0, out.stderr[-3000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
-    assert res["edges"] > 0
+    assert res["walked"] == 4  # every mode walked

@@ -157,4 +157,8 @@ def test_cpu_wrappers_launch_nothing():
     kernels.walk_step(*args, _t(c["bias"]), _t(c["rand"]), max_seg=128)
     kernels.alias_step(*args, _t(c["prob"]), _t(c["alias"]), _t(c["rand"]), max_seg=128)
     kernels.reject_step(*args, _t(c["bias"]), _t(c["row_max"]), _t(c["rej"]), max_seg=128)
-    assert kernels.launch_counts() == {"walk_step": 0, "reject_step": 0, "alias_step": 0}
+    kernels.walk_step_window(*args, torch.zeros(args[0].shape[0], 128), _t(c["rand"]),
+                             max_seg=128)
+    kernels.its_select(torch.ones(4, 100), torch.zeros(4, 2, 3))
+    assert kernels.launch_counts() == {"walk_step": 0, "reject_step": 0, "alias_step": 0,
+                                       "walk_step_window": 0, "its_select": 0}

@@ -52,9 +52,36 @@ def test_key_from_jax_array_and_uniform_many():
         np.testing.assert_array_equal(_bits(many[t].numpy()), _bits(ref))
 
 
-def test_uniform_rejects_multi_dim_shapes():
-    with pytest.raises(ValueError):
-        rng.uniform(rng.PRNGKey(0), (2, 3))
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("shape", [(37, 1), (37, 1, 1), (37, 8), (5, 32, 8)])
+def test_multi_dim_uniform_bits(seed, shape):
+    """Element i of the row-major order hashes counter i, whatever the shape."""
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
+    ref = jax.random.uniform(key, shape, dtype=jnp.float32)
+    got = rng.uniform(rng.fold_in(rng.PRNGKey(seed), 3), shape, device="cpu")
+    assert tuple(got.shape) == shape
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(ref))
+
+
+@pytest.mark.parametrize("seed", [0, 123456])
+@pytest.mark.parametrize("num", [2, 5])
+def test_split_words(seed, num):
+    ref = np.asarray(jax.random.key_data(jax.random.split(jax.random.PRNGKey(seed), num)))
+    np.testing.assert_array_equal(rng.split(rng.PRNGKey(seed), num), ref)
+
+
+@pytest.mark.parametrize("lo,hi", [
+    (0, 1), (0, 7), (0, 257), (5, 17), (0, 65_535), (0, 65_536), (0, 70_001),
+    (0, 1 << 21), (0, 2_097_157), (0, 2**31 - 1), (3, 3),
+])
+def test_randint_values(lo, hi):
+    """``randint`` equals ``jax.random.randint`` for spans below and above
+    2^16, where JAX's uint32 products wrap."""
+    key = jax.random.fold_in(jax.random.PRNGKey(lo + hi), 1)
+    ref = np.asarray(jax.random.randint(key, (513,), lo, hi))
+    got = rng.randint(rng.key_from_array(jax.random.key_data(key)), (513,), lo, hi, device="cpu")
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
 
 
 @pytest.mark.parametrize("w", [1, 37])
