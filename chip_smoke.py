@@ -27,7 +27,8 @@ comes out.  One walk per vertex, depth 40 (DeepWalk's walk length):
    on its path's first-step inputs, with its time per step, its bound (bytes
    over 3.35 TB/s, or f32 operations over 67 TFLOP/s, the larger) and the
    plain version's time; ``its_select`` also at K = 8 with 32 rounds on the
-   same rows, so collisions and region search run;
+   same rows, so collisions and region search run; ``walk_step_window`` also
+   on the node2vec path's last step, where more walkers sit on hubs;
 8. cross-check — the first 4,096 walkers of each path, rerun on the CPU by
    the plain versions, equal the card's walks; every hop is a graph edge (or
    an MH stay, a jump to a valid vertex, a restart to the walk's seed).
@@ -43,8 +44,11 @@ Usage, from the root of a checkout (builds the kernels into build/kernels/):
 
     python3 chip_smoke.py
 
-Prints a ``paths`` line (SEPS per path), a ``kernels`` line, the card's name
-and power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero,
+Prints a ``paths`` line (SEPS per path; ``plan_s``, the host's plan and
+table build, which on the alias path is the alias build), a ``kernels`` line
+(per kernel: ms per step, bound, ``x_bound``, plain ms, and for the kernels
+redesigned since PR 12 ``prev_ms``, their PR 12 time), the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
 """
 from __future__ import annotations
@@ -74,6 +78,9 @@ TELEPORT_PROB = 0.15
 #: its_select's collision check: K draws, ITERS rounds
 SELECT_K, SELECT_ITERS = 8, 32
 TIMING_REPS = 20
+#: each redesigned kernel's ms per step before its redesign (PR 12's first
+#: full run on an H100 80GB HBM3 at 700 W, PERF.md section 6)
+PR12_MS = {"walk_step_window": 1.849, "its_select": 5.834}
 PLAIN_CHUNK = 1 << 18  # walkers per plain-version call (bounds its temporaries)
 KERNELS = ("reject_step", "alias_step", "walk_step", "walk_step_window", "its_select")
 
@@ -225,17 +232,25 @@ class Smoke:
         row["cpu_check_s"] = time.perf_counter() - t0
         row["rng_ms_per_step"] = self.rng_ms(g.num_vertices, methods) if methods else None
         self.paths.append(row)
+        last = res.walks[:, depth - 2:depth].clone() if depth >= 2 else None  # (prev, cur)
         del res, cpu
 
         if kernel_name not in self.kernel_rows:
             if kernel_name == "walk_step_window":
-                entries = self.measure_window(name, g, spec)
+                seeds_prev = torch.full_like(seeds, -1)
+                entries = self.measure_window(name, g, spec, seeds, seeds_prev, 0)
+                later = self.measure_window(name, g, spec, last[:, 1], last[:, 0], depth - 1)
             elif kernel_name == "its_select":
                 entries = self.measure_select(name, g, spec)
             else:
                 entries = self.measure_flat(name, g, spec, methods, tables, buckets, kernel_name)
             self.kernel_row(kernel_name, name, entries)
+            if kernel_name == "walk_step_window":
+                ms, bound = sum(e["ms"] for e in later), sum(e["bound_ms"] for e in later)
+                self.kernel_rows[kernel_name]["later_step"] = dict(
+                    step=depth - 1, ms=ms, bound_ms=bound, x_bound=ms / bound, cohorts=later)
             row["kernel_ms_per_step"] = self.kernel_rows[kernel_name]["ms"]
+        del last
         row.update(self.profile(name, g, seeds, walk))
         return row
 
@@ -358,9 +373,13 @@ class Smoke:
         n_live = int(live.sum())
         n_out = int((out >= 0).sum())
         nbytes = 8 * w + 8 * n_live + 4 * n_out  # degs + out; starts + r or rm; ids
-        if kernel_name in ("walk_step", "walk_step_window"):
+        if kernel_name == "walk_step":
             nbytes += 4 * int(dg[live].long().sum())
             nops = 2 * (2 * seg) * n_live  # the window's adds and compares
+        elif kernel_name == "walk_step_window":
+            entries = int(dg[live].long().sum())
+            nbytes += 4 * entries
+            nops = 3 * entries  # per row entry: the in-block add, the prefix add, the compare
         elif kernel_name == "alias_step":
             nbytes += 8 * n_live  # prob + alias words
             nops = 3 * n_live
@@ -380,20 +399,21 @@ class Smoke:
             nops = 3 * n_rounds
         return nbytes, nops
 
-    def measure_window(self, path, g, spec):
-        """``walk_step_window`` on the first step's cohorts, built as
-        ``walk_step_bucketed_window`` builds them: members only, their bias
-        rows from the node2vec hook."""
+    def measure_window(self, path, g, spec, cur, prev, step):
+        """``walk_step_window`` on step ``step``'s cohorts of walkers at
+        ``cur`` (``prev`` before them), built as ``walk_step_bucketed_window``
+        builds them: members only, their bias rows from the node2vec hook,
+        the step's own uniforms."""
         torch, rng, bk, ref, K = self.torch, self.rng, self.bk, self.ref, self.kernels
         w = g.num_vertices
         md = g.max_degree()
         program = self.tp.lower(spec)
-        cur = torch.arange(w, dtype=torch.int32, device=self.dev)
-        bias_of = self.eng._window_bias_fn(g, program, cur, torch.full_like(cur, -1), 0, md)
-        kf = rng.fold_in(rng.fold_in(self.key, 0), 1)
+        bias_of = self.eng._window_bias_fn(g, program, cur, prev, step, md)
+        kf = rng.fold_in(rng.fold_in(self.key, step), 1)
         r = rng.uniform(rng.fold_in(kf, 0), (w,), device=self.dev)
-        starts = g.indptr[:-1]
-        deg = g.indptr[1:] - starts
+        safe = torch.clamp(cur, min=0).long()
+        starts = g.indptr[safe]
+        deg = torch.where(cur >= 0, g.indptr[safe + 1] - starts, 0)
         buckets, use_chunked = bk.walk_bucket_plan_window(md)
         entries, lo = [], 0
         for i, seg in enumerate(buckets):
@@ -408,9 +428,11 @@ class Smoke:
             plain_fn = lambda s, st=st, dg=dg, bias=bias, rr=rr, seg=seg: ref.walk_step_window_block_ref(
                 st[s], dg[s], g.indices, bias[s], rr[s], seg=seg)
             nbytes, nops = self.work("walk_step_window", seg, st, dg, launch(), None, None)
-            entries.append(self.compare(path, "walk_step_window", f"seg={seg}", launch,
+            entries.append(self.compare(path, "walk_step_window", f"step={step} seg={seg}", launch,
                                         self.chunked(plain_fn, rows.shape[0]), nbytes, nops,
-                                        walkers=rows.shape[0], live=rows.shape[0]))
+                                        walkers=rows.shape[0], live=rows.shape[0],
+                                        mean_degree=float(dg.float().mean()) if rows.numel() else 0.0))
+            del bias
         return entries
 
     def measure_select(self, path, g, spec):
@@ -437,26 +459,32 @@ class Smoke:
             r8 = rng.uniform(rng.fold_in(kf, 100 + b), (n, SELECT_ITERS, SELECT_K), device=self.dev)
             launch8 = lambda biases=biases, r8=r8: K.its_select(biases, r8)
             plain8 = self.chunked(lambda s, biases=biases, r8=r8: ref.its_select_ref(biases[s], r8[s]), n)
+            stats8 = launch8()[1]
             k8 = self.compare(path, "its_select", f"block={b} K={SELECT_K}", launch8, plain8,
-                              *self.select_work(n, p, SELECT_ITERS, SELECT_K))
-            stats8 = launch8()[1].double().mean(dim=0).tolist()
+                              *self.select_work(n, p, SELECT_K, stats8))
+            stats8 = stats8.double().mean(dim=0).tolist()
             launch = lambda biases=biases, rr=rr: K.its_select(biases, rr)
             plain = self.chunked(lambda s, biases=biases, rr=rr: ref.its_select_ref(biases[s], rr[s]), n)
             entries.append(self.compare(
-                path, "its_select", f"block={b} K=1", launch, plain, *self.select_work(n, p, 1, 1),
+                path, "its_select", f"block={b} K=1", launch, plain,
+                *self.select_work(n, p, 1, launch()[1]),
                 walkers=n, width=p, k8_ms=k8["ms"], k8_plain_ms=k8["plain_ms"],
-                k8_bound_ms=k8["bound_ms"], k8_mismatches=k8["mismatches"],
+                k8_bound_ms=k8["bound_ms"], k8_x_bound=k8["ms"] / k8["bound_ms"],
+                k8_mismatches=k8["mismatches"],
                 k8_mean_iters=stats8[0], k8_mean_searches=stats8[1]))
             del biases, r8
         return entries
 
     @staticmethod
-    def select_work(n, p, iters, k):
-        """its_select's bytes (the bias rows, the budget, indices and stats)
-        and operations (the scan's adds and divides, two binary searches per
-        draw and round)."""
-        nbytes = 4 * n * p + 4 * n * iters * k + 4 * n * k + 8 * n
-        nops = 2 * n * p + 2 * n * iters * k * max(1, (p - 1).bit_length())
+    def select_work(n, p, k, stats):
+        """its_select's bytes and operations on this data, from its counters
+        ``stats`` (rounds, searches per instance): the bias rows, one uniform
+        per search (a region search reuses its draw's uniform, so this counts
+        the uniforms read from above), indices and stats; the scan's adds and
+        each search's divides and compares."""
+        searches = int(stats[:, 1].long().sum())
+        nbytes = 4 * n * p + 4 * searches + 4 * n * k + 8 * n
+        nops = n * p + 2 * searches * max(1, (p - 1).bit_length())
         return nbytes, nops
 
     def kernel_row(self, kernel_name, path, entries):
@@ -479,6 +507,7 @@ class Smoke:
             max_abs_err=max(e["max_abs_err"] for e in entries),
             ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
             bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=None,
+            x_bound=total("ms") / total("bound_ms"), prev_ms=PR12_MS.get(kernel_name),
             cohorts=entries,
         )
         # comparison launches are not the main path's: only the path's count stays

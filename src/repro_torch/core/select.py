@@ -200,13 +200,23 @@ def walk_transition_chunked_window(
 def build_alias(indptr, bias) -> tuple[np.ndarray, np.ndarray]:
     """Per-row alias tables over a flat CSR bias array (Vose's method).
 
-    Vectorized over rows grouped by exact degree: each group forms an
-    ``(R, d)`` matrix and the small/large pairing loop retires one column per
-    iteration for every row simultaneously.  Internally float64; returns
-    ``(prob, alias)``: ``prob`` float32 ``(E,)`` acceptance thresholds,
-    ``alias`` int32 ``(E,)`` row-LOCAL redirect offsets.  Zero-total rows get
-    ``prob = 0`` / ``alias = -1``.  Deterministic: numpy argmax first-index
-    tie-breaks.
+    Returns ``(prob, alias)``: ``prob`` float32 ``(E,)`` acceptance
+    thresholds, ``alias`` int32 ``(E,)`` row-LOCAL redirect offsets.
+    Zero-total rows get ``prob = 0`` / ``alias = -1``.  Internally float64,
+    and equal to the reference's tables bit for bit: the same scaled
+    weights, formed per group of equal degree as ``p = w * (d / tot)``
+    (numpy's pairwise row sums are part of the bits), and the same pairing
+    — each step pairs a row's lowest-index active small (``p < 1``) with its
+    lowest-index active large (``p >= 1``), retires the small into
+    ``alias = large`` and lowers the large by ``1 - p_small``; leftovers get
+    ``p = 1``, alias self.
+
+    The pairing is O(E).  Only the first active large ever changes, so the
+    larges are consumed in index order, and those that drop below 1 join the
+    smalls as a contiguous run of the row's larges; the lowest active small
+    is the lower of two monotone heads, the next original small and the head
+    of that run.  Three pointers per row, advanced for every unfinished row
+    at once: at most ``max_degree - 1`` steps over shrinking flat arrays.
     """
     indptr = np.asarray(indptr)
     bias = np.maximum(np.asarray(bias, dtype=np.float64), 0.0)
@@ -214,40 +224,63 @@ def build_alias(indptr, bias) -> tuple[np.ndarray, np.ndarray]:
     deg = np.diff(indptr).astype(np.int64)
     prob_out = np.zeros(e, dtype=np.float32)
     alias_out = np.full(e, -1, dtype=np.int32)
-    for d in np.unique(deg):
+
+    # scaled weights of the rows with mass, per group of equal degree
+    scaled = np.zeros(e)
+    live = np.zeros(deg.shape[0], dtype=bool)
+    order = np.argsort(deg, kind="stable")  # each group in vertex order
+    ds, firsts, counts = np.unique(deg[order], return_index=True, return_counts=True)
+    for d, lo, n in zip(ds.tolist(), firsts.tolist(), counts.tolist()):
         if d <= 0:
             continue
-        d = int(d)
-        starts = indptr[:-1][deg == d].astype(np.int64)
+        rows = order[lo:lo + n]
+        starts = indptr[:-1][rows].astype(np.int64)
         w = bias[starts[:, None] + np.arange(d)[None, :]]  # (R, d)
         tot = w.sum(axis=1)
         ok = tot > 0.0
-        if not ok.any():
-            continue
         starts, w, tot = starts[ok], w[ok], tot[ok]
-        r = starts.shape[0]
-        p = w * (d / tot[:, None])  # scaled to sum d
-        alias = np.full((r, d), -1, dtype=np.int32)
-        active = np.ones((r, d), dtype=bool)
-        for _ in range(max(d - 1, 0)):
-            small = active & (p < 1.0)
-            large = active & (p >= 1.0)
-            has = small.any(axis=1) & large.any(axis=1)
-            if not has.any():
-                break
-            rows = np.nonzero(has)[0]
-            s = np.argmax(small[rows], axis=1)  # first active small
-            g = np.argmax(large[rows], axis=1)  # first active large
-            alias[rows, s] = g
-            active[rows, s] = False
-            p[rows, g] -= 1.0 - p[rows, s]
-        # leftovers (all-large or all-small residue): certain acceptance
-        lr, lc = np.nonzero(active)
-        p[lr, lc] = 1.0
-        alias[lr, lc] = lc
-        flat = (starts[:, None] + np.arange(d)[None, :]).ravel()
-        prob_out[flat] = p.astype(np.float32).ravel()
-        alias_out[flat] = alias.ravel()
+        scaled[(starts[:, None] + np.arange(d)[None, :]).ravel()] = (w * (d / tot[:, None])).ravel()
+        live[rows[ok]] = True
+
+    # the live rows' entries, row after row, in index order within each row
+    ldeg = deg[live]
+    first = np.cumsum(ldeg) - ldeg
+    row_of = np.repeat(np.arange(ldeg.shape[0]), ldeg)
+    local = np.arange(row_of.shape[0]) - first[row_of]
+    pos = indptr[:-1][live].astype(np.int64)[row_of] + local
+    p = scaled[pos]
+    n = p.shape[0]
+    small = np.nonzero(p < 1.0)[0]
+    large = np.nonzero(p >= 1.0)[0]
+    s_end = np.searchsorted(small, first + ldeg)
+    l_end = np.searchsorted(large, first + ldeg)
+    small = np.append(small, n)  # sentinels: a head at its end indexes safely
+    large = np.append(large, n)
+    nxt = np.searchsorted(small, first)  # next original small
+    conv = np.searchsorted(large, first)  # head of the run of larges turned small
+    cur = conv.copy()  # current large; large[conv:cur] is the run
+    alias = local.astype(np.int32)  # leftovers alias themselves
+    retired = np.zeros(n, dtype=bool)
+    act = np.arange(ldeg.shape[0])
+    while act.size:
+        i, c, j = nxt[act], conv[act], cur[act]
+        has_orig, has_conv = i < s_end[act], c < j
+        step = (has_orig | has_conv) & (j < l_end[act])
+        act, i, c, j = act[step], i[step], c[step], j[step]
+        s_orig = np.where(has_orig[step], small[i], n)
+        s_conv = np.where(has_conv[step], large[c], n)
+        take_orig = s_orig < s_conv
+        s = np.where(take_orig, s_orig, s_conv)
+        g = large[j]
+        alias[s] = local[g]
+        retired[s] = True
+        p[g] -= 1.0 - p[s]
+        nxt[act] = i + take_orig
+        conv[act] = c + ~take_orig
+        cur[act] = j + (p[g] < 1.0)
+    p[~retired] = 1.0
+    prob_out[pos] = p.astype(np.float32)
+    alias_out[pos] = alias
     return prob_out, alias_out
 
 

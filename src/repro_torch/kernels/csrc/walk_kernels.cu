@@ -17,8 +17,10 @@
 // operations per gathered word.  The designs therefore keep gathers to the
 // minimum each method needs (rejection: one bias word per round and one id,
 // stopping at the first acceptance; alias: two table words and one id;
-// ITS: the row once, coalesced across a warp), and launch enough walkers to
-// keep many gathers in flight.
+// ITS: the row once), and launch enough walkers to keep many gathers in
+// flight.  The exception is its_select, which reads whole dense rows: it is
+// bound by those bytes, and stages them into shared memory asynchronously so
+// that the next rows load while the current one is scanned.
 //
 // Bit hazards: the build passes -fmad=false, and the products and
 // differences that must round on their own use __fmul_rn / __fsub_rn /
@@ -31,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -38,6 +42,7 @@ constexpr int kWarpsPerBlock = 4;
 constexpr int kMaxWindow = 1024;           // 2 * max_seg for max_seg <= 512
 constexpr int kScanBlock = 16;             // XLA-CPU's scan block width
 constexpr int kMaxBlocks = kMaxWindow / kScanBlock;
+constexpr unsigned kFull = 0xffffffffu;
 
 // Replaces reject_step_pallas (src/repro/kernels/walk_step.py:267, body
 // _reject_step_kernel :96).  One thread per walker: up to `iters` rounds,
@@ -134,6 +139,9 @@ __device__ __forceinline__ float seq_scan(float* v, int n) {
 // prefix added to its in-block sums.  Each level is zero-padded to whole
 // blocks: the caller zero-fills win[n, round16(n)); tot has room for
 // round16(round16(n) / 16) floats and grp for 16, so n <= 4096.
+// Its one user is walk_step_kernel (through window_pick), and it goes when
+// that kernel is redesigned: it serialises on lane 0 at the top level, and
+// its block stride of 16 words puts the 32 lanes on 2 banks.
 __device__ void warp_scan(float* win, float* tot, float* grp, int n, int lane) {
   const int nb = (n + kScanBlock - 1) / kScanBlock;
   for (int b = lane; b < nb; b += 32) tot[b] = seq_scan(win + b * kScanBlock, kScanBlock);
@@ -157,8 +165,7 @@ __device__ void warp_scan(float* win, float* tot, float* grp, int n, int lane) {
   __syncwarp();
 }
 
-// The ITS pick shared by walk_step_kernel and walk_step_window_kernel, on a
-// filled 2*seg window from the block origin blk0 = start / seg * seg (the
+// The ITS pick of walk_step_kernel, on a filled 2*seg window from the block origin blk0 = start / seg * seg (the
 // row at [local, row_end), zeros elsewhere, which take part in the scan as
 // in the reference).  The pick is the count of masked prefixes
 // <= r * total, with total the scan's last element, summed by a warp
@@ -215,51 +222,343 @@ __global__ void walk_step_kernel(const int* __restrict__ starts,
               indices, out + i, lane);
 }
 
+// Window block b of one walker's row in registers: row columns
+// [16b - local, 16b - local + 16), zero outside [0, deg).
+__device__ __forceinline__ void window_block(const float* __restrict__ row, int b, int local,
+                                             int deg, float* v) {
+  const int c0 = b * kScanBlock - local;
+#pragma unroll
+  for (int j = 0; j < kScanBlock; ++j) {
+    const int c = c0 + j;
+    v[j] = c >= 0 && c < deg ? __ldg(row + c) : 0.0f;
+  }
+}
+
+// One pass of the compact scan over a walker's row.  The row's deg values
+// sit at offsets [local, local + deg) of a 2*seg window of zeros, and only
+// the 16-blocks it touches are scanned: the zeros around the row add exactly
+// (0 + x = x), so every prefix and the total equal XLA-CPU's scan of the
+// whole window (kernels/ref.py::padded_cumsum).  The rule is
+// kernels/ref.py::compact_window_scan, held bit-equal to the full-window
+// scan by tests/test_torch_scan.py.  Each window block is summed in order
+// (ps), then closed into the sum of its group's block totals (gs) and, at
+// the group's end (16 blocks from the window origin), into the sum of the
+// closed groups' totals (top); bprev is the scanned total before the block.
+// The next block's loads are issued before the current block is summed.
+// kCount = false returns the total: the scan's value at position 2*seg - 1,
+// the top level's last value, which for several groups is not the last row
+// prefix.  kCount = true sets cnt to the count of row prefixes <= target.
+template <bool kCount>
+__device__ __forceinline__ float window_pass(const float* __restrict__ row, int deg, int local,
+                                             int nb, float target, int& cnt) {
+  const int b0 = local / kScanBlock, b1 = (local + deg - 1) / kScanBlock;
+  float gs = 0.0f, top = 0.0f, bprev = 0.0f, ps = 0.0f, last_bprev = 0.0f;
+  float v[kScanBlock], nv[kScanBlock];
+  int n = 0;
+  window_block(row, b0, local, deg, v);
+  for (int b = b0; b <= b1; ++b) {
+    if (b < b1) window_block(row, b + 1, local, deg, nv);
+    const int c0 = b * kScanBlock - local;
+    ps = v[0];
+    if (kCount) n += c0 >= 0 && __fadd_rn(ps, bprev) <= target ? 1 : 0;
+#pragma unroll
+    for (int j = 1; j < kScanBlock; ++j) {
+      ps = __fadd_rn(ps, v[j]);
+      if (kCount) n += c0 + j >= 0 && c0 + j < deg && __fadd_rn(ps, bprev) <= target ? 1 : 0;
+    }
+    last_bprev = bprev;
+    gs = __fadd_rn(gs, ps);
+    bprev = __fadd_rn(gs, top);
+    if ((b & (kScanBlock - 1)) == kScanBlock - 1) {  // the group closes
+      top = __fadd_rn(top, gs);
+      gs = 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kScanBlock; ++j) v[j] = nv[j];
+  }
+  cnt = n;
+  return b1 == nb - 1 ? __fadd_rn(ps, last_bprev) : __fadd_rn(gs, top);
+}
+
 // Replaces walk_step_window_pallas (src/repro/kernels/walk_step.py:211, body
-// _walk_step_window_kernel :61): the ITS step of walk_step_kernel, with the
-// bias computed per walker by the transition program's window hook
-// (node2vec) instead of read from a flat array.  The TPU kernel takes that
-// bias as a (W, 2*seg) operand re-aligned to its block window, which exists
-// only for the TPU's BlockSpec alignment; this kernel takes the hook's
-// compact row-aligned (W, seg) rows and places column j at window offset
-// local + j, writing zeros elsewhere — the same values at the same
-// positions, so the same bits, and no (W, 2*seg) tensor per cohort.
-// Bound by bytes: each walker reads its deg bias words (contiguous, one
-// coalesced pass) and gathers one id; the scan stays in shared memory.
+// _walk_step_window_kernel :61): the ITS step with a per-walker bias that the
+// transition program's window hook (node2vec) computed.  The TPU kernel takes
+// that bias as a (W, 2*seg) operand re-aligned to its block window, an
+// artifact of its BlockSpec alignment; this kernel takes the hook's compact
+// row-aligned (W, seg) rows (column j is edge start + j, j < deg <= seg).
+// Bound by bytes: deg bias words and one id gather per walker, plus the
+// walker's start, degree, uniform and output.  node2vec's (0,128] cohort
+// has rows of about 14 entries, so a warp per walker over the 2*seg window
+// would spend most of its work on zeros.  Instead one thread per walker, 32
+// walkers a warp, does work in proportion to its row: two passes by window
+// block (window_pass: the total, then the count of
+// prefixes <= r * total; the second hits L1 or L2), closing a block once per
+// block, not testing for it at every entry.  What remains is the spread of
+// row lengths within a warp: its time follows its longest row.
 __global__ void walk_step_window_kernel(const int* __restrict__ starts,
                                         const int* __restrict__ degs,
                                         const int* __restrict__ indices,
                                         const float* __restrict__ bias_rows,
                                         const float* __restrict__ rand,
                                         int* __restrict__ out, int w, int seg) {
-  __shared__ float win_all[kWarpsPerBlock][kMaxWindow];
-  __shared__ float tot_all[kWarpsPerBlock][kMaxBlocks];
-  __shared__ float grp_all[kWarpsPerBlock][kScanBlock];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int i = blockIdx.x * kWarpsPerBlock + warp;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= w) return;
-  const int deg = degs[i];
+  const int deg = min(degs[i], seg);
   if (deg <= 0) {
-    if (lane == 0) out[i] = -1;
+    out[i] = -1;
     return;
   }
-  float* win = win_all[warp];
-  const float* row = bias_rows + (size_t)i * seg;
   const int start = starts[i];
   const int local = start % seg;
-  const int blk0 = start - local;
-  const int n = 2 * seg;
-  const int row_end = min(local + deg, n);
-  for (int p = lane; p < n; p += 32)
-    win[p] = (p >= local && p < row_end) ? row[p - local] : 0.0f;
-  __syncwarp();
-  window_pick(win, tot_all[warp], grp_all[warp], n, local, row_end, deg, blk0, rand[i],
-              indices, out + i, lane);
+  const int nb = 2 * seg / kScanBlock;
+  const float* row = bias_rows + (size_t)i * seg;
+  int cnt = 0;
+  const float total = window_pass<false>(row, deg, local, nb, 0.0f, cnt);
+  if (total <= 1e-12f) {
+    out[i] = -1;
+    return;
+  }
+  window_pass<true>(row, deg, local, nb, __fmul_rn(rand[i], total), cnt);
+  out[i] = indices[start + min(cnt, deg - 1)];
 }
 
-// Count of ctps[0, p) entries <= r: the upper bound of r, since the CTPS is
-// nondecreasing (a scan of non-negative values, divided by one total).
+// -- its_select ---------------------------------------------------------------
+
+constexpr int kSelectWarps = 10;  // warps per block, at most
+constexpr int kRing = 2;         // staged instances per warp: the current one and the next
+constexpr int kTree = 5;         // levels of a cooperative search round: 31 lanes, 31 nodes
+
+// Word offset of row element q in a staged buffer.  The 16-byte chunk
+// c = q / 4 lands at c ^ ((c / 8) % 4): within each 16-block (4 chunks) the
+// chunks are permuted by bits 1-2 of the block index, so when lane l reads
+// chunk k of block l + 32m (a 16-byte read, served 8 lanes a phase) the 8
+// lanes of a phase hit 8 distinct 4-bank groups: no bank conflict.
+__device__ __forceinline__ int swz(int q) { return q ^ ((q >> 3) & 12); }
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kRing - 1) : "memory");
+}
+
+// Issue the copies of one instance into a ring slot, split over the warp's
+// lanes: the bias row, swizzled (16-byte copies when the row is 16-byte
+// aligned, P % 4 == 0, else 4-byte copies into the same layout), then round
+// 0's K uniforms at slot[ppad, ppad + K).  Completion is the lane's commit
+// group.
+__device__ __forceinline__ void stage(float* slot, int ppad, const float* row, const float* r0,
+                                      int p, int k, bool vec, int lane) {
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(slot);
+  if (vec) {
+    for (int c = lane; c < (p >> 2); c += 32) cp_async16(base + 4u * swz(4 * c), row + 4 * c);
+  } else {
+    for (int q = lane; q < p; q += 32) cp_async4(base + 4u * swz(q), row + q);
+  }
+  if (lane < k) cp_async4(base + 4u * (ppad + lane), r0 + lane);
+}
+
+// Block b of a staged row as 16 registers, max(x, 0), zero past P.
+__device__ __forceinline__ void load_block(const float* buf, int b, int p, float* v) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4 x = *reinterpret_cast<const float4*>(buf + swz(b * kScanBlock + 4 * k));
+    v[4 * k] = x.x;
+    v[4 * k + 1] = x.y;
+    v[4 * k + 2] = x.z;
+    v[4 * k + 3] = x.w;
+  }
+  if ((b + 1) * kScanBlock <= p) {
+#pragma unroll
+    for (int j = 0; j < kScanBlock; ++j) v[j] = fmaxf(v[j], 0.0f);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kScanBlock; ++j)
+      v[j] = b * kScanBlock + j < p ? fmaxf(v[j], 0.0f) : 0.0f;
+  }
+}
+
+// Block b's 16 prefixes, stored in order.  The swizzle permutes the chunks
+// only within a block, so the block's 64 bytes are the same either way, and
+// a lane overwrites only its own block.  The searches then read entry q at q.
+__device__ __forceinline__ void store_block(float* buf, int b, const float* v) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    *reinterpret_cast<float4*>(buf + b * kScanBlock + 4 * k) =
+        make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+}
+
+// Scan a staged row of P <= 512 * NM values (NM 16-blocks a lane) in
+// registers, associated exactly as kernels/ref.py::padded_cumsum, and write
+// the prefixes back in place, in order (store_block): divided by the total
+// when kDivide, else as they are.  Also writes pos[b], the bits of block b's
+// positive entries, and sets total = max(prefix at P - 1, 1e-12); returns
+// the count of positive entries.  Lane l owns 16-blocks l + 32m.  Level 1: each block summed in
+// order.  Level 2: the block totals in groups of 16 blocks (lanes 0-15 and
+// 16-31 of one m), each lane folding its group's lower totals in order,
+// pulled with __shfl_sync.  Level 3: the group totals (at most 16, so one
+// sequential fold, which every lane runs).  Each level is zero-padded to
+// whole 16-blocks, as XLA pads it.  Then each block adds the scanned total of
+// the block before it (block 0 adds nothing).  For P = 1024: 64 blocks, 4
+// groups, a 4-wide top fold.  Up to NM = 2 the in-block sums stay in
+// registers (one read of the row); above, the blocks are read again.
+template <int NM, bool kDivide>
+__device__ __forceinline__ int scan_row(float* buf, unsigned short* pos, int p, int lane,
+                                        float& total) {
+  constexpr bool kRegs = NM <= 2;
+  const int nb = (p + kScanBlock - 1) / kScanBlock;
+  float t[NM];
+  float s[kRegs ? NM : 1][kScanBlock];
+  float v[kScanBlock];
+  int npos = 0;
+#pragma unroll
+  for (int m = 0; m < NM; ++m) {
+    t[m] = 0.0f;
+    const int b = lane + 32 * m;
+    if (b < nb) {
+      load_block(buf, b, p, v);
+      unsigned bits = 0;
+#pragma unroll
+      for (int j = 0; j < kScanBlock; ++j) bits |= (v[j] > 0.0f ? 1u : 0u) << j;
+      pos[b] = (unsigned short)bits;
+      npos += __popc(bits);
+      float acc = v[0];
+      if constexpr (kRegs) s[m][0] = acc;
+#pragma unroll
+      for (int j = 1; j < kScanBlock; ++j) {
+        acc = __fadd_rn(acc, v[j]);
+        if constexpr (kRegs) s[m][j] = acc;
+      }
+      t[m] = acc;
+    }
+  }
+  // levels 2 and 3: bsum[m] is the scanned block total of block lane + 32m
+  float bsum[NM];
+  float top = 0.0f;
+  const int half = lane & 16, j = lane & 15;
+#pragma unroll
+  for (int m = 0; m < NM; ++m) {
+    float gs = 0.0f;
+#pragma unroll
+    for (int x = 0; x < 16; ++x) {
+      const float y = __shfl_sync(kFull, t[m], half + x);
+      if (x == 0) gs = y;
+      else if (x <= j) gs = __fadd_rn(gs, y);
+    }
+    const float te = __shfl_sync(kFull, gs, 15), to = __shfl_sync(kFull, gs, 31);
+    const float before_even = top;  // groups < 2m
+    top = m == 0 ? te : __fadd_rn(top, te);
+    const float before_odd = top;   // groups < 2m + 1
+    top = __fadd_rn(top, to);
+    bsum[m] = lane < 16 ? (m == 0 ? gs : __fadd_rn(gs, before_even)) : __fadd_rn(gs, before_odd);
+  }
+  // element prefixes: the in-block sums plus the scanned total before the
+  // block, held by the lane below (lane 0: by lane 31 of the previous m)
+  const int lb = (p - 1) / kScanBlock, lj = (p - 1) % kScanBlock;
+  float carry = 0.0f, tv = 0.0f;
+#pragma unroll
+  for (int m = 0; m < NM; ++m) {
+    const float up = __shfl_up_sync(kFull, bsum[m], 1);
+    const float bprev = lane == 0 ? carry : up;
+    carry = __shfl_sync(kFull, bsum[m], 31);
+    const int b = lane + 32 * m;
+    if (b < nb) {
+      if constexpr (kRegs) {
+#pragma unroll
+        for (int x = 0; x < kScanBlock; ++x) s[m][x] = b == 0 ? s[m][x] : __fadd_rn(s[m][x], bprev);
+        if (b == lb) {
+#pragma unroll
+          for (int x = 0; x < kScanBlock; ++x) tv = x == lj ? s[m][x] : tv;
+        }
+      } else {
+        load_block(buf, b, p, v);
+#pragma unroll
+        for (int x = 1; x < kScanBlock; ++x) v[x] = __fadd_rn(v[x - 1], v[x]);
+#pragma unroll
+        for (int x = 0; x < kScanBlock; ++x) v[x] = b == 0 ? v[x] : __fadd_rn(v[x], bprev);
+        if (b == lb) {
+#pragma unroll
+          for (int x = 0; x < kScanBlock; ++x) tv = x == lj ? v[x] : tv;
+        }
+        store_block(buf, b, v);
+      }
+    }
+  }
+  total = fmaxf(__shfl_sync(kFull, tv, lb % 32), 1e-12f);
+  if (kRegs || kDivide) {
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      const int b = lane + 32 * m;
+      if (b < nb) {
+        if constexpr (kRegs) {
+#pragma unroll
+          for (int x = 0; x < kScanBlock; ++x) v[x] = s[m][x];
+        } else {
+#pragma unroll
+          for (int x = 0; x < kScanBlock; ++x) v[x] = buf[b * kScanBlock + x];  // the stored prefixes
+        }
+        if (kDivide) {
+#pragma unroll
+          for (int x = 0; x < kScanBlock; ++x) v[x] = __fdiv_rn(v[x], total);
+        }
+        store_block(buf, b, v);
+      }
+    }
+  }
+  return __reduce_add_sync(kFull, npos);
+}
+
+// The upper bound of r in the CTPS (the count of entries <= r, for a
+// nondecreasing CTPS), by the whole warp, visiting exactly the entries that
+// the binary search lo = 0, hi = P, mid = (lo + hi) / 2 visits, so the
+// result is that search's (also where rounding leaves the CTPS
+// nonmonotone).  Each round, lane l evaluates node l + 1 of the next kTree
+// levels of the search tree (heap order: a node's children are 2n and
+// 2n + 1, right when the test holds), and the path is read off the ballot.
+// The sums are undivided: x -> RN(x / total) is nondecreasing for total > 0,
+// so dividing only the entries a lane tests (with the same __fdiv_rn)
+// compares the same values as a search over the fully divided CTPS.
+// For P = 1024: 11 levels in 3 rounds of one divide per lane.
+__device__ __forceinline__ int coop_upper_bound(const float* sums, int p, float r, float total,
+                                                int lane) {
+  const int node = lane + 1;  // lane 31 evaluates nothing
+  const int depth = 31 - __clz(node);
+  int lo = 0, hi = p;
+  while (lo < hi) {
+    int a = lo, b = hi;
+    for (int d = depth - 1; d >= 0; --d) {
+      const int mid = (a + b) >> 1;
+      if ((node >> d) & 1) a = mid + 1;
+      else b = mid;
+    }
+    const bool test = lane < 31 && a < b && __fdiv_rn(sums[(a + b) >> 1], total) <= r;
+    const unsigned bits = __ballot_sync(kFull, test);
+    int n = 1;
+#pragma unroll
+    for (int l = 0; l < kTree; ++l) {
+      if (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        const int bit = (bits >> (n - 1)) & 1;
+        if (bit) lo = mid + 1;
+        else hi = mid;
+        n = 2 * n + bit;
+      }
+    }
+  }
+  return lo;
+}
+
+// Count of ctps[0, p) entries <= r, one lane's binary search over the
+// divided CTPS.
 __device__ __forceinline__ int upper_bound(const float* ctps, int p, float r) {
   int lo = 0, hi = p;
   while (lo < hi) {
@@ -270,92 +569,181 @@ __device__ __forceinline__ int upper_bound(const float* ctps, int p, float r) {
   return lo;
 }
 
+__device__ __forceinline__ bool positive(const unsigned short* pos, int q) {
+  return (pos[q >> 4] >> (q & 15)) & 1;
+}
+
 // Replaces its_select_pallas (src/repro/kernels/its_select.py:113, body
 // _its_select_kernel :30): K of P candidates without replacement, ITS with
 // bipartite region search, the paper's warp-centric SELECT.  One warp per
 // instance, one lane per draw (K <= 32).
-// - The CTPS lives in shared memory: the row's max(b, 0), scanned from
-//   position 0 with the reference's association (warp_scan), divided by
-//   max(total, 1e-12) with __fdiv_rn.
-// - The TPU kernel's search is a lane-parallel compare-count over P; the
-//   CTPS is monotone, so a binary search (upper bound of r) gives the same
-//   count in O(log P) per lane.
-// - Selected candidates are a shared-memory byte map, written only by the
-//   winning lane of a round (distinct bytes, no atomics).  Collisions within
-//   a round resolve "lowest lane wins" with __match_any_sync, the reference's
-//   K x K priority rule; atomics would pick a winner by timing.
+// Bound by bytes: each instance reads its P bias words once and its draws'
+// uniforms, and the opaque walk's rows are 4 KB each.  What keeps it from
+// that bound is latency: few bytes in flight, a serial scan, divides of all
+// P prefixes of which a K = 1 draw reads about 11, a global re-read of the
+// chosen bias.  So:
+// - Persistent warps loop over instances; each stages its instances (the row
+//   and round 0's uniforms) into a ring of kRing shared-memory slots with
+//   cp.async, one instance ahead, so the next row loads while the current
+//   one is scanned.  A deeper ring leaves fewer warps an SM and measured
+//   slower; 20 warps an SM keep enough rows in flight.  Rows that are not
+//   16-byte aligned (P % 4 != 0) take 4-byte copies into the same layout.
+// - The scan runs in registers with the reference's association (scan_row),
+//   reading blocks conflict-free through the swizzled layout (swz), writes
+//   the prefixes back in order for the searches, and keeps the positive
+//   entries as a bit each, so the "has mass" test of a candidate is one
+//   shared-memory read.
+// - K = 1 (the engine's only use): one search per round, run by the whole
+//   warp (coop_upper_bound), dividing only the entries it tests, and no map
+//   (nothing can be taken before the only draw wins).
+// - K > 1: each lane searches for its own draw (upper_bound); the prefixes
+//   are divided once, in registers (rounds of K lanes and region searches
+//   read them many times), and the next round's uniform loads during the
+//   current round.  Selected candidates are a per-warp byte map, written
+//   only by the winning lane of a round (distinct bytes, no atomics).
+//   Collisions within a round resolve "lowest lane wins" with
+//   __match_any_sync, the reference's K x K priority rule; atomics would
+//   pick a winner by timing.  What bounds K > 1 is the rounds, not the
+//   bytes: about 3.6 rounds an instance at K = 8, each a dependent binary
+//   search per pending draw (two when its region is taken).
 // - The region search rounds each step on its own: r2 = r1 * (1 - delta),
 //   the shift r2 + delta, then the clip to [0, f32(1 - 1e-12)] = [0, 1].
 // - (iters, searches) per instance are counted as the reference counts them.
-// Bound by bytes: each instance reads its P bias words once (coalesced) and
-// its ITERS*K uniforms; the scan and searches stay in shared memory.
+template <int NM>
 __global__ void its_select_kernel(const float* __restrict__ biases,
                                   const float* __restrict__ rands,
                                   int* __restrict__ out, int* __restrict__ stats,
-                                  int n, int p, int iters, int k, int stride) {
+                                  int n, int p, int iters, int k, int stride, int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int warps = blockDim.x / 32;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int i = blockIdx.x * kWarpsPerBlock + warp;
-  if (i >= n) return;
+  const int nwarps = gridDim.x * warps;
+  const int first = blockIdx.x * warps + warp;
   const int ppad = (p + kScanBlock - 1) / kScanBlock * kScanBlock;
-  const int nb = ppad / kScanBlock;
-  float* ctps = reinterpret_cast<float*>(smem + (size_t)warp * stride);
-  float* tot = ctps + ppad;
-  float* grp = tot + (nb + kScanBlock - 1) / kScanBlock * kScanBlock;
-  unsigned char* taken = reinterpret_cast<unsigned char*>(grp + kScanBlock);
-  const float* row = biases + (size_t)i * p;
+  const int slot_floats = ppad + 32;
+  unsigned char* mine = smem + (size_t)warp * stride;
+  float* ring = reinterpret_cast<float*>(mine);
+  unsigned short* pos = reinterpret_cast<unsigned short*>(mine + (size_t)kRing * slot_floats * 4);
+  unsigned char* taken = mine + (size_t)kRing * slot_floats * 4 + (ppad / 8 + 15) / 16 * 16;
 
-  int navail = 0;
-  for (int q = lane; q < ppad; q += 32) {
-    const float b = q < p ? fmaxf(row[q], 0.0f) : 0.0f;
-    ctps[q] = b;
-    navail += b > 0.0f ? 1 : 0;
-    if (q < p) taken[q] = 0;
+  for (int s = 0; s < kRing - 1; ++s) {
+    const long long i = first + (long long)s * nwarps;
+    if (i < n)
+      stage(ring + s * slot_floats, ppad, biases + i * p, rands + i * iters * k, p, k, vec != 0,
+            lane);
+    cp_async_commit();
   }
-  navail = __reduce_add_sync(0xffffffffu, navail);
-  __syncwarp();
-  warp_scan(ctps, tot, grp, p, lane);
-  const float total = fmaxf(ctps[p - 1], 1e-12f);
-  __syncwarp();
-  for (int q = lane; q < p; q += 32) ctps[q] = __fdiv_rn(ctps[q], total);
-  __syncwarp();
-
-  const int want = min(navail, k);
-  bool done = lane >= want;  // lanes >= k are never pending
-  int res = -1, rounds = 0, searches = 0;
-  for (int t = 0; t < iters; ++t) {
-    const unsigned pending = __ballot_sync(0xffffffffu, !done);
-    if (pending == 0u) break;  // no draw pending: later rounds change nothing
-    ++rounds;
-    const float r1 = lane < k ? rands[((size_t)i * iters + t) * k + lane] : 0.0f;
-    const int idx1 = min(upper_bound(ctps, p, r1), p - 1);
-    const bool hit1 = taken[idx1] != 0;
-    searches += __popc(pending) + __popc(__ballot_sync(0xffffffffu, !done && hit1));
-    const float lo = idx1 > 0 ? ctps[idx1 - 1] : 0.0f;
-    const float delta = __fsub_rn(ctps[idx1], lo);
-    float r2 = __fmul_rn(r1, __fsub_rn(1.0f, delta));
-    r2 = r2 < lo ? r2 : __fadd_rn(r2, delta);
-    r2 = fminf(fmaxf(r2, 0.0f), 1.0f);
-    const int idx2 = min(upper_bound(ctps, p, r2), p - 1);
-    const bool hit2 = taken[idx2] != 0;
-    const int cand = hit1 ? idx2 : idx1;
-    const bool ok = !done && !(hit1 ? hit2 : hit1) && row[cand] > 0.0f;
-    const unsigned same = __match_any_sync(0xffffffffu, ok ? cand : -1 - lane);
-    const bool win = ok && __ffs(same) - 1 == lane;
-    __syncwarp();  // every read of the byte map precedes this round's writes
-    if (win) {
-      res = cand;
-      taken[cand] = 1;
-    }
-    done = done || win;
+  for (int it = 0;; ++it) {
+    const long long i = first + (long long)it * nwarps;
+    if (i >= n) break;  // the whole warp leaves together
+    const long long ahead = i + (long long)(kRing - 1) * nwarps;
+    if (ahead < n)
+      stage(ring + ((it + kRing - 1) % kRing) * slot_floats, ppad, biases + ahead * p,
+            rands + ahead * iters * k, p, k, vec != 0, lane);
+    cp_async_commit();
+    cp_async_wait_ring();  // this instance's copies have landed
     __syncwarp();
+    float* sums = ring + (it % kRing) * slot_floats;
+    const float* r0 = sums + ppad;
+    float total;
+    int res = -1, rounds = 0, searches = 0;
+    if (k == 1) {
+      const int navail = scan_row<NM, false>(sums, pos, p, lane, total);
+      __syncwarp();
+      if (navail > 0) {
+        for (int t = 0; t < iters; ++t) {
+          ++rounds;  // one pending draw, one search, nothing taken
+          const float r1 = t == 0 ? r0[0] : __ldg(rands + i * iters + t);
+          const int idx = min(coop_upper_bound(sums, p, r1, total, lane), p - 1);
+          if (positive(pos, idx)) {
+            res = idx;
+            break;
+          }
+        }
+      }
+      searches = rounds;
+    } else {
+      const int navail = scan_row<NM, true>(sums, pos, p, lane, total);
+      for (int x = lane; x < ppad / 16; x += 32)
+        reinterpret_cast<uint4*>(taken)[x] = make_uint4(0, 0, 0, 0);
+      __syncwarp();
+      const int want = min(navail, k);
+      bool done = lane >= want;  // lanes >= k are never pending
+      float r1 = lane < k ? r0[lane] : 0.0f;
+      for (int t = 0; t < iters; ++t) {
+        const unsigned pending = __ballot_sync(kFull, !done);
+        if (pending == 0u) break;  // no draw pending: later rounds change nothing
+        ++rounds;
+        const float rnext =
+            !done && t + 1 < iters ? __ldg(rands + (i * iters + t + 1) * k + lane) : 0.0f;
+        int cand = 0;
+        bool hit1 = false, ok = false;
+        if (!done) {
+          const int idx1 = min(upper_bound(sums, p, r1), p - 1);
+          hit1 = taken[idx1] != 0;
+          cand = idx1;
+          bool blocked = false;
+          if (hit1) {  // region search past the taken region
+            const float lo = idx1 > 0 ? sums[idx1 - 1] : 0.0f;
+            const float delta = __fsub_rn(sums[idx1], lo);
+            float r2 = __fmul_rn(r1, __fsub_rn(1.0f, delta));
+            r2 = r2 < lo ? r2 : __fadd_rn(r2, delta);
+            r2 = fminf(fmaxf(r2, 0.0f), 1.0f);
+            cand = min(upper_bound(sums, p, r2), p - 1);
+            blocked = taken[cand] != 0;
+          }
+          ok = !blocked && positive(pos, cand);
+        }
+        searches += __popc(pending) + __popc(__ballot_sync(kFull, hit1));
+        const unsigned same = __match_any_sync(kFull, ok ? cand : -1 - lane);
+        const bool win = ok && __ffs(same) - 1 == lane;
+        __syncwarp();  // every read of the byte map precedes this round's writes
+        if (win) {
+          res = cand;
+          taken[cand] = 1;
+        }
+        done = done || win;
+        r1 = rnext;
+        __syncwarp();
+      }
+    }
+    if (lane < k) out[i * k + lane] = res;
+    if (lane == 0) {
+      stats[2 * i] = rounds;
+      stats[2 * i + 1] = searches;
+    }
+    __syncwarp();  // the slot is restaged only after every lane is done with it
   }
-  if (lane < k) out[(size_t)i * k + lane] = res;
-  if (lane == 0) {
-    stats[2 * (size_t)i] = rounds;
-    stats[2 * (size_t)i + 1] = searches;
-  }
+}
+
+template <int NM>
+cudaError_t its_select_run(const float* biases, const float* rands, int* out, int* stats, int n,
+                           int p, int iters, int k, cudaStream_t stream) {
+  // per warp: kRing slots of round16(P) floats and 32 uniforms, the bits of
+  // the positive entries, and for K > 1 the byte map of taken candidates; as
+  // many warps a block (up to kSelectWarps) as let two blocks share an SM
+  // (and the registers, at 96 a thread, still hold two blocks)
+  const int ppad = (p + kScanBlock - 1) / kScanBlock * kScanBlock;
+  const int stride = kRing * (ppad + 32) * 4 + (ppad / 8 + 15) / 16 * 16 + (k > 1 ? ppad : 0);
+  const int warps = std::max(1, std::min(kSelectWarps, (100 * 1024) / stride));
+  const int smem = stride * warps;
+  cudaError_t e = cudaFuncSetAttribute(its_select_kernel<NM>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, its_select_kernel<NM>,
+                                                         32 * warps, smem)) != cudaSuccess)
+    return e;
+  const long long need = ((long long)n + warps - 1) / warps;
+  const int blocks = (int)std::min(need, (long long)sms * std::max(per_sm, 1));
+  const int vec = p % 4 == 0 && (uintptr_t)biases % 16 == 0;
+  its_select_kernel<NM><<<blocks, 32 * warps, smem, stream>>>(biases, rands, out, stats, n, p,
+                                                             iters, k, stride, vec);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -400,8 +788,7 @@ int walk_step_window_launch(const void* starts, const void* degs, const void* in
                             const void* bias_rows, const void* rand, void* out, int w, int seg,
                             void* stream) {
   if (w > 0) {
-    const int blocks = (w + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    walk_step_window_kernel<<<blocks, 32 * kWarpsPerBlock, 0, (cudaStream_t)stream>>>(
+    walk_step_window_kernel<<<(w + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
         (const int*)starts, (const int*)degs, (const int*)indices, (const float*)bias_rows,
         (const float*)rand, (int*)out, w, seg);
   }
@@ -410,22 +797,15 @@ int walk_step_window_launch(const void* starts, const void* degs, const void* in
 
 int its_select_launch(const void* biases, const void* rands, void* out, void* stats, int n,
                       int p, int iters, int k, void* stream) {
-  if (n > 0) {
-    // per warp: the padded CTPS, the block totals, the group totals, the
-    // byte map of taken candidates
-    const int ppad = (p + kScanBlock - 1) / kScanBlock * kScanBlock;
-    const int tsz = (ppad / kScanBlock + kScanBlock - 1) / kScanBlock * kScanBlock;
-    const int stride = (ppad + tsz + kScanBlock) * 4 + (p + 15) / 16 * 16;
-    const int smem = stride * kWarpsPerBlock;
-    const cudaError_t e = cudaFuncSetAttribute(
-        its_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    its_select_kernel<<<blocks, 32 * kWarpsPerBlock, smem, (cudaStream_t)stream>>>(
-        (const float*)biases, (const float*)rands, (int*)out, (int*)stats, n, p, iters, k,
-        stride);
-  }
-  return (int)cudaGetLastError();
+  if (n <= 0) return (int)cudaGetLastError();
+  const int nb = (p + kScanBlock - 1) / kScanBlock;
+  const float* b = (const float*)biases;
+  const float* r = (const float*)rands;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nb <= 32) return (int)its_select_run<1>(b, r, (int*)out, (int*)stats, n, p, iters, k, st);
+  if (nb <= 64) return (int)its_select_run<2>(b, r, (int*)out, (int*)stats, n, p, iters, k, st);
+  if (nb <= 128) return (int)its_select_run<4>(b, r, (int*)out, (int*)stats, n, p, iters, k, st);
+  return (int)its_select_run<8>(b, r, (int*)out, (int*)stats, n, p, iters, k, st);
 }
 
 const char* walk_kernels_error_string(int code) {

@@ -14,7 +14,7 @@ from repro_torch.kernels import _build, ref
 
 #: one lane per draw: K draws share one warp
 MAX_K = 32
-#: CTPS floats held in shared memory per instance (16 KiB)
+#: the kernel's register scan holds up to 8 16-blocks a lane: 8 * 32 * 16
 MAX_P = 4096
 
 

@@ -69,6 +69,50 @@ def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
     return padded_cumsum(x)
 
 
+def compact_window_scan(row, local: int, seg: int) -> tuple[np.ndarray, np.float32]:
+    """The scan of one ``walk_step_window`` row, touching only its own
+    16-blocks: what the card kernel computes per walker.
+
+    ``row`` holds the row's ``deg`` f32 values, which sit at offsets
+    ``[local, local + deg)`` of a ``2·seg`` window of zeros (``deg <= seg``,
+    ``local < seg``).  Returns the f32 prefixes at the row's positions and
+    the window's total, both bit-equal to :func:`padded_cumsum` over the
+    zero-filled window (for values other than ``-0.0``): the zeros around the
+    row add exactly, so the blocks it does not touch need no work.  The
+    running state is the in-block sum ``ps``, the sum of the current
+    group's block totals ``gs``, the sum of the closed groups' totals
+    ``top`` (16 blocks a group, counted from the window origin), and the
+    scanned total before the current block ``bprev``.
+
+    The total is the scan's value at position ``2·seg - 1``, which is not
+    the last row prefix once there are several groups: a row that ends in
+    group 1 of a 1024-wide window has the prefix ``t + (s + g0)`` there and
+    the total ``g0 + (s + t)``.
+    """
+    vals = np.asarray(row, dtype=np.float32)
+    deg = vals.shape[0]
+    zero = np.float32(0.0)
+    ps = gs = top = bprev = zero
+    prefixes = np.empty(deg, np.float32)
+    for c, v in enumerate(vals):
+        q = local + c
+        if c and q % SCAN_BLOCK == 0:  # a block closes
+            gs = gs + ps
+            bprev = gs + top
+            if q % (SCAN_BLOCK * SCAN_BLOCK) == 0:  # and its group
+                top = top + gs
+                gs = zero
+            ps = v
+        else:
+            ps = v if c == 0 else ps + v
+        prefixes[c] = ps + bprev
+    if deg == 0:
+        return prefixes, zero
+    if (local + deg - 1) // SCAN_BLOCK == 2 * seg // SCAN_BLOCK - 1:  # the row reaches the last block
+        return prefixes, ps + bprev
+    return prefixes, (gs + ps) + top
+
+
 def _cap(degs: torch.Tensor, seg: int | None) -> torch.Tensor:
     return degs if seg is None else torch.clamp(degs, max=seg)
 

@@ -20,7 +20,8 @@ _MAX_WINDOW = 1024
 
 
 def _check_seg(max_seg: int, name: str = "walk_step") -> None:
-    # the kernel's window (2*max_seg floats per warp) is sized for 512
+    # walk_step's window (2*max_seg floats per warp) is sized for 512;
+    # walk_step_window takes the same segments
     if max_seg <= 0 or max_seg % 128 or 2 * max_seg > _MAX_WINDOW:
         raise ValueError(f"{name} needs max_seg in 128, 256, 384, 512; got {max_seg}")
 

@@ -149,8 +149,39 @@ def test_window_kernel_matches_plain_version(cuda_device, seg):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seg", [128, 512])
+def test_window_kernel_at_every_offset(cuda_device, seg):
+    """Rows at every ``local % 16``, at and across the group edge at 256,
+    of degree 1, 15, 16, 17 and ``seg``; all-zero rows and rows with
+    negative values (the kernel counts prefixes, it does not search)."""
+    rng = np.random.default_rng(seg + 1)
+    locals_ = np.arange(seg)
+    degs = np.array([1, 15, 16, 17, seg, seg - 1])
+    local = np.repeat(locals_, degs.size)
+    deg = np.minimum(np.tile(degs, locals_.size), seg)
+    w = local.size
+    base = rng.integers(1, 64, w) * seg
+    bias = (rng.random((w, seg)) * np.exp2(rng.uniform(-20, 20, (w, seg)))).astype(np.float32)
+    bias[rng.random(w) < 0.05] = 0.0  # all-zero rows
+    neg = rng.random(w) < 0.2
+    bias[neg] *= np.where(rng.random((int(neg.sum()), seg)) < 0.3, -1.0, 1.0).astype(np.float32)
+    bias[np.arange(seg)[None, :] >= deg[:, None]] = 0.0
+    cpu = {k: torch.from_numpy(v) for k, v in dict(
+        starts=(base + local).astype(np.int32), degs=deg.astype(np.int32), bias=bias,
+        indices=rng.integers(0, 1 << 30, 80 * seg).astype(np.int32),
+        rand=rng.random(w).astype(np.float32)).items()}
+    gpu = {k: v.to(cuda_device) for k, v in cpu.items()}
+    args = ("starts", "degs", "indices", "bias", "rand")
+    want = kernels.walk_step_window(*(cpu[k] for k in args), max_seg=seg)
+    got = kernels.walk_step_window(*(gpu[k] for k in args), max_seg=seg)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert (want == -1).any() and (want >= 0).any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k,iters", [(1, 1), (4, 8), (8, 32), (32, 32)])
-@pytest.mark.parametrize("p", [37, 128, 1000, 4096])
+@pytest.mark.parametrize("p", [37, 128, 1000, 1024, 4096])
 def test_its_select_kernel_matches_plain_version(cuda_device, k, iters, p):
     rng = np.random.default_rng(p + k)
     n = 2048
@@ -167,6 +198,30 @@ def test_its_select_kernel_matches_plain_version(cuda_device, k, iters, p):
     np.testing.assert_array_equal(got_idx.cpu().numpy(), want_idx.numpy())
     np.testing.assert_array_equal(got_stats.cpu().numpy(), want_stats.numpy())
     assert kernels.launch_counts()["its_select"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,iters", [(1, 1), (8, 32), (32, 32)])
+@pytest.mark.parametrize("p", [37, 128, 1000, 1024, 4096])
+def test_its_select_kernel_on_edge_rows(cuda_device, k, iters, p):
+    """All-zero and all-negative rows, rows with one candidate, and an
+    instance count that is no multiple of the warps a block holds."""
+    rng = np.random.default_rng(10 * p + k)
+    n = 1237
+    b = (rng.random((n, p)) * np.exp2(rng.uniform(-20, 20, (n, p)))).astype(np.float32)
+    b[rng.random((n, p)) < 0.3] *= -1.0
+    b[:40] = 0.0
+    b[40:80] = -rng.random((40, p)).astype(np.float32)
+    b[80:120] = 0.0
+    b[80:120, p - 1] = 1.0  # the only candidate is the last
+    r = rng.random((n, iters, k)).astype(np.float32)
+    want_idx, want_stats = kernels.its_select(torch.from_numpy(b), torch.from_numpy(r))
+    got_idx, got_stats = kernels.its_select(torch.from_numpy(b).to(cuda_device),
+                                            torch.from_numpy(r).to(cuda_device))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got_idx.cpu().numpy(), want_idx.numpy())
+    np.testing.assert_array_equal(got_stats.cpu().numpy(), want_stats.numpy())
+    assert (want_idx[:80] == -1).all()
 
 
 @pytest.mark.cuda

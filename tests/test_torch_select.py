@@ -70,6 +70,51 @@ def test_alias_and_row_max_tables_identical(bias):
     np.testing.assert_array_equal(jsel.build_row_max(indptr, b), tsel.build_row_max(indptr, b))
 
 
+def _assert_alias_equal(indptr, b):
+    for ref_t, got_t in zip(jsel.build_alias(indptr, b), tsel.build_alias(indptr, b)):
+        assert ref_t.dtype == got_t.dtype
+        assert np.array_equal(ref_t, got_t)
+
+
+def _csr(rows):
+    indptr = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum([len(r) for r in rows], out=indptr[1:])
+    return indptr, np.asarray([x for r in rows for x in r], dtype=np.float32)
+
+
+def test_alias_build_equals_reference_on_drawn_rows():
+    """Rows with zeros, small-integer weights that scale to exactly 1.0,
+    all-equal rows, empty and zero-total rows, and wide float spreads."""
+    pytest.importorskip("hypothesis")
+    from hypothesis import given, settings, strategies as st
+
+    value = st.one_of(st.sampled_from([0.0, 1.0, 2.0, 3.0]),
+                      st.floats(0.0, 1024.0, width=32), st.floats(2.0**-20, 2.0**-10, width=32))
+    row = st.one_of(st.lists(value, max_size=40),
+                    st.tuples(st.floats(0.0, 5.0, width=32), st.integers(0, 40)).map(
+                        lambda t: [t[0]] * t[1]))
+
+    @settings(max_examples=200, deadline=None)
+    @given(st.lists(row, min_size=1, max_size=12))
+    def check(rows):
+        _assert_alias_equal(*_csr(rows))
+
+    check()
+
+
+def test_alias_build_equals_reference_on_powerlaw_graph():
+    g = jgen.powerlaw_graph(256, seed=1, weighted=True)
+    _assert_alias_equal(np.asarray(g.indptr), np.asarray(g.weights))
+
+
+@pytest.mark.parametrize("hub_degree", [2000, 5000])
+def test_alias_build_equals_reference_on_skewed_hubs(hub_degree):
+    rng = np.random.default_rng(hub_degree)
+    w = (rng.pareto(1.2, hub_degree) * (rng.random(hub_degree) > 0.2)).astype(np.float32)
+    rows = [w.tolist(), [], [0.0, 0.0], rng.random(7).tolist(), w[::-1].tolist()]
+    _assert_alias_equal(*_csr(rows))
+
+
 @pytest.mark.parametrize("cap", [None, 128])
 def test_flat_draws_equal_reference(cap):
     g = _star()
