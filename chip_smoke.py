@@ -46,9 +46,9 @@ Usage, from the root of a checkout (builds the kernels into build/kernels/):
 
 Prints a ``paths`` line (SEPS per path; ``plan_s``, the host's plan and
 table build, which on the alias path is the alias build), a ``kernels`` line
-(per kernel: ms per step, bound, ``x_bound``, plain ms, and for the kernels
-redesigned since PR 12 ``prev_ms``, their PR 12 time), the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero,
+(per kernel: ms per step, bound, ``x_bound``, plain ms, all measured in this
+run), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
 """
 from __future__ import annotations
@@ -78,9 +78,6 @@ TELEPORT_PROB = 0.15
 #: its_select's collision check: K draws, ITERS rounds
 SELECT_K, SELECT_ITERS = 8, 32
 TIMING_REPS = 20
-#: each redesigned kernel's ms per step before its redesign (PR 12's first
-#: full run on an H100 80GB HBM3 at 700 W, PERF.md section 6)
-PR12_MS = {"walk_step_window": 1.849, "its_select": 5.834}
 PLAIN_CHUNK = 1 << 18  # walkers per plain-version call (bounds its temporaries)
 KERNELS = ("reject_step", "alias_step", "walk_step", "walk_step_window", "its_select")
 
@@ -272,18 +269,23 @@ class Smoke:
 
     # -- per-kernel comparison, time and bound ------------------------------
 
-    def compare(self, path, kernel_name, label, launch, plain, nbytes, nops, **extra):
+    def compare(self, path, kernel_name, label, launch, plain, work, **extra):
         """Run a kernel and its plain version on the same inputs, count the
-        mismatches (must be 0), and time both."""
+        mismatches (must be 0), and time both.  ``work(want)`` gives the
+        bytes and operations of the bound from the plain version's output,
+        so the bound never rests on what the kernel under test returned."""
         got, want = launch(), plain()
         self.sync()
         if isinstance(got, tuple):  # its_select: (idx, stats)
             mismatches = sum(int((a != b).sum()) for a, b in zip(got, want))
             err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+            iters, searches = want[1].double().mean(dim=0).tolist()
+            extra.update(mean_iters=iters, mean_searches=searches)
         else:
             mismatches = int((got != want).sum())
             err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
         _require(mismatches == 0, f"{path}/{kernel_name} {label}: {mismatches} mismatches")
+        nbytes, nops = work(want)
         by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
         entry = dict(
             cohort=label, mismatches=mismatches, max_abs_err=err,
@@ -357,9 +359,10 @@ class Smoke:
                 plain_fn = lambda s, st=st, dg=dg, seg=seg: ref.reject_step_block_ref(
                     st[s], dg[s], g.indices, bias, rm[s], rej[s], seg=seg)
             w = st.shape[0]
-            nbytes, nops = self.work(kernel_name, seg, st, dg, launch(), bias, common)
+            work = lambda want, st=st, dg=dg, seg=seg: self.work(  # noqa: E731
+                kernel_name, seg, st, dg, want, bias, common)
             entries.append(self.compare(path, kernel_name, f"seg={seg}", launch,
-                                        self.chunked(plain_fn, w), nbytes, nops,
+                                        self.chunked(plain_fn, w), work,
                                         walkers=w, live=int((dg > 0).sum())))
         return entries
 
@@ -427,9 +430,10 @@ class Smoke:
                 st, dg, g.indices, bias, rr, max_seg=seg)
             plain_fn = lambda s, st=st, dg=dg, bias=bias, rr=rr, seg=seg: ref.walk_step_window_block_ref(
                 st[s], dg[s], g.indices, bias[s], rr[s], seg=seg)
-            nbytes, nops = self.work("walk_step_window", seg, st, dg, launch(), None, None)
+            work = lambda want, st=st, dg=dg, seg=seg: self.work(  # noqa: E731
+                "walk_step_window", seg, st, dg, want, None, None)
             entries.append(self.compare(path, "walk_step_window", f"step={step} seg={seg}", launch,
-                                        self.chunked(plain_fn, rows.shape[0]), nbytes, nops,
+                                        self.chunked(plain_fn, rows.shape[0]), work,
                                         walkers=rows.shape[0], live=rows.shape[0],
                                         mean_degree=float(dg.float().mean()) if rows.numel() else 0.0))
             del bias
@@ -439,7 +443,9 @@ class Smoke:
         """``its_select`` on the opaque path's first-step rows (the dense
         context's masked biases, padded to 128 lanes), in the engine's
         blocks: at K = 1 with the step's uniforms, and at K = 8 with 32
-        rounds of a counted budget, so collisions and region search run."""
+        rounds of a counted budget, so collisions and region search run, and
+        at K = 8 with the first of those rounds alone, which parts the first
+        round's cost from the later rounds'."""
         torch, rng, bk, ref, K = self.torch, self.rng, self.bk, self.ref, self.kernels
         w = g.num_vertices
         md = g.max_degree()
@@ -457,28 +463,29 @@ class Smoke:
             n, p = biases.shape
             rr = r[blk].contiguous()
             r8 = rng.uniform(rng.fold_in(kf, 100 + b), (n, SELECT_ITERS, SELECT_K), device=self.dev)
-            launch8 = lambda biases=biases, r8=r8: K.its_select(biases, r8)
-            plain8 = self.chunked(lambda s, biases=biases, r8=r8: ref.its_select_ref(biases[s], r8[s]), n)
-            stats8 = launch8()[1]
-            k8 = self.compare(path, "its_select", f"block={b} K={SELECT_K}", launch8, plain8,
-                              *self.select_work(n, p, SELECT_K, stats8))
-            stats8 = stats8.double().mean(dim=0).tolist()
-            launch = lambda biases=biases, rr=rr: K.its_select(biases, rr)
-            plain = self.chunked(lambda s, biases=biases, rr=rr: ref.its_select_ref(biases[s], rr[s]), n)
+            k8 = {}
+            for key, rk in (("k8", r8), ("k8_1round", r8[:, :1].contiguous())):
+                run = self.compare(
+                    path, "its_select", f"block={b} K={SELECT_K} rounds={rk.shape[1]}",
+                    lambda biases=biases, rk=rk: K.its_select(biases, rk),
+                    self.chunked(lambda s, biases=biases, rk=rk: ref.its_select_ref(biases[s], rk[s]), n),
+                    lambda want, n=n, p=p: self.select_work(n, p, SELECT_K, want[1]))
+                k8.update({f"{key}_{m}": run[m] for m in (
+                    "ms", "plain_ms", "bound_ms", "mismatches", "mean_iters", "mean_searches")})
+                k8[f"{key}_x_bound"] = run["ms"] / run["bound_ms"]
             entries.append(self.compare(
-                path, "its_select", f"block={b} K=1", launch, plain,
-                *self.select_work(n, p, 1, launch()[1]),
-                walkers=n, width=p, k8_ms=k8["ms"], k8_plain_ms=k8["plain_ms"],
-                k8_bound_ms=k8["bound_ms"], k8_x_bound=k8["ms"] / k8["bound_ms"],
-                k8_mismatches=k8["mismatches"],
-                k8_mean_iters=stats8[0], k8_mean_searches=stats8[1]))
+                path, "its_select", f"block={b} K=1",
+                lambda biases=biases, rr=rr: K.its_select(biases, rr),
+                self.chunked(lambda s, biases=biases, rr=rr: ref.its_select_ref(biases[s], rr[s]), n),
+                lambda want, n=n, p=p: self.select_work(n, p, 1, want[1]),
+                walkers=n, width=p, **k8))
             del biases, r8
         return entries
 
     @staticmethod
     def select_work(n, p, k, stats):
-        """its_select's bytes and operations on this data, from its counters
-        ``stats`` (rounds, searches per instance): the bias rows, one uniform
+        """its_select's bytes and operations on this data, from the plain
+        version's counters ``stats`` (rounds, searches per instance): the bias rows, one uniform
         per search (a region search reuses its draw's uniform, so this counts
         the uniforms read from above), indices and stats; the scan's adds and
         each search's divides and compares."""
@@ -507,7 +514,7 @@ class Smoke:
             max_abs_err=max(e["max_abs_err"] for e in entries),
             ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
             bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=None,
-            x_bound=total("ms") / total("bound_ms"), prev_ms=PR12_MS.get(kernel_name),
+            x_bound=total("ms") / total("bound_ms"),
             cohorts=entries,
         )
         # comparison launches are not the main path's: only the path's count stays
@@ -552,7 +559,7 @@ class Smoke:
         self.build.load()
         _log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
         for line in self.build.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 _log("  " + line.strip())
 
         t0 = time.perf_counter()

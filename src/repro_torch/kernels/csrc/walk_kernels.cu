@@ -603,9 +603,10 @@ __device__ __forceinline__ bool positive(const unsigned short* pos, int q) {
 //   only by the winning lane of a round (distinct bytes, no atomics).
 //   Collisions within a round resolve "lowest lane wins" with
 //   __match_any_sync, the reference's K x K priority rule; atomics would
-//   pick a winner by timing.  What bounds K > 1 is the rounds, not the
-//   bytes: about 3.6 rounds an instance at K = 8, each a dependent binary
-//   search per pending draw (two when its region is taken).
+//   pick a winner by timing.  K > 1 runs well above its byte bound (about
+//   3.6 rounds an instance at K = 8, each a dependent binary search per
+//   pending draw, two when its region is taken); chip_smoke.py times it
+//   with all its rounds and with the first alone to part the two costs.
 // - The region search rounds each step on its own: r2 = r1 * (1 - delta),
 //   the shift r2 + delta, then the clip to [0, f32(1 - 1e-12)] = [0, 1].
 // - (iters, searches) per instance are counted as the reference counts them.
@@ -722,8 +723,9 @@ cudaError_t its_select_run(const float* biases, const float* rands, int* out, in
                            int p, int iters, int k, cudaStream_t stream) {
   // per warp: kRing slots of round16(P) floats and 32 uniforms, the bits of
   // the positive entries, and for K > 1 the byte map of taken candidates; as
-  // many warps a block (up to kSelectWarps) as let two blocks share an SM
-  // (and the registers, at 96 a thread, still hold two blocks)
+  // many warps a block (up to kSelectWarps) as fit two blocks' slots in an
+  // SM's shared memory.  The grid is as many blocks as the occupancy query
+  // (which counts registers as well) lets stay resident.
   const int ppad = (p + kScanBlock - 1) / kScanBlock * kScanBlock;
   const int stride = kRing * (ppad + 32) * 4 + (ppad / 8 + 15) / 16 * 16 + (k > 1 ? ppad : 0);
   const int warps = std::max(1, std::min(kSelectWarps, (100 * 1024) / stride));
@@ -804,7 +806,8 @@ int its_select_launch(const void* biases, const void* rands, void* out, void* st
   cudaStream_t st = (cudaStream_t)stream;
   if (nb <= 32) return (int)its_select_run<1>(b, r, (int*)out, (int*)stats, n, p, iters, k, st);
   if (nb <= 64) return (int)its_select_run<2>(b, r, (int*)out, (int*)stats, n, p, iters, k, st);
-  if (nb <= 128) return (int)its_select_run<4>(b, r, (int*)out, (int*)stats, n, p, iters, k, st);
+  // P > 1024: the in-block sums no longer fit in registers, and one build
+  // (its b < nb guards) serves every P up to 4096
   return (int)its_select_run<8>(b, r, (int*)out, (int*)stats, n, p, iters, k, st);
 }
 

@@ -181,7 +181,7 @@ def test_window_kernel_at_every_offset(cuda_device, seg):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,iters", [(1, 1), (4, 8), (8, 32), (32, 32)])
-@pytest.mark.parametrize("p", [37, 128, 1000, 1024, 4096])
+@pytest.mark.parametrize("p", [37, 128, 1000, 1024, 1152, 4096])
 def test_its_select_kernel_matches_plain_version(cuda_device, k, iters, p):
     rng = np.random.default_rng(p + k)
     n = 2048
@@ -202,7 +202,7 @@ def test_its_select_kernel_matches_plain_version(cuda_device, k, iters, p):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,iters", [(1, 1), (8, 32), (32, 32)])
-@pytest.mark.parametrize("p", [37, 128, 1000, 1024, 4096])
+@pytest.mark.parametrize("p", [37, 128, 1000, 1024, 1152, 4096])
 def test_its_select_kernel_on_edge_rows(cuda_device, k, iters, p):
     """All-zero and all-negative rows, rows with one candidate, and an
     instance count that is no multiple of the warps a block holds."""
