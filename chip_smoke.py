@@ -6,8 +6,9 @@ transition-program mode and every hand-written CUDA kernel, and checks what
 comes out.  One walk per vertex, depth 40 (DeepWalk's walk length):
 
 1. main path — ``deepwalk``, auto plan (rejection in every cohort, rejection
-   tail) on R-MAT scale 21, edge factor 16: 2.1M vertices and about 60M CSR
-   entries, the edge count of SNAP soc-LiveJournal1;
+   tail: one ``reject_step`` launch a step) on R-MAT scale 21, edge factor
+   16: 2.1M vertices and about 60M CSR entries, the edge count of SNAP
+   soc-LiveJournal1;
 2. node2vec — ``node2vec()`` (p = 2, q = 0.5) on the same graph: window
    plan (128, 512) plus the chunked window tail, ``walk_step_window``, at
    depth ``NODE2VEC_DEPTH`` (the hook runs in plain PyTorch over every
@@ -17,26 +18,39 @@ comes out.  One walk per vertex, depth 40 (DeepWalk's walk length):
    graph, auto plan (rejection), at depth ``EPILOGUE_DEPTH``;
 4. its — ``weighted_random_walk`` pinned to ITS on a 1M-vertex power-law
    graph (maximum degree about 1k, so the chunked ITS tail stays at two
-   chunks or fewer);
+   chunks or fewer): one ``walk_step`` launch a step;
 5. alias — ``weighted_random_walk``, auto plan (alias in every cohort), on
    the same power-law graph;
 6. opaque — ``weighted_random_walk`` with its flat form and program stripped
    (an arbitrary edge-bias hook) on the same power-law graph: the dense
    context and ``its_select`` with K = 1;
 7. per kernel — each kernel against its plain PyTorch version on the card,
-   on its path's first-step inputs, with its time per step, its bound (bytes
-   over 3.35 TB/s, or f32 operations over 67 TFLOP/s, the larger) and the
-   plain version's time; ``its_select`` also at K = 8 with 32 rounds on the
-   same rows, so collisions and region search run; ``walk_step_window`` also
-   on the node2vec path's last step, where more walkers sit on hubs;
+   on its path's first-step inputs, one entry per launch the step makes,
+   with its time per step (device time, launches back to back; ``call_ms``:
+   the host clock per call, what the path pays when the host is slower),
+   its bound and the plain version's time.  The
+   bound is the larger of the bytes over 3.35 TB/s and the operations over
+   their rates: f32 operations over 67 TFLOP/s, and the counted hash's
+   32-bit integer operations (``reject_step``, ``walk_step``: 75 per
+   uniform, the uniforms each walker hashes counted from the plain
+   version's output) over the INT32 rate, 64 lanes an SM at the SM clock
+   that ``nvidia-smi --query-gpu=clocks.max.sm`` reports.  ``its_select``
+   also at K = 8 with 32 rounds on the same rows, so collisions and region
+   search run; ``walk_step_window`` also on the node2vec path's last step,
+   where more walkers sit on hubs;
 8. cross-check — the first 4,096 walkers of each path, rerun on the CPU by
    the plain versions, equal the card's walks; every hop is a graph edge (or
-   an MH stay, a jump to a valid vertex, a restart to the walk's seed).
+   an MH stay, a jump to a valid vertex, a restart to the walk's seed);
+9. the device hash — the kernels' threefry, alone, against ``rng.uniform``
+   bit for bit, at the main path's W under its first step's 16 rejection
+   round keys.
 
 Each path runs with the kernels' launch counts set to 0 just before and read
-just after; a kernel its path never launched fails the run.
+just after; a kernel its path never launched fails the run, and a flat
+path must launch each of its methods' kernels once a step.
 
-Each path also records its counted-RNG time per step (flat paths), and a
+Each path also records its counted-RNG time per step (flat paths: the host's
+key derivation and the draws the step still makes outside a kernel), and a
 torch.profiler trace of two steps: device busy time, idle share and the
 kernels that took the most device time.
 
@@ -44,10 +58,13 @@ Usage, from the root of a checkout (builds the kernels into build/kernels/):
 
     python3 chip_smoke.py
 
-Prints a ``paths`` line (SEPS per path; ``plan_s``, the host's plan and
-table build, which on the alias path is the alias build), a ``kernels`` line
-(per kernel: ms per step, bound, ``x_bound``, plain ms, all measured in this
-run), the card's name and power limit, and last
+Prints a ``paths`` line (SEPS per path, timed after a warm-up call, which
+for a flat path is the whole walk, kept as ``first_call_s``; ``plan_s``,
+the host's plan and table build, which on the alias path is the alias
+build; the device hash
+check), a ``kernels`` line (per kernel: ms per step, bound, ``x_bound``,
+plain ms, all measured in this run), the card's name and power limit, and
+last
 ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
 """
@@ -60,12 +77,21 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 #: H100 SXM peaks (NVIDIA data sheet, at a 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+#: 32-bit integer lanes of an SM (Hopper: 16 INT32 lanes in each of 4
+#: partitions); the rate is these times the SMs times the SM clock
+INT32_LANES_PER_SM = 64
+#: 32-bit integer operations of one counted uniform (threefry2x32: 2 key
+#: adds, 20 rounds of add, rotate and XOR, 5 key injections of 2 adds; the
+#: XOR of the two words, the shift and the OR of the bits)
+HASH_INT_OPS = 2 + 20 * 3 + 5 * 2 + 3
 
 RMAT_SCALE = 21
 POWERLAW_VERTICES = 1_000_000
@@ -103,34 +129,50 @@ class Smoke:
         from repro_torch import kernels
         from repro_torch.core import algorithms, backend, engine, methods, rng, select, transition
         from repro_torch.graph import generators
-        from repro_torch.kernels import _build, ref
+        from repro_torch.kernels import _build, ref, threefry
 
         self.torch, self.kernels, self.alg = torch, kernels, algorithms
         self.bk, self.eng, self.mt, self.rng, self.tp = backend, engine, methods, rng, transition
         self.sel = select
-        self.gen, self.build, self.ref = generators, _build, ref
+        self.gen, self.build, self.ref, self.threefry = generators, _build, ref, threefry
         self.dev = torch.device("cuda")
         self.key = rng.PRNGKey(SEED)
         self.paths: list[dict] = []
         self.kernel_rows: dict[str, dict] = {}
+        self.hash_row: dict = {}
         self._cpu_graphs: dict = {}
+        self.sm_clock_mhz = _max_sm_clock_mhz()
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        self.int32_ops_per_s = sms * INT32_LANES_PER_SM * self.sm_clock_mhz * 1e6
 
     # -- helpers -----------------------------------------------------------
 
     def sync(self):
         self.torch.cuda.synchronize()
 
-    def event_ms(self, fn, reps: int) -> float:
+    def event_ms(self, fn, reps: int) -> tuple[float, float]:
+        """``(device ms, call ms)`` per call of ``fn``.  The call time is
+        the host clock over ``reps`` calls and a synchronise: what a caller
+        pays, host work included.  The device time is CUDA events around
+        ``reps`` calls queued behind a device spin (``torch.cuda._sleep``)
+        longer than the host needs to queue them, so the calls run back to
+        back and the host's own time between launches does not count."""
         torch = self.torch
         fn()
         self.sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        self.sync()
+        call_ms = (time.perf_counter() - t0) / reps * 1e3
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2 * reps * call_ms * 1e-3 * self.sm_clock_mhz * 1e6))
         start.record()
         for _ in range(reps):
             fn()
         end.record()
         self.sync()
-        return start.elapsed_time(end) / reps
+        return start.elapsed_time(end) / reps, call_ms
 
     def cpu_graph(self, g):
         """One CPU copy per graph, shared by its paths' cross-checks."""
@@ -197,8 +239,13 @@ class Smoke:
 
         seeds = torch.arange(g.num_vertices, dtype=torch.int32, device=self.dev)
         walk = dict(depth=depth, spec=spec, max_degree=max_degree, device=self.dev)
-        self.eng.random_walk(g, seeds, self.key, **dict(walk, depth=1))  # warm-up
+        # warm-up: a flat path's whole walk, so that the timed call finds the
+        # allocator's pool grown (its time is kept as first_call_s); one step
+        # of the costlier window and opaque paths
+        t0 = time.perf_counter()
+        self.eng.random_walk(g, seeds, self.key, **dict(walk, depth=depth if methods else 1))
         self.sync()
+        first_call_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         self.kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -207,6 +254,12 @@ class Smoke:
         seconds = time.perf_counter() - t0
         launches = self.kernels.launch_counts()
         _require(launches[kernel_name] > 0, f"{name}: {kernel_name} never launched: {launches}")
+        if methods:  # one launch per method and step
+            per_method = {"rejection": "reject_step", "alias": "alias_step"}
+            want = {per_method[m] for m in methods if m in per_method}
+            want |= {"walk_step"} if "its" in methods[:len(buckets)] else set()
+            for k in want:
+                _require(launches[k] == depth, f"{name}: {launches[k]} {k} launches in {depth} steps")
         edges, off_edge = self.check_walks(g, res, seeds, depth, hop_rule)
         row = dict(
             path=name, spec=spec.name, mode=program.mode, method=program.method,
@@ -215,6 +268,7 @@ class Smoke:
             sampled_edges=edges, off_edge_hops=off_edge, seconds=seconds,
             seps=edges / seconds, ms_per_step=1e3 * seconds / depth,
             peak_gib=torch.cuda.max_memory_allocated() / 2**30, graph_s=gen_s, plan_s=plan_s,
+            first_call_s=first_call_s if methods else None,
         )
         _log(f"[{name}] {json.dumps(row)}")
 
@@ -227,7 +281,7 @@ class Smoke:
         _require(same, f"{name}: card walks differ from the CPU walks of the first {n} walkers")
         row["cpu_check_walkers"] = n
         row["cpu_check_s"] = time.perf_counter() - t0
-        row["rng_ms_per_step"] = self.rng_ms(g.num_vertices, methods) if methods else None
+        row["rng_ms_per_step"] = self.rng_ms(g, methods, buckets) if methods else None
         self.paths.append(row)
         last = res.walks[:, depth - 2:depth].clone() if depth >= 2 else None  # (prev, cur)
         del res, cpu
@@ -251,29 +305,47 @@ class Smoke:
         row.update(self.profile(name, g, seeds, walk))
         return row
 
-    def rng_ms(self, w, methods):
-        """Time of one step's counted-RNG draws at W walkers, as
-        ``walk_step_adaptive`` makes them (bucket uniform, rejection budget,
-        tail uniform)."""
-        rng = self.rng
+    def rng_ms(self, g, methods, buckets):
+        """Wall time of one step's counted RNG outside the kernels at W
+        walkers (one a vertex), as ``walk_step_adaptive`` runs it: the
+        host's key derivation, the W-wide bucket uniform only for an alias
+        cohort, the tail's uniforms only for its walkers.  ``reject_step``
+        and ``walk_step`` hash theirs in the kernel."""
+        torch, rng = self.torch, self.rng
+        w = g.num_vertices
+        deg = g.indptr[1:] - g.indptr[:-1]
+        huge = torch.nonzero(deg > buckets[-1]).squeeze(1)
+        tail = methods[len(buckets)]
 
         def draws():
             kf = rng.fold_in(rng.fold_in(self.key, 0), 1)
-            rng.uniform(rng.fold_in(kf, 0), (w,), device=self.dev)
+            if "its" in methods[:len(buckets)]:
+                rng.fold_in(kf, 0)
             if "rejection" in methods:
-                self.sel.rejection_randoms(rng.fold_in(kf, 2), (w,), device=self.dev)
-            if methods[-1] != "rejection":
-                rng.uniform(rng.fold_in(kf, 1), (w,), device=self.dev)
+                kb = rng.fold_in(kf, 2)
+                for t in range(2 * self.sel.REJECT_ITERS):
+                    rng.fold_in(kb, t)
+            if "alias" in methods[:len(buckets)]:
+                rng.uniform(rng.fold_in(kf, 0), (w,), device=self.dev)
+            if tail in ("its", "alias"):
+                rng.uniform_at(rng.fold_in(kf, 1), huge)
 
-        return self.event_ms(draws, 5)
+        draws()
+        self.sync()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            draws()
+        self.sync()
+        return (time.perf_counter() - t0) / 5 * 1e3
 
     # -- per-kernel comparison, time and bound ------------------------------
 
     def compare(self, path, kernel_name, label, launch, plain, work, **extra):
         """Run a kernel and its plain version on the same inputs, count the
         mismatches (must be 0), and time both.  ``work(want)`` gives the
-        bytes and operations of the bound from the plain version's output,
-        so the bound never rests on what the kernel under test returned."""
+        bytes, f32 operations and 32-bit integer operations of the bound
+        from the plain version's output, so the bound never rests on what
+        the kernel under test returned."""
         got, want = launch(), plain()
         self.sync()
         if isinstance(got, tuple):  # its_select: (idx, stats)
@@ -285,14 +357,15 @@ class Smoke:
             mismatches = int((got != want).sum())
             err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
         _require(mismatches == 0, f"{path}/{kernel_name} {label}: {mismatches} mismatches")
-        nbytes, nops = work(want)
-        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+        nbytes, nops, nint = work(want)
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, self.ops_s(nops, nint)
+        ms, call_ms = self.event_ms(launch, TIMING_REPS)
         entry = dict(
             cohort=label, mismatches=mismatches, max_abs_err=err,
-            ms=self.event_ms(launch, TIMING_REPS), plain_ms=self.event_ms(plain, 2),
+            ms=ms, call_ms=call_ms, plain_ms=self.event_ms(plain, 2)[0],
             bound_ms=max(by_bytes, by_ops) * 1e3,
             bound_by="bytes" if by_bytes >= by_ops else "operations",
-            bytes=nbytes, ops=nops, **extra,
+            bytes=nbytes, ops=nops, int_ops=nint, **extra,
         )
         _log(f"[{path}] {kernel_name} {json.dumps(entry)}")
         return entry
@@ -309,98 +382,92 @@ class Smoke:
 
         return run
 
-    def cohort_inputs(self, g, methods, tables, buckets):
-        """The first step's cohort inputs, built as ``walk_step_adaptive``
-        builds them (one walker per vertex)."""
-        torch, rng = self.torch, self.rng
+    def ops_s(self, nops, nint):
+        """Seconds the card needs for ``nops`` f32 and ``nint`` 32-bit
+        integer operations at their peak rates."""
+        return nops / F32_OPS_PER_S + nint / self.int32_ops_per_s
+
+    def measure_flat(self, path, g, spec, methods, tables, buckets, kernel_name):
+        """The path's first step, one walker a vertex, as
+        ``walk_step_adaptive`` runs it: one launch of ``kernel_name`` for
+        all the cohorts of its method."""
+        torch, rng, ref, K, bk = self.torch, self.rng, self.ref, self.kernels, self.bk
+        bias = self.tp.lower(spec).bias.fn(g)
         w = g.num_vertices
         kf = rng.fold_in(rng.fold_in(self.key, 0), 1)
         cur = torch.arange(w, dtype=torch.int32, device=self.dev)
-        safe = cur.long()
-        starts = g.indptr[safe]
-        deg = g.indptr[safe + 1] - starts
-        common = dict(r=rng.uniform(rng.fold_in(kf, 0), (w,), device=self.dev))
-        if "rejection" in methods:
-            common["rej"] = self.sel.rejection_randoms(rng.fold_in(kf, 2), (w,),
-                                                              device=self.dev)
-            common["rm"] = tables.row_max[safe]
-        cohorts, lo = [], 0
-        for seg in buckets:
-            inb = (deg > lo) & (deg <= seg)
-            cohorts.append((seg, torch.where(inb, starts, 0), torch.where(inb, deg, 0)))
-            lo = seg
-        huge = deg > buckets[-1]
-        cohorts.append((None, torch.where(huge, starts, 0), torch.where(huge, deg, 0)))
-        return common, cohorts
-
-    def measure_flat(self, path, g, spec, methods, tables, buckets, kernel_name):
-        torch, ref, K = self.torch, self.ref, self.kernels
-        bias = self.tp.lower(spec).bias.fn(g)
-        common, cohorts = self.cohort_inputs(g, methods, tables, buckets)
-        r = common["r"]
-        entries = []
-        for seg, st, dg in cohorts:
-            if kernel_name == "walk_step":
-                if seg is None:
-                    continue  # the ITS tail is the chunked scan, not a kernel
-                dg = torch.clamp(dg, max=seg)
-                launch = lambda st=st, dg=dg, seg=seg: K.walk_step(st, dg, g.indices, bias, r, max_seg=seg)
-                plain_fn = lambda s, st=st, dg=dg, seg=seg: ref.walk_step_block_ref(
-                    st[s], dg[s], g.indices, bias, r[s], seg=seg)
-            elif kernel_name == "alias_step":
-                launch = lambda st=st, dg=dg, seg=seg: K.alias_step(
-                    st, dg, g.indices, tables.prob, tables.alias, r, max_seg=seg)
-                plain_fn = lambda s, st=st, dg=dg, seg=seg: ref.alias_step_block_ref(
-                    st[s], dg[s], g.indices, tables.prob, tables.alias, r[s], seg=seg)
-            else:
-                rej, rm = common["rej"], common["rm"]
-                launch = lambda st=st, dg=dg, seg=seg: K.reject_step(
-                    st, dg, g.indices, bias, rm, rej, max_seg=seg)
-                plain_fn = lambda s, st=st, dg=dg, seg=seg: ref.reject_step_block_ref(
-                    st[s], dg[s], g.indices, bias, rm[s], rej[s], seg=seg)
-            w = st.shape[0]
-            work = lambda want, st=st, dg=dg, seg=seg: self.work(  # noqa: E731
-                kernel_name, seg, st, dg, want, bias, common)
-            entries.append(self.compare(path, kernel_name, f"seg={seg}", launch,
-                                        self.chunked(plain_fn, w), work,
-                                        walkers=w, live=int((dg > 0).sum())))
-        return entries
-
-    def work(self, kernel_name, seg, st, dg, out, bias, common):
-        """Bytes and f32 operations this launch needs on this data: each
-        input word read once, each output written once; a rejection draw
-        counts only the rounds up to its acceptance."""
-        torch = self.torch
-        w = st.shape[0]
-        live = dg > 0
-        n_live = int(live.sum())
-        n_out = int((out >= 0).sum())
-        nbytes = 8 * w + 8 * n_live + 4 * n_out  # degs + out; starts + r or rm; ids
+        plan = dict(buckets=buckets, use_chunked=True, methods=methods)
+        _, _, deg = ref.walker_rows(g.indptr, cur)
+        cohort = ref.walker_cohorts(deg, buckets, True)
+        by_cohort = {f"seg={s}" if k < len(buckets) else "tail": int((cohort == k).sum())
+                     for k, s in enumerate((*buckets, None))}
+        out = torch.full_like(cur, -1)
         if kernel_name == "walk_step":
-            nbytes += 4 * int(dg[live].long().sum())
-            nops = 2 * (2 * seg) * n_live  # the window's adds and compares
-        elif kernel_name == "walk_step_window":
-            entries = int(dg[live].long().sum())
-            nbytes += 4 * entries
-            nops = 3 * entries  # per row entry: the in-block add, the prefix add, the compare
-        elif kernel_name == "alias_step":
-            nbytes += 8 * n_live  # prob + alias words
-            nops = 3 * n_live
+            launch = lambda: K.walk_step(kf, g.indptr, g.indices, bias, cur, out=out, **plan)  # noqa: E731
+            plain_fn = lambda: ref.walk_step_ref(kf, g.indptr, g.indices, bias, cur, **plan)  # noqa: E731
+        elif kernel_name == "reject_step":
+            launch = lambda: K.reject_step(kf, g.indptr, g.indices, bias, tables.row_max, cur,  # noqa: E731
+                                           out=out, **plan)
+            plain_fn = lambda: ref.reject_step_ref(kf, g.indptr, g.indices, bias,  # noqa: E731
+                                                   tables.row_max, cur, **plan)
         else:
-            rej, rm = common["rej"], common["rm"]
-            deg_eff = dg if seg is None else torch.clamp(dg, max=seg)
-            hi = torch.clamp(deg_eff - 1, min=0)
-            todo = live & (rm > 0)
-            rounds = torch.zeros_like(dg)
-            for t in range(rej.shape[1]):
-                slot = torch.minimum((rej[:, t, 0] * deg_eff.float()).int(), hi)
-                acc = rej[:, t, 1] * rm < bias[(st + slot).long().clamp(max=bias.shape[0] - 1)]
-                rounds += todo.int()
-                todo = todo & ~acc
-            n_rounds = int(rounds.long().sum())
-            nbytes += 12 * n_rounds  # the round's two uniforms + one bias word
-            nops = 3 * n_rounds
-        return nbytes, nops
+            served, st, dg, r = bk.alias_operands(kf, g.indptr, cur, **plan)
+            launch = lambda: K.alias_step(st, dg, g.indices, tables.prob, tables.alias, r,  # noqa: E731
+                                          max_seg=None)
+            plain_fn = self.chunked(lambda s: ref.alias_step_block_ref(
+                st[s], dg[s], g.indices, tables.prob, tables.alias, r[s], seg=None), w)
+        work = lambda want: self.work(kernel_name, g, cur, want, bias, tables, kf, plan)  # noqa: E731
+        return [self.compare(path, kernel_name, "step", launch, plain_fn, work, walkers=w,
+                             live=int((deg > 0).sum()), walkers_by_cohort=by_cohort)]
+
+    def work(self, kernel_name, g, cur, out, bias, tables, kf, plan):
+        """Bytes, f32 and 32-bit integer operations this launch needs on
+        this data: each input word read once, each output written once; a
+        rejection draw counts only the rounds up to its acceptance, each
+        two hashed uniforms; an ITS draw reads its capped row once and
+        hashes one uniform when the row has mass."""
+        torch, ref = self.torch, self.ref
+        buckets, methods = plan["buckets"], plan["methods"]
+        w = cur.shape[0]
+        safe, starts, deg = ref.walker_rows(g.indptr, cur)
+        cohort = ref.walker_cohorts(deg, buckets, plan["use_chunked"])
+        cap = deg
+        for k, seg in enumerate(buckets):
+            cap = torch.where(cohort == k, torch.clamp(deg, max=seg), cap)
+        n_live = int((cur >= 0).sum())
+        if kernel_name == "alias_step":
+            live = cap > 0
+            n_live, n_out = int(live.sum()), int((out >= 0).sum())
+            # degs + out; starts + r; prob + alias words; ids
+            return 8 * w + 8 * n_live + 8 * n_live + 4 * n_out, 3 * n_live, 0
+        method = "its" if kernel_name == "walk_step" else "rejection"
+        served = torch.zeros_like(cur, dtype=torch.bool)
+        for k, m in enumerate(methods):
+            if m == method and (k < len(buckets) or method == "rejection"):
+                served |= cohort == k
+        n_served = int(served.sum())
+        n_ids = int((served & (out >= 0)).sum())
+        nbytes = 4 * w + 8 * n_live + 4 * n_served + 4 * n_ids  # cur; row offsets; out; ids
+        if kernel_name == "walk_step":
+            entries = int(cap[served].long().sum())
+            # the row once; per entry the in-block add, the prefix add, the compare;
+            # the uniform of each row with mass
+            return nbytes + 4 * entries, 3 * entries, HASH_INT_OPS * n_ids
+        rm = tables.row_max[safe]
+        rej = ref.rejection_randoms(self.rng.fold_in(kf, 2), (w,), device=self.dev)
+        hi = torch.clamp(cap - 1, min=0)
+        todo = served & (rm > 0)
+        rounds = torch.zeros_like(cap)
+        for t in range(rej.shape[1]):
+            slot = torch.minimum((rej[:, t, 0] * cap.float()).int(), hi)
+            acc = rej[:, t, 1] * rm < bias[(starts + slot).long().clamp(max=bias.shape[0] - 1)]
+            rounds += todo.int()
+            todo = todo & ~acc
+        n_rounds = int(rounds.long().sum())
+        del rej
+        # the envelope; per round one bias word, 3 f32 operations, 2 uniforms
+        return (nbytes + 4 * n_served + 4 * n_rounds, 3 * n_rounds,
+                2 * HASH_INT_OPS * n_rounds)
 
     def measure_window(self, path, g, spec, cur, prev, step):
         """``walk_step_window`` on step ``step``'s cohorts of walkers at
@@ -430,14 +497,23 @@ class Smoke:
                 st, dg, g.indices, bias, rr, max_seg=seg)
             plain_fn = lambda s, st=st, dg=dg, bias=bias, rr=rr, seg=seg: ref.walk_step_window_block_ref(
                 st[s], dg[s], g.indices, bias[s], rr[s], seg=seg)
-            work = lambda want, st=st, dg=dg, seg=seg: self.work(  # noqa: E731
-                "walk_step_window", seg, st, dg, want, None, None)
+            work = lambda want, dg=dg: self.window_work(dg, want)  # noqa: E731
             entries.append(self.compare(path, "walk_step_window", f"step={step} seg={seg}", launch,
                                         self.chunked(plain_fn, rows.shape[0]), work,
                                         walkers=rows.shape[0], live=rows.shape[0],
                                         mean_degree=float(dg.float().mean()) if rows.numel() else 0.0))
             del bias
         return entries
+
+    @staticmethod
+    def window_work(dg, out):
+        """``walk_step_window``'s bytes and operations on this data: per
+        walker its start, degree, uniform and output and one id gather, and
+        per row entry one bias word and the in-block add, the prefix add and
+        the compare."""
+        w = dg.shape[0]
+        entries = int(dg.long().sum())
+        return 8 * w + 8 * w + 4 * int((out >= 0).sum()) + 4 * entries, 3 * entries, 0
 
     def measure_select(self, path, g, spec):
         """``its_select`` on the opaque path's first-step rows (the dense
@@ -492,13 +568,13 @@ class Smoke:
         searches = int(stats[:, 1].long().sum())
         nbytes = 4 * n * p + 4 * searches + 4 * n * k + 8 * n
         nops = n * p + 2 * searches * max(1, (p - 1).bit_length())
-        return nbytes, nops
+        return nbytes, nops, 0
 
     def kernel_row(self, kernel_name, path, entries):
         K = self.kernels
         total = lambda k: sum(e[k] for e in entries)  # noqa: E731
         by_bytes = sum(e["bytes"] for e in entries) / HBM_BYTES_PER_S
-        by_ops = sum(e["ops"] for e in entries) / F32_OPS_PER_S
+        by_ops = self.ops_s(sum(e["ops"] for e in entries), sum(e["int_ops"] for e in entries))
         src = {
             "reject_step": "src/repro/kernels/walk_step.py:267",
             "alias_step": "src/repro/kernels/alias_select.py:66",
@@ -512,14 +588,41 @@ class Smoke:
             launches=self.paths[-1]["launches"][kernel_name],
             launches_per_step=len(entries), mismatches=total("mismatches"),
             max_abs_err=max(e["max_abs_err"] for e in entries),
-            ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+            ms=total("ms"), call_ms=sum(e.get("call_ms", 0.0) for e in entries),
+            plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
             bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=None,
             x_bound=total("ms") / total("bound_ms"),
+            int32_ops_per_s=self.int32_ops_per_s, sm_clock_mhz=self.sm_clock_mhz,
             cohorts=entries,
         )
         # comparison launches are not the main path's: only the path's count stays
         for fn in K.KERNEL_WRAPPERS:
             fn.launches = 0
+
+    # -- the device hash ------------------------------------------------------
+
+    def hash_check(self, w):
+        """The kernels' threefry alone (``threefry.hash_uniform``) against
+        ``rng.uniform``'s tensor hash, bit for bit, for W counters under the
+        16 rejection round keys of the main path's first step."""
+        torch, rng = self.torch, self.rng
+        kb = rng.fold_in(rng.fold_in(rng.fold_in(self.key, 0), 1), 2)
+        keys = np.stack([rng.fold_in(kb, t) for t in range(2 * self.sel.REJECT_ITERS)])
+        counters = torch.arange(w, dtype=torch.int64, device=self.dev)
+        launch = lambda: self.threefry.hash_uniform(keys, counters)  # noqa: E731
+        plain = lambda: rng.uniform_many(keys, w, device=self.dev)  # noqa: E731
+        got, want = launch(), plain()
+        self.sync()
+        mismatches = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        _require(mismatches == 0, f"device hash: {mismatches} of {got.numel()} uniforms differ")
+        n = got.numel()
+        self.hash_row = dict(
+            keys=keys.shape[0], counters=w, uniforms=n, mismatches=mismatches,
+            ms=self.event_ms(launch, 5)[0], plain_ms=self.event_ms(plain, 2)[0],
+            bound_ms=max(4 * n / HBM_BYTES_PER_S, HASH_INT_OPS * n / self.int32_ops_per_s) * 1e3,
+        )
+        _log(f"[hash] {json.dumps(self.hash_row)}")
+        del got, want
 
     # -- profile ------------------------------------------------------------
 
@@ -568,6 +671,7 @@ class Smoke:
         gen_s = time.perf_counter() - t0
         rejection = ("rejection",) * 3
         self.run_path("main", g, alg.deepwalk(), "reject_step", gen_s, expect_plan=rejection)
+        self.hash_check(g.num_vertices)
         self.run_path("node2vec", g, alg.node2vec(), "walk_step_window", gen_s,
                       depth=NODE2VEC_DEPTH)
         for name, spec, rule in [
@@ -598,6 +702,16 @@ class Smoke:
             _require(row["launches"] > 0 and row["mismatches"] == 0, f"kernel row {row}")
 
 
+def _max_sm_clock_mhz() -> float:
+    """The card's maximum SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    _require(out.returncode == 0 and out.stdout.strip(), "nvidia-smi gave no SM clock")
+    return float(out.stdout.strip().splitlines()[0])
+
+
 def _card_line() -> str:
     try:
         out = subprocess.run(
@@ -624,7 +738,8 @@ def main() -> int:
     t0 = time.perf_counter()
     smoke = Smoke()
     smoke.run()
-    print(json.dumps({"paths": smoke.paths, "seconds": time.perf_counter() - t0}))
+    print(json.dumps({"paths": smoke.paths, "device_hash": smoke.hash_row,
+                      "seconds": time.perf_counter() - t0}))
     print(json.dumps({"kernels": [smoke.kernel_rows[k] for k in KERNELS]}))
     print(_card_line())
     print(json.dumps({"ok": True, "device": {

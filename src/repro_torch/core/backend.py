@@ -1,12 +1,13 @@
 """Degree-bucketed walk scheduling, and the ITS draw of the dense path.
 
 Per step, walkers are split by degree into cohorts — ``(0, 128]`` and
-``(128, 512]`` — each served by one walk-step kernel with a per-cohort row
-cap, and degrees above the top bucket take a tail (the workload-aware
-scheduling of the paper, as ``repro.core.backend`` runs it).
+``(128, 512]`` — each with a per-cohort row cap, and degrees above the top
+bucket take a tail (the workload-aware scheduling of the paper, as
+``repro.core.backend`` runs it).
 
 - :func:`walk_step_adaptive` — flat biases, a selection method per cohort
-  (ITS, alias or rejection); an all-ITS plan is ``methods=("its", …)``.
+  (ITS, alias or rejection), one kernel launch per method and step; an
+  all-ITS plan is ``methods=("its", …)``.
 - :func:`walk_step_bucketed_window` — window biases (node2vec): the hook is
   evaluated on each cohort's compact row windows, the pick runs the
   ``walk_step_window`` kernel, and the tail is the chunked window scan.
@@ -22,7 +23,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import select as sel
-from repro_torch.core.rng import fold_in, uniform
+from repro_torch.core.rng import fold_in, uniform, uniform_at
+from repro_torch.kernels import ref
 from repro_torch.kernels.alias_select import alias_step
 from repro_torch.kernels.its_select import its_select
 from repro_torch.kernels.walk_step import reject_step, walk_step, walk_step_window
@@ -121,17 +123,46 @@ def _chunked_tail(key, indptr, indices, safe, deg, seg_hi, nxt, scan):
     """Route walkers with ``deg > seg_hi`` through a two-pass chunked scan
     (only those walkers: the scan runs to their longest row).
     ``scan(huge, vertices, rand)`` returns each one's edge offset, -1 for a
-    dead end; its uniforms are ``uniform(key, (W,))`` sliced to them."""
+    dead end; its uniforms are ``uniform(key, (W,))``'s at their indices,
+    hashed for them alone."""
     huge = torch.nonzero(deg > seg_hi).squeeze(1)
     if huge.numel() == 0:
         return nxt
-    rand = uniform(key, (nxt.shape[0],), device=nxt.device)[huge]
+    rand = uniform_at(key, huge)
     rows = safe[huge]
     off = scan(huge, rows, rand)
     eidx = torch.clamp(indptr[rows].long() + torch.clamp(off, min=0), 0, indices.shape[0] - 1)
     nxt = nxt.clone()
     nxt[huge] = torch.where(off >= 0, indices[eidx], -1)
     return nxt
+
+
+def alias_operands(key, indptr, cur, *, buckets, use_chunked, methods):
+    """The operands of one ``alias_step`` launch for every alias cohort of a
+    step: ``(served, starts, capped degrees, uniforms)``, each walker's row
+    capped at its cohort's segment (the tail uncapped), its uniform the
+    bucket uniform ``fold_in(key, 0)`` or, in the tail, ``fold_in(key, 1)``,
+    at the walker's index — the draws of one launch per cohort, bit for
+    bit.  Walkers outside the alias cohorts get degree 0."""
+    _, starts, deg = ref.walker_rows(indptr, cur)
+    cohort = ref.walker_cohorts(deg, buckets, use_chunked)
+    served = torch.zeros_like(cur, dtype=torch.bool)
+    capped = deg
+    for k, m in enumerate(methods):
+        if m == "alias":
+            inb = cohort == k
+            served = served | inb
+            if k < len(buckets):
+                capped = torch.where(inb, torch.clamp(deg, max=buckets[k]), capped)
+    w = cur.shape[0]
+    if "alias" in methods[:len(buckets)]:
+        rand = uniform(fold_in(key, 0), (w,), device=cur.device)
+    else:
+        rand = torch.zeros(w, dtype=torch.float32, device=cur.device)
+    if use_chunked and methods[len(buckets)] == "alias":
+        huge = torch.nonzero(cohort == len(buckets)).squeeze(1)
+        rand[huge] = uniform_at(fold_in(key, 1), huge)
+    return served, torch.where(served, starts, 0), torch.where(served, capped, 0), rand
 
 
 def walk_step_adaptive(
@@ -151,66 +182,41 @@ def walk_step_adaptive(
     ``methods`` (from ``core.methods.plan_for_graph``) names the draw of each
     degree cohort — ``"its"``, ``"alias"`` (``tables.prob``/``tables.alias``)
     or ``"rejection"`` (envelope ``tables.row_max``) — one entry per bucket
-    plus one for the tail when present.
+    plus one for the tail when present.  Each method runs one kernel launch
+    for all its cohorts: ``reject_step`` (the tail included) and
+    ``walk_step`` find their walkers' cohorts themselves and write them into
+    one output; the alias cohorts go to one ``alias_step``.  An ITS tail
+    takes the chunked scan.
 
     Counted RNG, as the reference: the bucket uniform is ``fold_in(key, 0)``
     (alias cohorts consume the same uniform an ITS cohort would); the ITS
     and alias tails use ``fold_in(key, 1)``; the rejection budget, shared by
     every rejection cohort including the tail, is
-    ``rejection_randoms(fold_in(key, 2))``.  Alias and rejection tails draw
-    over the whole row; only an ITS tail scans.  Returns next vertices
-    (W,) int32, -1 for finished walkers and dead ends.
+    ``rejection_randoms(fold_in(key, 2))``; walker ``i`` draws at counter
+    ``i`` of each.  ``walk_step`` and ``reject_step`` hash their uniforms in
+    the kernel, and the tails hash theirs for their walkers alone, so the
+    W-wide bucket uniform is drawn only for an alias cohort.  Alias and
+    rejection tails draw over the whole row; only an ITS tail scans.
+    Returns next vertices (W,) int32, -1 for finished walkers and dead ends.
     """
-    dev = cur.device
-    w = cur.shape[0]
-    safe = torch.clamp(cur, min=0).long()
-    starts = indptr[safe]
-    deg = torch.where(cur >= 0, indptr[safe + 1] - starts, 0)
-    r = uniform(fold_in(key, 0), (w,), device=dev)
-    rej = None
-    if any(m == "rejection" for m in methods):
-        rej = sel.rejection_randoms(fold_in(key, 2), (w,), device=dev)
-    rmv = None
-    if tables.row_max is not None:
-        rmv = torch.where(cur >= 0, tables.row_max[safe], 0.0)
-
     nxt = torch.full_like(cur, -1)
-    lo = 0
-    for i, seg in enumerate(buckets):
-        # an understated max_degree degrades to neighborhood truncation
-        # (each draw caps the row at seg), never silent walker death
-        absorb = i == len(buckets) - 1 and not use_chunked
-        inb = (deg > lo) & ((deg <= seg) | absorb)
-        st = torch.where(inb, starts, 0)
-        dg = torch.where(inb, deg, 0)
-        m = methods[i]
-        if m == "alias":
-            cand = alias_step(st, dg, indices, tables.prob, tables.alias, r, max_seg=seg)
-        elif m == "rejection":
-            cand = reject_step(st, dg, indices, flat_bias, rmv, rej, max_seg=seg)
-        else:
-            cand = walk_step(st, torch.clamp(dg, max=seg), indices, flat_bias, r, max_seg=seg)
-        nxt = torch.where(inb, cand, nxt)
-        lo = seg
-
-    if use_chunked:
-        huge = deg > buckets[-1]
-        st = torch.where(huge, starts, 0)
-        dg = torch.where(huge, deg, 0)
-        m = methods[len(buckets)]
-        if m == "alias":
-            tail_rand = uniform(fold_in(key, 1), (w,), device=dev)
-            cand = sel.alias_draw_flat(st, dg, tables.prob, tables.alias, indices, tail_rand)
-            nxt = torch.where(huge, cand, nxt)
-        elif m == "rejection":
-            cand = sel.rejection_draw_flat(st, dg, flat_bias, rmv, indices, rej)
-            nxt = torch.where(huge, cand, nxt)
-        else:
-            nxt = _chunked_tail(
-                fold_in(key, 1), indptr, indices, safe, deg, buckets[-1], nxt,
-                lambda huge, rows, rand: sel.walk_transition_chunked(
-                    None, indptr, flat_bias, rows, chunk=CHUNK, rand=rand),
-            )
+    ladder = dict(buckets=buckets, use_chunked=use_chunked, methods=methods, out=nxt)
+    if "rejection" in methods:
+        reject_step(key, indptr, indices, flat_bias, tables.row_max, cur, **ladder)
+    if "its" in methods[:len(buckets)]:
+        walk_step(key, indptr, indices, flat_bias, cur, **ladder)
+    if "alias" in methods:
+        served, st, dg, rand = alias_operands(key, indptr, cur, buckets=buckets,
+                                              use_chunked=use_chunked, methods=methods)
+        cand = alias_step(st, dg, indices, tables.prob, tables.alias, rand, max_seg=None)
+        nxt = torch.where(served, cand, nxt)
+    if use_chunked and methods[len(buckets)] == "its":
+        safe, _, deg = ref.walker_rows(indptr, cur)
+        nxt = _chunked_tail(
+            fold_in(key, 1), indptr, indices, safe, deg, buckets[-1], nxt,
+            lambda huge, rows, rand: sel.walk_transition_chunked(
+                None, indptr, flat_bias, rows, chunk=CHUNK, rand=rand),
+        )
     return nxt
 
 
@@ -259,12 +265,8 @@ def walk_step_bucketed_window(
     sliced.  Returns next vertices (W,) int32, -1 for finished walkers and
     dead ends.
     """
-    dev = cur.device
-    w = cur.shape[0]
-    safe = torch.clamp(cur, min=0).long()
-    starts = indptr[safe]
-    deg = torch.where(cur >= 0, indptr[safe + 1] - starts, 0)
-    r = uniform(fold_in(key, 0), (w,), device=dev)
+    safe, starts, deg = ref.walker_rows(indptr, cur)
+    r = uniform(fold_in(key, 0), (cur.shape[0],), device=cur.device)
 
     nxt = torch.full_like(cur, -1)
     lo = 0

@@ -8,26 +8,19 @@ The walk parts of ``repro.core.select``:
   a flat bias (:func:`walk_transition_chunked`) or a window-bias hook
   (:func:`walk_transition_chunked_window`);
 - the adaptive runtime's O(1) methods: alias tables (:func:`build_alias`,
-  host numpy) and rejection envelopes (:func:`build_row_max`), their
-  counted random budget (:func:`rejection_randoms`) and their uncapped
-  draws (:func:`alias_draw_flat`, :func:`rejection_draw_flat`), which run
-  the ``alias_step`` / ``reject_step`` kernels.
+  host numpy) and rejection envelopes (:func:`build_row_max`); the draws
+  themselves are the ``alias_step`` and ``reject_step`` kernels, and the
+  rejection budget as a tensor (:func:`rejection_randoms`) is their plain
+  versions' (``kernels.ref``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.rng import fold_in, uniform, uniform_many
+from repro_torch.core.rng import uniform
 from repro_torch.kernels import ref
-from repro_torch.kernels.alias_select import alias_step
-from repro_torch.kernels.walk_step import reject_step
-
-#: Rejection-sampling retry budget per walk step (counted-RNG rounds).  Under
-#: the cost model's near-uniform guard (acceptance rate >= 0.75) the chance of
-#: exhausting all rounds is <= 0.25**8 ~ 1.5e-5; exhaustion falls back to the
-#: last candidate (still a real neighbor) rather than killing the walker.
-REJECT_ITERS = 8
+from repro_torch.kernels.ref import REJECT_ITERS, rejection_randoms  # noqa: F401 — reference names
 
 #: width of XLA-CPU's partial sums in a row reduction (see :func:`row_sum`)
 SUM_WINDOW = 32
@@ -294,60 +287,3 @@ def build_row_max(indptr, bias) -> np.ndarray:
     starts = np.minimum(indptr[:-1], bias.shape[0] - 1)
     rm = np.maximum.reduceat(bias, starts)
     return np.where(deg > 0, rm, 0.0).astype(np.float32)
-
-
-def rejection_randoms(
-    key: np.ndarray, batch_shape, iters: int = REJECT_ITERS, device="cpu"
-) -> torch.Tensor:
-    """Pre-generated rejection budget: ``(W, iters, 2)`` f32 uniforms.
-
-    Round ``t`` consumes ``uniform(fold_in(key, 2t))`` for the candidate
-    slot and ``uniform(fold_in(key, 2t + 1))`` for the accept test — the
-    reference's counted-RNG contract.  All ``2·iters`` draws hash in one
-    pass; the result is laid out walker-major, the contiguous 16 floats per
-    walker that the ``reject_step`` kernel reads.
-    """
-    if iters < 1:
-        raise ValueError(f"rejection budget needs at least one round, got iters={iters}")
-    (n,) = tuple(batch_shape) if isinstance(batch_shape, (tuple, list)) else (batch_shape,)
-    keys = np.stack([fold_in(key, t) for t in range(2 * iters)])
-    rs = uniform_many(keys, n, device=device)  # (2*iters, W)
-    return rs.t().reshape(n, iters, 2).contiguous()
-
-
-def alias_draw_flat(
-    starts: torch.Tensor,
-    degs: torch.Tensor,
-    prob: torch.Tensor,
-    alias: torch.Tensor,
-    indices: torch.Tensor,
-    rand: torch.Tensor,
-    *,
-    cap: int | None = None,
-) -> torch.Tensor:
-    """One O(1) alias draw per walker from flat CSR-aligned tables.
-
-    ``cap`` truncates rows to a bucket segment; ``None`` (the huge-degree
-    tail) draws over the whole row.  Runs the ``alias_step`` kernel on the
-    card.  Returns next vertices (int32), -1 for dead ends.
-    """
-    return alias_step(starts, degs, indices, prob, alias, rand, max_seg=cap)
-
-
-def rejection_draw_flat(
-    starts: torch.Tensor,
-    degs: torch.Tensor,
-    flat_bias: torch.Tensor,
-    row_max: torch.Tensor,
-    indices: torch.Tensor,
-    rej: torch.Tensor,
-    *,
-    cap: int | None = None,
-) -> torch.Tensor:
-    """Counted-RNG rejection draw per walker over flat CSR bias.
-
-    ``rej`` is the ``(W, iters, 2)`` budget from :func:`rejection_randoms`;
-    ``row_max`` is each walker's envelope.  ``cap`` as in
-    :func:`alias_draw_flat`.  Runs the ``reject_step`` kernel on the card.
-    """
-    return reject_step(starts, degs, indices, flat_bias, row_max, rej, max_seg=cap)

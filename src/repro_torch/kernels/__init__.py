@@ -1,13 +1,17 @@
 """Walk-step and selection kernels for Hopper, each beside its plain
 PyTorch version.
 
-- ``walk_step``        — flat-bias ITS step (replaces ``walk_step_pallas``)
+- ``walk_step``        — flat-bias ITS step, every ITS cohort in one launch
+  (replaces ``walk_step_pallas``)
 - ``walk_step_window`` — window-bias ITS step (``walk_step_window_pallas``)
-- ``reject_step``      — counted-budget rejection step (``reject_step_pallas``)
+- ``reject_step``      — counted-budget rejection step, every rejection
+  cohort in one launch (``reject_step_pallas``)
 - ``alias_step``       — O(1) alias-table step (``alias_step_pallas``)
 - ``its_select``       — K-of-P ITS selection with region search
   (``its_select_pallas``)
 - ``ref``              — the plain versions, and the scan rule
+- ``threefry``         — the counted-RNG hash the step kernels run per
+  walker, in PyTorch, and ``hash_uniform``, the device hash alone
 
 The CUDA sources live in ``csrc/`` and are built at first use
 (``_build``); importing this package builds nothing.

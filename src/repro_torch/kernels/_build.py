@@ -30,12 +30,15 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_PI = ctypes.POINTER(ctypes.c_int)  # a host array: the step's ladder
+_PU = ctypes.POINTER(ctypes.c_uint32)  # a host array: key words
 _SIGNATURES = {
-    "reject_step_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "reject_step_launch": [_P, _P, _P, _P, _P, _P, _I, _PI, _PU, _P],
     "alias_step_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "walk_step_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "walk_step_launch": [_P, _P, _P, _P, _P, _I, _PI, _PU, _P],
     "walk_step_window_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "its_select_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "hash_uniform_launch": [_P, _P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -107,17 +110,18 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda(name: str, walkers: tuple, tables: tuple) -> None:
+def require_cuda(name: str, walkers: tuple, tables: tuple, others: tuple = ()) -> None:
     """Check the operands a kernel reads through raw pointers.
 
-    ``walkers`` and ``tables`` hold ``(tensor, dtype)`` pairs: per-walker
-    arrays (leading dimension W) and CSR-aligned arrays (one length E).  All
-    must lie on one CUDA device, have the named dtype and be contiguous.
+    ``walkers``, ``tables`` and ``others`` hold ``(tensor, dtype)`` pairs:
+    per-walker arrays (leading dimension W), CSR-aligned arrays (one length
+    E) and arrays of other lengths.  All must lie on one CUDA device, have
+    the named dtype and be contiguous.
     """
     dev = walkers[0][0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: operands on {dev}, expected a CUDA device")
-    for t, dt in (*walkers, *tables):
+    for t, dt in (*walkers, *tables, *others):
         if t.device != dev:
             raise ValueError(f"{name}: operands on {t.device} and {dev}")
         if t.dtype != dt:

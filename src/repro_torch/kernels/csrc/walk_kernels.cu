@@ -11,16 +11,22 @@
 // [start, start + min(deg, cap)) directly and gathers the int32 id directly,
 // which equals the reference for every id (the TPU kernels only below 2^24).
 //
-// What bounds them: bytes of random gathers.  A walker's row sits at a
-// data-dependent offset in arrays far larger than L2, so each draw costs a
-// few 32-byte sectors of device memory; the arithmetic is a handful of f32
-// operations per gathered word.  The designs therefore keep gathers to the
-// minimum each method needs (rejection: one bias word per round and one id,
-// stopping at the first acceptance; alias: two table words and one id;
-// ITS: the row once), and launch enough walkers to keep many gathers in
-// flight.  The exception is its_select, which reads whole dense rows: it is
-// bound by those bytes, and stages them into shared memory asynchronously so
-// that the next rows load while the current one is scanned.
+// What bounds them: bytes of random gathers, and for the two step kernels
+// the counted hash as well.  A walker's row sits at a data-dependent offset
+// in arrays far larger than L2, so each draw costs a few 32-byte sectors of
+// device memory; the f32 arithmetic is a handful of operations per gathered
+// word.  The designs therefore keep gathers to the minimum each method needs
+// (rejection: one bias word per round and one id, stopping at the first
+// acceptance; alias: two table words and one id; ITS: the row once), and
+// launch enough walkers to keep many gathers in flight.  The step kernels
+// (reject_step, walk_step) hash their walkers' counted uniforms themselves:
+// threefry2x32 is about 75 32-bit integer operations per uniform, so a
+// rejection round costs about 150 integer operations beside its one bias
+// word, and the hash is of the same order as the gathers: both count in
+// the bound.  The exception is its_select, which reads whole dense rows: it
+// is bound by those bytes, and stages them into shared memory
+// asynchronously so that the next rows load while the current one is
+// scanned.
 //
 // Bit hazards: the build passes -fmad=false, and the products and
 // differences that must round on their own use __fmul_rn / __fsub_rn /
@@ -38,45 +44,142 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarpsPerBlock = 4;
-constexpr int kMaxWindow = 1024;           // 2 * max_seg for max_seg <= 512
-constexpr int kScanBlock = 16;             // XLA-CPU's scan block width
-constexpr int kMaxBlocks = kMaxWindow / kScanBlock;
+constexpr int kScanBlock = 16;  // XLA-CPU's scan block width
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxLadder = 4;    // repro_torch/kernels/walk_step.py:MAX_LADDER
+constexpr int kRejectIters = 8;  // repro_torch/kernels/ref.py:REJECT_ITERS
+
+// -- counted RNG ----------------------------------------------------------------
+
+struct Key {
+  uint32_t k0, k1;
+};
+
+// The keys of the rejection rounds: round t's slot uniform under k[2t], its
+// accept uniform under k[2t + 1] (fold_in(fold_in(step key, 2), j), derived
+// on the host).
+struct RoundKeys {
+  Key k[2 * kRejectIters];
+};
+
+// One step's degree ladder (repro_torch/kernels/walk_step.py::_ladder):
+// nseg increasing segments, whether degrees above the last take the tail
+// (else the last bucket absorbs them), and the bit mask of the cohorts this
+// launch serves (bit nseg: the tail).
+struct Ladder {
+  int nseg, tail, serve;
+  int segs[kMaxLadder];
+};
+
+// The ladder from the wrapper's host array (nseg, tail, serve, segs...).
+Ladder make_ladder(const int* ladder) {
+  Ladder L;
+  L.nseg = ladder[0];
+  L.tail = ladder[1];
+  L.serve = ladder[2];
+  for (int j = 0; j < kMaxLadder; ++j) L.segs[j] = ladder[3 + j];
+  return L;
+}
+
+template <int R0, int R1, int R2, int R3>
+__device__ __forceinline__ void threefry_rounds(uint32_t& x0, uint32_t& x1) {
+  x0 += x1; x1 = __funnelshift_l(x1, x1, R0); x1 ^= x0;
+  x0 += x1; x1 = __funnelshift_l(x1, x1, R1); x1 ^= x0;
+  x0 += x1; x1 = __funnelshift_l(x1, x1, R2); x1 ^= x0;
+  x0 += x1; x1 = __funnelshift_l(x1, x1, R3); x1 ^= x0;
+}
+
+// jax.random.uniform's f32 at counter i under key: threefry2x32 (20 rounds,
+// the key schedule k0, k1, k0 ^ k1 ^ 0x1BD11BDA with the round count added
+// to the second word) of the counter words (i >> 32, i & 0xffffffff), the
+// two output words XORed, 23 of the bits as a mantissa in [1, 2), minus 1.
+// The plain version is repro_torch/kernels/threefry.py (uniform_at).  About
+// 75 integer operations: 2 + 20 x 3 + 5 x 2 adds, rotations and XORs, and
+// the XOR, shift and OR of the bits.
+__device__ __forceinline__ float counted_uniform(Key key, unsigned long long i) {
+  const uint32_t k0 = key.k0, k1 = key.k1, k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  uint32_t x0 = (uint32_t)(i >> 32) + k0, x1 = (uint32_t)i + k1;
+  threefry_rounds<13, 15, 26, 6>(x0, x1);
+  x0 += k1; x1 += k2 + 1u;
+  threefry_rounds<17, 29, 16, 24>(x0, x1);
+  x0 += k2; x1 += k0 + 2u;
+  threefry_rounds<13, 15, 26, 6>(x0, x1);
+  x0 += k0; x1 += k1 + 3u;
+  threefry_rounds<17, 29, 16, 24>(x0, x1);
+  x0 += k1; x1 += k2 + 4u;
+  threefry_rounds<13, 15, 26, 6>(x0, x1);
+  x0 += k2; x1 += k0 + 5u;
+  const uint32_t bits = x0 ^ x1;
+  return __fsub_rn(__int_as_float((int)((bits >> 9) | 0x3f800000u)), 1.0f);
+}
+
+// The walker's cohort on the ladder (repro_torch/kernels/ref.py::
+// walker_cohorts) for deg > 0: the first bucket with deg <= its segment,
+// else the tail (nseg) or, without one, the last bucket.  Sets cap to the
+// cohort's segment, INT_MAX for the tail.  Unrolled, so the ladder stays in
+// the kernel's parameters.
+__device__ __forceinline__ int cohort_of(const Ladder& L, int deg, int& cap) {
+  int k = -1;
+  cap = 0x7fffffff;
+#pragma unroll
+  for (int j = 0; j < kMaxLadder; ++j) {
+    if (k < 0 && j < L.nseg && deg <= L.segs[j]) {
+      k = j;
+      cap = L.segs[j];
+    }
+  }
+  if (k < 0) {
+    k = L.tail ? L.nseg : L.nseg - 1;
+#pragma unroll
+    for (int j = 0; j < kMaxLadder; ++j)
+      if (!L.tail && j == L.nseg - 1) cap = L.segs[j];
+  }
+  return k;
+}
 
 // Replaces reject_step_pallas (src/repro/kernels/walk_step.py:267, body
-// _reject_step_kernel :96).  One thread per walker: up to `iters` rounds,
-// each one 8-byte read of the walker's own random pair and one 4-byte bias
-// gather; the first acceptance ends the loop, so a near-uniform row costs
-// about one round.  rej is (W, iters, 2), read as contiguous f32.
-__global__ void reject_step_kernel(const int* __restrict__ starts,
-                                   const int* __restrict__ degs,
+// _reject_step_kernel :96) and the draws around it: the rejection budget of
+// core.select.rejection_randoms and the cohort split of walk_step_adaptive.
+// One thread per walker over the whole batch, one launch a step for every
+// cohort planned as rejection (the tail included).  The thread reads its
+// vertex, row and envelope, finds its cohort, and runs up to kRejectIters
+// rounds: each hashes the slot uniform, gathers one bias word, and hashes
+// the accept uniform while that gather is in flight; the first acceptance
+// ends the loop, so a near-uniform row costs about one round and two
+// hashes, where the tensor budget hashed all 16.  Counter: the walker's
+// index i in the step's batch.  Writes only the walkers it serves.
+__global__ void reject_step_kernel(const int* __restrict__ cur,
+                                   const int* __restrict__ indptr,
                                    const int* __restrict__ indices,
                                    const float* __restrict__ bias,
                                    const float* __restrict__ row_max,
-                                   const float* __restrict__ rej,
-                                   int* __restrict__ out, int w, int iters, int cap) {
+                                   int* __restrict__ out, int w, Ladder L, RoundKeys keys) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= w) return;
-  const int deg = degs[i];
-  const float rm = row_max[i];
-  if (deg <= 0 || rm <= 0.0f) {
+  const int c = cur[i];
+  if (c < 0) return;
+  const int start = indptr[c];
+  const int deg = indptr[c + 1] - start;
+  if (deg <= 0) return;  // no cohort
+  int cap;
+  const int k = cohort_of(L, deg, cap);
+  if (!((L.serve >> k) & 1)) return;
+  const float rm = row_max[c];
+  if (rm <= 0.0f) {
     out[i] = -1;
     return;
   }
-  const int start = starts[i];
   const int deg_eff = min(deg, cap);
   const float degf = (float)deg_eff;
   const int hi = deg_eff - 1;
-  const float2* r = reinterpret_cast<const float2*>(rej + (size_t)i * 2 * iters);
   int chosen = -1;
   int last = 0;
   float last_b = 0.0f;
-  for (int t = 0; t < iters; ++t) {
-    const float2 rt = r[t];
-    const int slot = min((int)__fmul_rn(rt.x, degf), hi);
-    const float b = bias[start + slot];
-    if (__fmul_rn(rt.y, rm) < b) {
+#pragma unroll
+  for (int t = 0; t < kRejectIters; ++t) {
+    const int slot = min((int)__fmul_rn(counted_uniform(keys.k[2 * t], i), degf), hi);
+    const float b = __ldg(bias + start + slot);
+    if (__fmul_rn(counted_uniform(keys.k[2 * t + 1], i), rm) < b) {
       chosen = slot;
       break;
     }
@@ -120,106 +223,6 @@ __global__ void alias_step_kernel(const int* __restrict__ starts,
   int chosen = frac < prob[pos] ? slot : a;
   chosen = min(max(chosen, 0), hi);
   out[i] = indices[start + chosen];
-}
-
-// Sequential inclusive scan of n values in place (n <= 16).
-__device__ __forceinline__ float seq_scan(float* v, int n) {
-  float s = v[0];
-  for (int j = 1; j < n; ++j) {
-    s = __fadd_rn(s, v[j]);
-    v[j] = s;
-  }
-  return s;
-}
-
-// In-place inclusive scan of win[0, n) by one warp, associated exactly as
-// XLA-CPU's f32 cumsum (repro_torch/kernels/ref.py::padded_cumsum):
-// sequential 16-wide blocks (lane b owns blocks b, b + 32, ...), the block
-// totals scanned by the same rule one level up, then each block's exclusive
-// prefix added to its in-block sums.  Each level is zero-padded to whole
-// blocks: the caller zero-fills win[n, round16(n)); tot has room for
-// round16(round16(n) / 16) floats and grp for 16, so n <= 4096.
-// Its one user is walk_step_kernel (through window_pick), and it goes when
-// that kernel is redesigned: it serialises on lane 0 at the top level, and
-// its block stride of 16 words puts the 32 lanes on 2 banks.
-__device__ void warp_scan(float* win, float* tot, float* grp, int n, int lane) {
-  const int nb = (n + kScanBlock - 1) / kScanBlock;
-  for (int b = lane; b < nb; b += 32) tot[b] = seq_scan(win + b * kScanBlock, kScanBlock);
-  __syncwarp();
-  if (nb <= kScanBlock) {
-    if (lane == 0) seq_scan(tot, nb);
-  } else {
-    const int ng = (nb + kScanBlock - 1) / kScanBlock;
-    for (int b = nb + lane; b < ng * kScanBlock; b += 32) tot[b] = 0.0f;
-    __syncwarp();
-    for (int g = lane; g < ng; g += 32) grp[g] = seq_scan(tot + g * kScanBlock, kScanBlock);
-    __syncwarp();
-    if (lane == 0) seq_scan(grp, ng);
-    __syncwarp();
-    for (int b = lane + kScanBlock; b < nb; b += 32)
-      tot[b] = __fadd_rn(tot[b], grp[b / kScanBlock - 1]);
-  }
-  __syncwarp();
-  for (int p = lane + kScanBlock; p < n; p += 32)
-    win[p] = __fadd_rn(win[p], tot[p / kScanBlock - 1]);
-  __syncwarp();
-}
-
-// The ITS pick of walk_step_kernel, on a filled 2*seg window from the block origin blk0 = start / seg * seg (the
-// row at [local, row_end), zeros elsewhere, which take part in the scan as
-// in the reference).  The pick is the count of masked prefixes
-// <= r * total, with total the scan's last element, summed by a warp
-// reduction; lane 0 writes the neighbor id.
-__device__ void window_pick(float* win, float* tot, float* grp, int n, int local, int row_end,
-                            int deg, int blk0, float r, const int* __restrict__ indices,
-                            int* out, int lane) {
-  warp_scan(win, tot, grp, n, lane);
-  const float total = win[n - 1];
-  const float target = __fmul_rn(r, total);
-  int cnt = 0;
-  for (int p = lane; p < n; p += 32)
-    cnt += (p >= local && p < row_end && win[p] <= target) ? 1 : 0;
-  cnt = __reduce_add_sync(0xffffffffu, cnt);
-  if (lane == 0) {
-    const int pick = min(local + cnt, local + max(deg - 1, 0));
-    *out = total <= 1e-12f ? -1 : indices[blk0 + pick];
-  }
-}
-
-// Replaces walk_step_pallas (src/repro/kernels/walk_step.py:158, body
-// _walk_step_kernel :29).  One warp per walker.  The window is the 2*seg
-// positions from the block origin; the row is read once, coalesced across
-// the warp, into shared memory, and window_pick scans it with the
-// reference's association, so the pick equals the reference bit for bit.
-__global__ void walk_step_kernel(const int* __restrict__ starts,
-                                 const int* __restrict__ degs,
-                                 const int* __restrict__ indices,
-                                 const float* __restrict__ bias,
-                                 const float* __restrict__ rand,
-                                 int* __restrict__ out, int w, int seg) {
-  __shared__ float win_all[kWarpsPerBlock][kMaxWindow];
-  __shared__ float tot_all[kWarpsPerBlock][kMaxBlocks];
-  __shared__ float grp_all[kWarpsPerBlock][kScanBlock];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int i = blockIdx.x * kWarpsPerBlock + warp;
-  if (i >= w) return;  // the whole warp leaves together
-  const int deg = degs[i];
-  if (deg <= 0) {
-    if (lane == 0) out[i] = -1;
-    return;
-  }
-  float* win = win_all[warp];
-  const int start = starts[i];
-  const int local = start % seg;
-  const int blk0 = start - local;
-  const int n = 2 * seg;
-  const int row_end = min(local + deg, n);
-  for (int p = lane; p < n; p += 32)
-    win[p] = (p >= local && p < row_end) ? bias[blk0 + p] : 0.0f;
-  __syncwarp();
-  window_pick(win, tot_all[warp], grp_all[warp], n, local, row_end, deg, blk0, rand[i],
-              indices, out + i, lane);
 }
 
 // Window block b of one walker's row in registers: row columns
@@ -320,6 +323,60 @@ __global__ void walk_step_window_kernel(const int* __restrict__ starts,
   }
   window_pass<true>(row, deg, local, nb, __fmul_rn(rand[i], total), cnt);
   out[i] = indices[start + min(cnt, deg - 1)];
+}
+
+// Replaces walk_step_pallas (src/repro/kernels/walk_step.py:158, body
+// _walk_step_kernel :29) with the wrapper around it that draws its uniform
+// (src/repro/kernels/ops.py:38 walk_step) and the cohort split of
+// walk_step_adaptive: the flat-bias ITS step, one launch a step for every
+// bucket planned as ITS.  walk_step_window_kernel's design with the CSR as
+// the row: one thread per walker, two window_pass passes over the walker's
+// bias row [start, start + min(deg, seg)) at offset local = start % seg of
+// its 2*seg window (seg: the cohort's segment, so the window origin is part
+// of the bits), work in proportion to the row and not to the window.  The
+// uniform is hashed only for a row with mass, at counter i.  Bound by bytes
+// (the row once, the id, the walker's vertex and row offsets) and the hash.
+__global__ void walk_step_kernel(const int* __restrict__ cur,
+                                 const int* __restrict__ indptr,
+                                 const int* __restrict__ indices,
+                                 const float* __restrict__ bias,
+                                 int* __restrict__ out, int w, Ladder L, Key key) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= w) return;
+  const int c = cur[i];
+  if (c < 0) return;
+  const int start = indptr[c];
+  const int deg = indptr[c + 1] - start;
+  if (deg <= 0) return;  // no cohort
+  int seg;
+  const int k = cohort_of(L, deg, seg);
+  if (k >= L.nseg || !((L.serve >> k) & 1)) return;  // the ITS tail is the chunked scan
+  const int d = min(deg, seg);
+  const int local = start % seg;
+  const int nb = 2 * seg / kScanBlock;
+  const float* row = bias + start;
+  int cnt = 0;
+  const float total = window_pass<false>(row, d, local, nb, 0.0f, cnt);
+  if (total <= 1e-12f) {
+    out[i] = -1;
+    return;
+  }
+  window_pass<true>(row, d, local, nb, __fmul_rn(counted_uniform(key, i), total), cnt);
+  out[i] = indices[start + min(cnt, d - 1)];
+}
+
+// The device hash alone, for its tests: out[k][j] = the uniform of
+// counters[j] under keys[k] (K x 2 words).
+__global__ void hash_uniform_kernel(const uint32_t* __restrict__ keys,
+                                    const long long* __restrict__ counters,
+                                    float* __restrict__ out, int nkeys, int n) {
+  const long long total = (long long)nkeys * n;
+  for (long long j = blockIdx.x * (long long)blockDim.x + threadIdx.x; j < total;
+       j += (long long)gridDim.x * blockDim.x) {
+    const int k = (int)(j / n);
+    out[j] = counted_uniform(Key{keys[2 * k], keys[2 * k + 1]},
+                             (unsigned long long)counters[j % n]);
+  }
 }
 
 // -- its_select ---------------------------------------------------------------
@@ -752,13 +809,15 @@ cudaError_t its_select_run(const float* biases, const float* rands, int* out, in
 
 extern "C" {
 
-int reject_step_launch(const void* starts, const void* degs, const void* indices,
-                       const void* bias, const void* row_max, const void* rej, void* out,
-                       int w, int iters, int cap, void* stream) {
+int reject_step_launch(const void* cur, const void* indptr, const void* indices,
+                       const void* bias, const void* row_max, void* out, int w,
+                       const int* ladder, const unsigned* key_words, void* stream) {
   if (w > 0) {
+    RoundKeys keys;
+    for (int j = 0; j < 2 * kRejectIters; ++j) keys.k[j] = Key{key_words[2 * j], key_words[2 * j + 1]};
     reject_step_kernel<<<(w + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int*)starts, (const int*)degs, (const int*)indices, (const float*)bias,
-        (const float*)row_max, (const float*)rej, (int*)out, w, iters, cap);
+        (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)bias,
+        (const float*)row_max, (int*)out, w, make_ladder(ladder), keys);
   }
   return (int)cudaGetLastError();
 }
@@ -774,14 +833,13 @@ int alias_step_launch(const void* starts, const void* degs, const void* indices,
   return (int)cudaGetLastError();
 }
 
-int walk_step_launch(const void* starts, const void* degs, const void* indices,
-                     const void* bias, const void* rand, void* out, int w, int seg,
-                     void* stream) {
+int walk_step_launch(const void* cur, const void* indptr, const void* indices,
+                     const void* bias, void* out, int w, const int* ladder,
+                     const unsigned* key_words, void* stream) {
   if (w > 0) {
-    const int blocks = (w + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    walk_step_kernel<<<blocks, 32 * kWarpsPerBlock, 0, (cudaStream_t)stream>>>(
-        (const int*)starts, (const int*)degs, (const int*)indices, (const float*)bias,
-        (const float*)rand, (int*)out, w, seg);
+    walk_step_kernel<<<(w + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)bias, (int*)out,
+        w, make_ladder(ladder), Key{key_words[0], key_words[1]});
   }
   return (int)cudaGetLastError();
 }
@@ -809,6 +867,17 @@ int its_select_launch(const void* biases, const void* rands, void* out, void* st
   // P > 1024: the in-block sums no longer fit in registers, and one build
   // (its b < nb guards) serves every P up to 4096
   return (int)its_select_run<8>(b, r, (int*)out, (int*)stats, n, p, iters, k, st);
+}
+
+int hash_uniform_launch(const void* keys, const void* counters, void* out, int nkeys, int n,
+                        void* stream) {
+  const long long total = (long long)nkeys * n;
+  if (total > 0) {
+    const int blocks = (int)std::min<long long>((total + kThreads - 1) / kThreads, 1 << 16);
+    hash_uniform_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)keys, (const long long*)counters, (float*)out, nkeys, n);
+  }
+  return (int)cudaGetLastError();
 }
 
 const char* walk_kernels_error_string(int code) {

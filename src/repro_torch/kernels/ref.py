@@ -6,6 +6,11 @@ bit-identical to its ``repro.kernels.ref`` oracle and Pallas kernel.  The
 kernel wrappers run these on CPU tensors; on the card they serve only as
 the yardstick the kernels are checked against.
 
+The step-level versions (:func:`walk_step_ref`, :func:`reject_step_ref`)
+take the step's key and the walkers' vertices, as their kernels do: they
+draw the counted uniforms with ``kernels.threefry`` and run the cohort-level
+versions (``*_block_ref``) on each cohort the ladder gives.
+
 Unlike the TPU kernels, nothing here needs padded edge arrays: every read
 lies inside a walker's own row ``[start, start + deg)``, and window
 positions outside the row are masked to zero before they are read.
@@ -15,12 +20,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.threefry import fold_in, uniform, uniform_many
+
 _EPS = 1e-12
 #: the BRS clip bound ``1 - 1e-12`` as JAX applies it to f32 (1.0)
 _ONE_MINUS_EPS = float(np.float32(1.0 - _EPS))
 
 #: block width of XLA-CPU's scan association (see :func:`blocked_cumsum`)
 SCAN_BLOCK = 16
+
+#: Rejection-sampling retry budget per walk step (counted-RNG rounds).  Under
+#: the cost model's near-uniform guard (acceptance rate >= 0.75) the chance of
+#: exhausting all rounds is <= 0.25**8 ~ 1.5e-5; exhaustion falls back to the
+#: last candidate (still a real neighbor) rather than killing the walker.
+REJECT_ITERS = 8
+
+#: walkers per block of the ITS windows (bounds their (block, 2·seg) temporaries)
+ROW_BLOCK = 1 << 18
 
 
 def _sequential_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -234,7 +250,7 @@ def reject_step_block_ref(
 ) -> torch.Tensor:
     """One counted-budget rejection draw per walker (``reject_step`` kernel).
 
-    ``rej`` is the (W, iters, 2) budget of ``core.select.rejection_randoms``:
+    ``rej`` is the (W, iters, 2) budget of :func:`rejection_randoms`:
     round ``t`` proposes ``slot = ⌊r_slot·deg⌋`` and accepts iff
     ``r_acc·row_max < bias[slot]``.  The first acceptance wins; an exhausted
     budget keeps the last proposal if it carries mass.  -1 for a zero
@@ -260,6 +276,132 @@ def reject_step_block_ref(
     nxt = _gather(indices, starts + torch.clamp(chosen, min=0))
     dead = (degs <= 0) | (row_max <= 0) | (chosen < 0)
     return torch.where(dead, -1, nxt).to(torch.int32)
+
+
+def rejection_randoms(
+    key: np.ndarray, batch_shape, iters: int = REJECT_ITERS, device="cpu"
+) -> torch.Tensor:
+    """The rejection budget as a tensor: ``(W, iters, 2)`` f32 uniforms.
+
+    Round ``t`` consumes ``uniform(fold_in(key, 2t))`` for the candidate
+    slot and ``uniform(fold_in(key, 2t + 1))`` for the accept test — the
+    reference's counted-RNG contract.  All ``2·iters`` draws hash in one
+    pass, laid out walker-major.  The ``reject_step`` kernel hashes only the
+    rounds each walker reaches; this is what its plain version reads.
+    """
+    if iters < 1:
+        raise ValueError(f"rejection budget needs at least one round, got iters={iters}")
+    (n,) = tuple(batch_shape) if isinstance(batch_shape, (tuple, list)) else (batch_shape,)
+    keys = np.stack([fold_in(key, t) for t in range(2 * iters)])
+    rs = uniform_many(keys, n, device=device)  # (2*iters, W)
+    return rs.t().reshape(n, iters, 2).contiguous()
+
+
+def walker_rows(indptr: torch.Tensor, cur: torch.Tensor):
+    """``(safe, starts, deg)`` of walkers at ``cur``: the vertex as an index
+    (0 for finished walkers), its row start, and its degree (0 for finished
+    walkers)."""
+    safe = torch.clamp(cur, min=0).long()
+    starts = indptr[safe]
+    return safe, starts, torch.where(cur >= 0, indptr[safe + 1] - starts, 0)
+
+
+def walker_cohorts(deg: torch.Tensor, buckets: tuple, use_chunked: bool) -> torch.Tensor:
+    """Each walker's degree cohort, as the step schedules it: ``i`` for the
+    first bucket with ``deg <= buckets[i]``, ``len(buckets)`` for the
+    huge-degree tail; without a tail the last bucket absorbs larger degrees
+    (an understated ``max_degree`` truncates rows, never kills walkers).
+    -1 for degree 0."""
+    cohort = torch.full_like(deg, -1)
+    lo = 0
+    for i, seg in enumerate(buckets):
+        absorb = i == len(buckets) - 1 and not use_chunked
+        cohort = torch.where((deg > lo) & ((deg <= seg) | absorb), i, cohort)
+        lo = seg
+    if use_chunked:
+        cohort = torch.where(deg > buckets[-1], len(buckets), cohort)
+    return cohort
+
+
+def _served(cur, indptr, buckets, use_chunked, methods, method, out):
+    """The walkers of the cohorts planned as ``method``, by cohort:
+    ``(safe, starts, deg, out, [(cohort index, cap or None, rows)])``."""
+    safe, starts, deg = walker_rows(indptr, cur)
+    if out is None:
+        out = torch.full_like(cur, -1)
+    cohort = walker_cohorts(deg, buckets, use_chunked)
+    groups = []
+    for k, m in enumerate(methods):
+        if m == method:
+            rows = torch.nonzero(cohort == k).squeeze(1)
+            groups.append((k, buckets[k] if k < len(buckets) else None, rows))
+    return safe, starts, deg, out, groups
+
+
+def walk_step_ref(
+    key: np.ndarray,
+    indptr: torch.Tensor,
+    indices: torch.Tensor,
+    bias: torch.Tensor,
+    cur: torch.Tensor,
+    *,
+    buckets: tuple,
+    use_chunked: bool,
+    methods: tuple,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """One flat-bias ITS step for the walkers of every bucket planned as
+    ``"its"`` (``walk_step`` kernel; the ITS tail is the chunked scan, not
+    this step).
+
+    The uniform is ``uniform(fold_in(key, 0), (W,))``, walker ``i`` at
+    counter ``i``; each cohort's rows are capped at its segment and picked
+    by :func:`walk_step_block_ref`, in blocks of :data:`ROW_BLOCK` walkers.
+    Writes those walkers' next vertices (-1 for a dead end) into ``out``
+    and leaves its other entries as they are; ``out=None`` starts from all
+    -1.  Returns ``out``.
+    """
+    _, starts, deg, out, groups = _served(cur, indptr, buckets, use_chunked, methods, "its", out)
+    r = uniform(fold_in(key, 0), (cur.shape[0],), device=cur.device)
+    for _, seg, rows in groups:
+        if seg is None:
+            continue
+        for b in range(0, rows.shape[0], ROW_BLOCK):
+            blk = rows[b:b + ROW_BLOCK]
+            out[blk] = walk_step_block_ref(starts[blk], torch.clamp(deg[blk], max=seg), indices,
+                                           bias, r[blk], seg=seg)
+    return out
+
+
+def reject_step_ref(
+    key: np.ndarray,
+    indptr: torch.Tensor,
+    indices: torch.Tensor,
+    bias: torch.Tensor,
+    row_max: torch.Tensor,
+    cur: torch.Tensor,
+    *,
+    buckets: tuple,
+    use_chunked: bool,
+    methods: tuple,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """One counted-budget rejection step for the walkers of every cohort
+    planned as ``"rejection"``, the tail included (``reject_step`` kernel).
+
+    The budget is ``rejection_randoms(fold_in(key, 2), (W,))``, walker ``i``
+    at counter ``i``; ``row_max`` is the ``(V,)`` per-vertex envelope.  A
+    bucket cohort caps its rows at its segment, the tail draws over the
+    whole row (:func:`reject_step_block_ref`).  Writes into ``out`` as
+    :func:`walk_step_ref` does.  Returns ``out``.
+    """
+    safe, starts, deg, out, groups = _served(cur, indptr, buckets, use_chunked, methods,
+                                             "rejection", out)
+    rej = rejection_randoms(fold_in(key, 2), (cur.shape[0],), device=cur.device)
+    for _, seg, rows in groups:
+        out[rows] = reject_step_block_ref(starts[rows], deg[rows], indices, bias,
+                                          row_max[safe[rows]], rej[rows], seg=seg)
+    return out
 
 
 def its_select_ref(biases: torch.Tensor, rands: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

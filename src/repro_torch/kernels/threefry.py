@@ -1,0 +1,128 @@
+"""The counted-RNG hash: ``jax.random``'s threefry2x32 bits, in PyTorch.
+
+The JAX package's contract is bit identity under counted RNG: the same key
+gives the same uniforms, hence the same picks and the same walks.  This
+module reproduces ``jax.random`` (threefry2x32, partitionable bit layout)
+bit for bit.  It is the plain version of the hash that the walk-step
+kernels run per walker (``counted_uniform`` in ``csrc/walk_kernels.cu``),
+and ``core.rng`` builds the counted RNG's public functions on it.  It sits
+among the kernels so that both ``kernels.ref`` and ``core`` import it
+without a cycle.
+
+- A key is a ``uint32[2]`` numpy array, the layout of ``jax.random.key_data``.
+  Key derivation (:func:`fold_in`) runs on the host on Python ints; only
+  the per-element hashing runs on the tensor's device.
+- Element ``i`` of a draw hashes the counter ``(i >> 32, i & 0xffffffff)``;
+  the two output words are XORed into 32 random bits, and the float is
+  ``(bits >> 9 | 0x3f800000) - 1`` (23 mantissa bits in ``[0, 1)``).
+- The arithmetic is unsigned 32-bit, done in int64 and masked to 32 bits
+  after every add and shift, so the same code runs on Python ints and on
+  int64 tensors of any device.
+
+:func:`hash_uniform` runs the kernels' device hash alone, so that a test can
+hold it against :func:`uniform_many` bit for bit.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 (20 rounds) of counters ``(x0, x1)`` under key
+    ``(k0, k1)``.  Operands are Python ints or int64 tensors holding
+    unsigned 32-bit values; they broadcast like any tensor operands."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = ((x1 << r) | (x1 >> (32 - r))) & _MASK
+            x1 = x1 ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0, x1
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """New key from ``key`` and an integer, as ``jax.random.fold_in``."""
+    k0, k1 = (int(k) for k in key)
+    a, b = threefry2x32(k0, k1, 0, int(data) & _MASK)
+    return np.array([a, b], dtype=np.uint32)
+
+
+def bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return mant.view(torch.float32) - 1.0
+
+
+def bits_at(key: np.ndarray, counters: torch.Tensor) -> torch.Tensor:
+    """32 random bits (in int64) for each int64 counter."""
+    k0, k1 = (int(k) for k in key)
+    a, b = threefry2x32(k0, k1, counters >> 32, counters & _MASK)
+    return a ^ b
+
+
+def random_bits(key: np.ndarray, shape, device="cpu") -> torch.Tensor:
+    """32 random bits per element (in int64), as ``jax.random.bits``."""
+    shape = tuple(int(d) for d in shape) if isinstance(shape, (tuple, list)) else (int(shape),)
+    i = torch.arange(int(np.prod(shape)), dtype=torch.int64, device=device)
+    return bits_at(key, i).reshape(shape)
+
+
+def uniform(key: np.ndarray, shape, device="cpu") -> torch.Tensor:
+    """f32 uniforms in ``[0, 1)`` with ``jax.random.uniform(key, shape)``'s
+    bits, for any shape (element ``i`` of the row-major order hashes
+    counter ``i``)."""
+    return bits_to_unit_float(random_bits(key, shape, device))
+
+
+def uniform_at(key: np.ndarray, counters: torch.Tensor) -> torch.Tensor:
+    """The uniforms of the given counters only: ``uniform(key, (W,))[counters]``
+    for any ``W`` above them, at the cost of ``len(counters)`` hashes."""
+    return bits_to_unit_float(bits_at(key, counters.to(torch.int64)))
+
+
+def uniform_many(keys: np.ndarray, n: int, device="cpu") -> torch.Tensor:
+    """``(K, n)`` f32 uniforms: row ``k`` equals ``uniform(keys[k], (n,))``.
+
+    One hash over all K rows at once (the keys broadcast against the
+    counters), so K draws cost one pass of tensor operations, not K."""
+    keys = np.asarray(keys, dtype=np.uint32).reshape(-1, 2)
+    k = torch.as_tensor(keys.astype(np.int64), device=device)
+    i = torch.arange(int(n), dtype=torch.int64, device=device)
+    a, b = threefry2x32(k[:, 0:1], k[:, 1:2], i >> 32, i & _MASK)
+    return bits_to_unit_float(a ^ b)
+
+
+def hash_uniform(keys: np.ndarray, counters: torch.Tensor) -> torch.Tensor:
+    """``(K, n)`` f32 uniforms of the ``n`` int64 ``counters`` under each of
+    the K keys: on a CUDA tensor by the kernels' device hash, on a CPU
+    tensor by :func:`uniform_at`.  A check of the hash, not a step of any
+    walk: ``hash_uniform.launches`` counts its kernel's launches."""
+    keys = np.asarray(keys, dtype=np.uint32).reshape(-1, 2)
+    if counters.device.type == "cpu":
+        return torch.stack([uniform_at(k, counters) for k in keys])
+    _build.require_cuda("hash_uniform", ((counters, torch.int64),), ())
+    dev_keys = torch.as_tensor(keys.view(np.int32), device=counters.device).contiguous()
+    out = torch.empty((keys.shape[0], counters.shape[0]), dtype=torch.float32,
+                      device=counters.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load()
+    code = lib.hash_uniform_launch(dev_keys.data_ptr(), counters.data_ptr(), out.data_ptr(),
+                                   keys.shape[0], counters.shape[0],
+                                   _build.stream_handle(counters))
+    _build.check(lib, code, "hash_uniform")
+    hash_uniform.launches += 1
+    return out
+
+
+hash_uniform.launches = 0

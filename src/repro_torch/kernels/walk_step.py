@@ -7,54 +7,115 @@ build or launch), a CPU tensor runs the plain version in ``kernels/ref.py``.
 Each wrapper counts its kernel launches in a plain integer attribute,
 ``walk_step.launches``, ``walk_step_window.launches``,
 ``reject_step.launches``.
+
+``walk_step`` and ``reject_step`` are whole steps: they take the step's key
+and the walkers' vertices, find each walker's degree cohort on the ladder
+themselves, serve every cohort planned for their method in one launch, and
+hash the counted uniforms their walkers consume inside the kernel.
 """
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.threefry import fold_in
 
-#: the kernels' row cap for ``max_seg=None`` (no truncation)
-_INT_MAX = (1 << 31) - 1
-_MAX_WINDOW = 1024
+#: the longest degree ladder the step kernels take
+MAX_LADDER = 4
 
 
 def _check_seg(max_seg: int, name: str = "walk_step") -> None:
-    # walk_step's window (2*max_seg floats per warp) is sized for 512;
-    # walk_step_window takes the same segments
-    if max_seg <= 0 or max_seg % 128 or 2 * max_seg > _MAX_WINDOW:
+    # the reference's ITS windows: 2*max_seg positions from a block origin,
+    # a segment of whole 128-lane tiles up to 512 (walk_step_pallas)
+    if max_seg <= 0 or max_seg % 128 or max_seg > 512:
         raise ValueError(f"{name} needs max_seg in 128, 256, 384, 512; got {max_seg}")
 
 
+def _ladder(name: str, buckets: tuple, use_chunked: bool, methods: tuple, method: str,
+            tail: bool) -> ctypes.Array:
+    """The kernel's view of the step's schedule: ``(nseg, tail, serve,
+    seg_0 .. seg_{MAX_LADDER-1})``, ``serve`` the bit mask of the cohorts
+    planned as ``method`` (bit ``len(buckets)`` is the tail, served only
+    when ``tail``)."""
+    buckets = tuple(int(s) for s in buckets)
+    if not 1 <= len(buckets) <= MAX_LADDER or any(s <= 0 for s in buckets) or any(
+            a >= b for a, b in zip(buckets, buckets[1:])):
+        raise ValueError(f"{name}: buckets must be 1 to {MAX_LADDER} increasing segments, "
+                         f"got {buckets}")
+    if len(methods) != len(buckets) + bool(use_chunked):
+        raise ValueError(f"{name}: {len(methods)} methods for {len(buckets)} buckets "
+                         f"{'and a tail' if use_chunked else 'and no tail'}")
+    serve = 0
+    for k, m in enumerate(methods):
+        if m == method and (k < len(buckets) or tail):
+            serve |= 1 << k
+    segs = buckets + (0,) * (MAX_LADDER - len(buckets))
+    return (ctypes.c_int * (3 + MAX_LADDER))(len(buckets), int(bool(use_chunked)), serve, *segs)
+
+
+def _key_words(*keys) -> ctypes.Array:
+    words = np.concatenate([np.asarray(k, dtype=np.uint32).reshape(2) for k in keys])
+    return (ctypes.c_uint32 * words.shape[0])(*(int(x) for x in words))
+
+
+def _step_operands(name, cur, out, indptr, tables, vertex=()):
+    """Check a step kernel's operands: walkers (W,), CSR arrays (E,),
+    indptr (V+1,) and per-vertex arrays (V,).  Returns the output, all -1
+    when not given."""
+    if out is None:
+        out = torch.full_like(cur, -1)
+    _build.require_cuda(name, ((cur, torch.int32), (out, torch.int32)), tables,
+                        others=((indptr, torch.int32), *vertex))
+    if indptr.dim() != 1 or any(t.shape != (indptr.shape[0] - 1,) for t, _ in vertex):
+        raise ValueError(f"{name}: indptr must be (V+1,) and per-vertex operands (V,)")
+    return out
+
+
 def walk_step(
-    starts: torch.Tensor,
-    degs: torch.Tensor,
+    key: np.ndarray,
+    indptr: torch.Tensor,
     indices: torch.Tensor,
     bias: torch.Tensor,
-    rand: torch.Tensor,
+    cur: torch.Tensor,
     *,
-    max_seg: int = 512,
+    buckets: tuple,
+    use_chunked: bool,
+    methods: tuple,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """One flat-bias ITS step for W walkers (``walk_step_pallas``).
+    """One flat-bias ITS step (``walk_step_pallas`` behind the JAX
+    package's ``kernels.ops.walk_step``) for every bucket cohort planned as
+    ``"its"``, in one launch.
 
-    starts/degs: (W,) int32 row offsets and degrees, ``degs <= max_seg``;
-    indices (E,) int32 and bias (E,) float32: flat CSR arrays; rand: (W,)
-    float32.  Returns next vertices (W,) int32, -1 for a dead end.
+    key: the step's key (the uniform is ``fold_in(key, 0)`` at the
+    walker's index in ``cur``); indptr (V+1,) int32, indices (E,) int32
+    and bias (E,) float32: the flat CSR; cur: (W,) int32 vertices, -1 for
+    finished walkers; ``buckets``/``use_chunked``/``methods``: the step's
+    ladder and plan (``core.backend.walk_bucket_plan``,
+    ``core.methods.plan_for_graph``).  Writes the served walkers' next
+    vertices (-1 for a dead end) into ``out`` (W,) int32 and leaves the
+    other entries as they are; ``out=None`` starts from all -1.  Returns
+    ``out``.  The ITS tail is not served (it is the chunked scan).
     """
-    _check_seg(max_seg)
-    if starts.device.type == "cpu":
-        return ref.walk_step_block_ref(starts, degs, indices, bias, rand, seg=max_seg)
-    i32, f32 = torch.int32, torch.float32
-    _build.require_cuda("walk_step", ((starts, i32), (degs, i32), (rand, f32)),
-                        ((indices, i32), (bias, f32)))
-    out = torch.empty_like(starts)
-    w = starts.shape[0]
-    if w == 0:
+    ladder = _ladder("walk_step", buckets, use_chunked, methods, "its", tail=False)
+    for k, m in enumerate(methods[:len(buckets)]):
+        if m == "its":
+            _check_seg(int(buckets[k]))
+    if cur.device.type == "cpu":
+        return ref.walk_step_ref(key, indptr, indices, bias, cur, buckets=buckets,
+                                 use_chunked=use_chunked, methods=methods, out=out)
+    out = _step_operands("walk_step", cur, out, indptr,
+                         ((indices, torch.int32), (bias, torch.float32)))
+    w = cur.shape[0]
+    if w == 0 or ladder[2] == 0:
         return out
     lib = _build.load()
     code = lib.walk_step_launch(
-        starts.data_ptr(), degs.data_ptr(), indices.data_ptr(), bias.data_ptr(),
-        rand.data_ptr(), out.data_ptr(), w, max_seg, _build.stream_handle(starts),
+        cur.data_ptr(), indptr.data_ptr(), indices.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        w, ladder, _key_words(fold_in(key, 0)), _build.stream_handle(cur),
     )
     _build.check(lib, code, "walk_step")
     walk_step.launches += 1
@@ -108,39 +169,46 @@ walk_step_window.launches = 0
 
 
 def reject_step(
-    starts: torch.Tensor,
-    degs: torch.Tensor,
+    key: np.ndarray,
+    indptr: torch.Tensor,
     indices: torch.Tensor,
     bias: torch.Tensor,
     row_max: torch.Tensor,
-    rej: torch.Tensor,
+    cur: torch.Tensor,
     *,
-    max_seg: int | None = 512,
+    buckets: tuple,
+    use_chunked: bool,
+    methods: tuple,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """One counted-budget rejection step for W walkers (``reject_step_pallas``).
+    """One counted-budget rejection step (``reject_step_pallas``) for every
+    cohort planned as ``"rejection"``, the tail included, in one launch.
 
-    starts/degs: (W,) int32; indices/bias: flat CSR arrays; row_max: (W,)
-    float32 per-walker envelopes; rej: (W, iters, 2) float32 budget from
-    ``core.select.rejection_randoms``.  Rows longer than ``max_seg`` are
-    truncated to it; ``max_seg=None`` draws over the whole row.  Returns
-    next vertices (W,) int32, -1 for a dead end.
+    Operands as :func:`walk_step`, and row_max: (V,) float32 per-vertex
+    envelopes.  Round ``t`` of walker ``i`` hashes its slot uniform under
+    ``fold_in(fold_in(key, 2), 2t)`` and its accept uniform under
+    ``fold_in(fold_in(key, 2), 2t + 1)``, both at counter ``i`` — the
+    ``core.select.rejection_randoms`` budget, of which the kernel hashes
+    only the rounds the walker reaches.  A bucket cohort's rows are
+    truncated to its segment; the tail draws over the whole row.  Writes
+    into ``out`` as :func:`walk_step` does.  Returns ``out``.
     """
-    if rej.ndim != 3 or rej.shape[0] != starts.shape[0] or rej.shape[2] != 2:
-        raise ValueError(f"reject_step: rej must be (W, iters, 2), got {tuple(rej.shape)}")
-    if starts.device.type == "cpu":
-        return ref.reject_step_block_ref(starts, degs, indices, bias, row_max, rej, seg=max_seg)
-    i32, f32 = torch.int32, torch.float32
-    _build.require_cuda("reject_step", ((starts, i32), (degs, i32), (row_max, f32), (rej, f32)),
-                        ((indices, i32), (bias, f32)))
-    out = torch.empty_like(starts)
-    w = starts.shape[0]
-    if w == 0:
+    ladder = _ladder("reject_step", buckets, use_chunked, methods, "rejection", tail=True)
+    if cur.device.type == "cpu":
+        return ref.reject_step_ref(key, indptr, indices, bias, row_max, cur, buckets=buckets,
+                                   use_chunked=use_chunked, methods=methods, out=out)
+    out = _step_operands("reject_step", cur, out, indptr,
+                         ((indices, torch.int32), (bias, torch.float32)),
+                         vertex=((row_max, torch.float32),))
+    w = cur.shape[0]
+    if w == 0 or ladder[2] == 0:
         return out
+    kb = fold_in(key, 2)
+    keys = _key_words(*(fold_in(kb, t) for t in range(2 * ref.REJECT_ITERS)))
     lib = _build.load()
     code = lib.reject_step_launch(
-        starts.data_ptr(), degs.data_ptr(), indices.data_ptr(), bias.data_ptr(),
-        row_max.data_ptr(), rej.data_ptr(), out.data_ptr(), w, rej.shape[1],
-        _INT_MAX if max_seg is None else max_seg, _build.stream_handle(starts),
+        cur.data_ptr(), indptr.data_ptr(), indices.data_ptr(), bias.data_ptr(),
+        row_max.data_ptr(), out.data_ptr(), w, ladder, keys, _build.stream_handle(cur),
     )
     _build.check(lib, code, "reject_step")
     reject_step.launches += 1

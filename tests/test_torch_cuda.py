@@ -14,11 +14,14 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import algorithms as alg  # noqa: E402
+from repro_torch.core import backend  # noqa: E402
 from repro_torch.core import select as sel  # noqa: E402
 from repro_torch.core.engine import random_walk  # noqa: E402
-from repro_torch.core.rng import PRNGKey  # noqa: E402
+from repro_torch.core.methods import MethodTables  # noqa: E402
+from repro_torch.core.rng import PRNGKey, fold_in, uniform_at, uniform_many  # noqa: E402
 from repro_torch.graph import csr_from_edges  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels.threefry import hash_uniform  # noqa: E402
 
 
 @pytest.fixture
@@ -30,12 +33,14 @@ def cuda_device():
 
 def _case(seed: int, w: int):
     """CSR rows of degree 0..700 (dead ends, a zero-total row, zero-bias
-    edges, rows above every segment) and W walkers, some dead."""
+    edges, rows above every segment, rows in every first bucket) and W
+    walkers, some finished."""
     rng = np.random.default_rng(seed)
     v = 40
     deg = rng.integers(1, 700, v)
+    deg[20:30] = rng.integers(1, 129, 10)
     deg[[0, 5]] = 0
-    deg[[3, 9]] = [600, 513]
+    deg[[3, 7, 9]] = [600, 9, 513]
     indptr = np.zeros(v + 1, np.int64)
     np.cumsum(deg, out=indptr[1:])
     e = int(indptr[-1])
@@ -44,49 +49,183 @@ def _case(seed: int, w: int):
     rows = rng.integers(0, v, w)
     alive = rng.random(w) > 0.15
     prob, alias = sel.build_alias(indptr, bias)
+    row_max_v = sel.build_row_max(indptr, bias)
     arrays = dict(
+        indptr=indptr.astype(np.int32),
         indices=rng.integers(0, 1 << 30, e).astype(np.int32),
         bias=bias,
         prob=prob,
         alias=alias,
+        cur=np.where(alive, rows, -1).astype(np.int32),
         starts=np.where(alive, indptr[rows], 0).astype(np.int32),
         degs=np.where(alive, deg[rows], 0).astype(np.int32),
         rand=rng.random(w).astype(np.float32),
-        rej=rng.random((w, sel.REJECT_ITERS, 2)).astype(np.float32),
-        row_max=(sel.build_row_max(indptr, bias)[rows] * alive).astype(np.float32),
+        row_max_v=row_max_v,
     )
     return {k: torch.from_numpy(v) for k, v in arrays.items()}
+
+
+#: (ladder, tail) of the step kernels: without a tail the last bucket
+#: absorbs the rows above it (an understated max_degree)
+LADDERS = [((128,), True), ((128,), False), ((128, 512), True), ((128, 512), False),
+           ((128, 256, 384, 512), True), ((256,), False)]
+LADDER_IDS = ["128+tail", "128", "128,512+tail", "128,512", "4-rungs+tail", "256"]
+
+
+def _step(fn, c, key, ladder, tail, method, out=None):
+    extra = (c["row_max_v"],) if fn is kernels.reject_step else ()
+    return fn(key, c["indptr"], c["indices"], c["bias"], *extra, c["cur"], buckets=ladder,
+              use_chunked=tail, methods=(method,) * (len(ladder) + tail), out=out)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("seg", [128, 512, None])
 def test_kernels_match_plain_versions(cuda_device, seg):
+    """Each walk-step kernel against its plain version: the alias cohort
+    capped at ``seg`` (None: uncapped); the step kernels over the ladder
+    ending at ``seg`` (None: (128, 512) with its tail)."""
     cpu = _case(4, w=4096)
     gpu = {k: v.to(cuda_device) for k, v in cpu.items()}
     kernels.reset_launch_counts()
-    for fn, extra in [
-        (kernels.alias_step, ("prob", "alias", "rand")),
-        (kernels.reject_step, ("bias", "row_max", "rej")),
-    ]:
-        want = fn(cpu["starts"], cpu["degs"], cpu["indices"], *(cpu[k] for k in extra), max_seg=seg)
-        got = fn(gpu["starts"], gpu["degs"], gpu["indices"], *(gpu[k] for k in extra), max_seg=seg)
+    extra = ("prob", "alias", "rand")
+    want = kernels.alias_step(cpu["starts"], cpu["degs"], cpu["indices"], *(cpu[k] for k in extra),
+                              max_seg=seg)
+    got = kernels.alias_step(gpu["starts"], gpu["degs"], gpu["indices"], *(gpu[k] for k in extra),
+                             max_seg=seg)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg="alias_step")
+    ladder, tail = {128: ((128,), False), 512: ((128, 512), False), None: ((128, 512), True)}[seg]
+    key = PRNGKey(seg or 1)
+    for fn, method in [(kernels.reject_step, "rejection"), (kernels.walk_step, "its")]:
+        want = _step(fn, cpu, key, ladder, tail, method)
+        got = _step(fn, gpu, key, ladder, tail, method)
         torch.cuda.synchronize()
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=fn.__name__)
-    if seg is not None:
-        dcap = torch.clamp(cpu["degs"], max=seg)
-        want = kernels.walk_step(cpu["starts"], dcap, cpu["indices"], cpu["bias"], cpu["rand"],
-                                 max_seg=seg)
-        got = kernels.walk_step(gpu["starts"], dcap.to(cuda_device), gpu["indices"],
-                                gpu["bias"], gpu["rand"], max_seg=seg)
+        assert (want >= 0).any() and (want == -1).any()
+    # the plain version run on the card gives the same ids
+    on_card = ref.walk_step_ref(key, gpu["indptr"], gpu["indices"], gpu["bias"], gpu["cur"],
+                                buckets=ladder, use_chunked=tail,
+                                methods=("its",) * (len(ladder) + tail))
+    np.testing.assert_array_equal(on_card.cpu().numpy(), want.numpy())
+    assert kernels.launch_counts() == {"walk_step": 1, "reject_step": 1, "alias_step": 1,
+                                       "walk_step_window": 0, "its_select": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ladder,tail", LADDERS, ids=LADDER_IDS)
+@pytest.mark.parametrize("w", [4099, 1237, 31])
+def test_step_kernels_match_plain_versions(cuda_device, ladder, tail, w):
+    """Both step kernels over every ladder, with and without a tail, at W
+    not a multiple of 32: one launch each, every served walker equal to
+    the plain version, every other entry of ``out`` left as it was."""
+    cpu = _case(len(ladder) + 10 * tail + w, w=w)
+    gpu = {k: v.to(cuda_device) for k, v in cpu.items()}
+    key = PRNGKey(w)
+    for fn, method in [(kernels.reject_step, "rejection"), (kernels.walk_step, "its")]:
+        kernels.reset_launch_counts()
+        want = _step(fn, cpu, key, ladder, tail, method, out=torch.full((w,), -5, dtype=torch.int32))
+        got = _step(fn, gpu, key, ladder, tail, method,
+                    out=torch.full((w,), -5, dtype=torch.int32, device=cuda_device))
         torch.cuda.synchronize()
-        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg="walk_step")
-        # the plain version run on the card gives the same ids
-        on_card = ref.walk_step_block_ref(gpu["starts"], dcap.to(cuda_device), gpu["indices"],
-                                          gpu["bias"], gpu["rand"], seg=seg)
-        np.testing.assert_array_equal(on_card.cpu().numpy(), want.numpy())
-    counts = kernels.launch_counts()
-    assert counts["alias_step"] == 1 and counts["reject_step"] == 1
-    assert counts["walk_step"] == (0 if seg is None else 1)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=fn.__name__)
+        assert kernels.launch_counts()[fn.__name__] == 1
+        assert (want == -5).any()  # finished walkers, degree 0, and (ITS) the tail
+        if w > 1000:
+            assert (want >= 0).any() and (want == -1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ladder,tail,methods", [
+    ((128, 512), True, ("its", "rejection", "alias")),
+    ((128, 512), True, ("rejection", "alias", "its")),
+    ((128, 512), True, ("alias", "its", "rejection")),
+    ((128, 512), False, ("rejection", "its")),
+    ((128,), True, ("its", "alias")),
+])
+def test_mixed_plans_one_launch_per_method(cuda_device, ladder, tail, methods):
+    """``walk_step_adaptive`` with every method beside every other: the
+    card's step equals the CPU's, with one launch per method."""
+    cpu = _case(len(set(methods[:2])) + 7 * tail, w=4096)
+    gpu = {k: v.to(cuda_device) for k, v in cpu.items()}
+
+    def step(c):
+        tables = MethodTables(prob=c["prob"], alias=c["alias"], row_max=c["row_max_v"])
+        return backend.walk_step_adaptive(PRNGKey(9), c["indptr"], c["indices"], c["bias"],
+                                          c["cur"], buckets=ladder, use_chunked=tail,
+                                          methods=methods, tables=tables)
+
+    want = step(cpu)
+    kernels.reset_launch_counts()
+    got = step(gpu)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    bucket_its = "its" in methods[:len(ladder)]
+    assert kernels.launch_counts() == {"walk_step": int(bucket_its),
+                                       "reject_step": int("rejection" in methods),
+                                       "alias_step": int("alias" in methods),
+                                       "walk_step_window": 0, "its_select": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", [True, False])
+def test_reject_step_runs_every_round_and_the_fallback(cuda_device, tail):
+    """Skewed rows: one heavy edge among light ones, so most draws are
+    rejected in every round and the exhausted budget keeps the last slot
+    (or -1 where that slot has no mass)."""
+    rng = np.random.default_rng(11)
+    v, w = 64, 8191
+    deg = rng.integers(2, 1200, v)
+    indptr = np.zeros(v + 1, np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    e = int(indptr[-1])
+    bias = np.full(e, 1e-3, np.float32)
+    bias[rng.random(e) < 0.3] = 0.0
+    bias[indptr[:-1] + rng.integers(0, deg)] = 1.0  # one heavy edge a row
+    cpu = {k: torch.from_numpy(x) for k, x in dict(
+        indptr=indptr.astype(np.int32), indices=rng.integers(0, 1 << 30, e).astype(np.int32),
+        bias=bias, row_max_v=sel.build_row_max(indptr, bias),
+        cur=rng.integers(-1, v, w).astype(np.int32)).items()}
+    gpu = {k: x.to(cuda_device) for k, x in cpu.items()}
+    ladder = (128, 512)
+    want = _step(kernels.reject_step, cpu, PRNGKey(4), ladder, tail, "rejection")
+    got = _step(kernels.reject_step, gpu, PRNGKey(4), ladder, tail, "rejection")
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    # the rounds of the budget the kernel hashed: most served walkers use all 8
+    _, starts, deg = ref.walker_rows(cpu["indptr"], cpu["cur"])
+    cohort = ref.walker_cohorts(deg, ladder, tail)
+    cap = deg
+    for k, seg in enumerate(ladder):
+        cap = torch.where(cohort == k, deg.clamp(max=seg), cap)
+    rm = cpu["row_max_v"][cpu["cur"].clamp(min=0).long()]
+    rej = ref.rejection_randoms(fold_in(PRNGKey(4), 2), (w,))
+    accepted = torch.zeros(w, dtype=torch.bool)
+    for t in range(ref.REJECT_ITERS):
+        slot = torch.minimum((rej[:, t, 0] * cap.float()).int(), (cap - 1).clamp(min=0))
+        accepted |= rej[:, t, 1] * rm < cpu["bias"][(starts + slot).long()]
+    exhausted = (cohort >= 0) & ~accepted
+    assert int(exhausted.sum()) > w // 4
+    assert ((want >= 0) & exhausted).any() and ((want == -1) & exhausted).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, (1 << 33) + 5])
+def test_device_hash_equals_counted_uniforms(cuda_device, offset):
+    """The kernels' threefry hash, alone, against ``rng.uniform`` bit for
+    bit: the 16 round keys of a rejection step, counters from ``offset``
+    (one above 2^32 sets the counter's high word)."""
+    kb = fold_in(fold_in(PRNGKey(7), 3), 2)
+    keys = np.stack([fold_in(kb, t) for t in range(16)])
+    n = 100_003
+    counters = torch.arange(n, dtype=torch.int64, device=cuda_device) + offset
+    got = hash_uniform(keys, counters)
+    torch.cuda.synchronize()
+    want = torch.stack([uniform_at(k, counters.cpu()) for k in keys])
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), want.numpy().view(np.uint32))
+    if offset == 0:
+        many = uniform_many(keys, n, device=cuda_device)
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                      many.cpu().numpy().view(np.uint32))
 
 
 @pytest.mark.cuda

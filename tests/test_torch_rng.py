@@ -93,3 +93,31 @@ def test_rejection_randoms_layout(w):
     got = rejection_randoms(rng.key_from_array(jax.random.key_data(jkey)), (w,), device="cpu")
     assert got.shape == (w, 8, 2) and got.is_contiguous()
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(ref))
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("n", [1, 37, 4099])
+def test_uniform_at_equals_sliced_uniform(seed, n):
+    """The counter-subset draw is the full draw's slice, bit for bit, for
+    any subset and order of counters (the ITS and alias tails hash only
+    their walkers)."""
+    key = rng.fold_in(rng.PRNGKey(seed), 1)
+    full = rng.uniform(key, (n,), device="cpu")
+    idx = torch.from_numpy(np.random.default_rng(seed).permutation(n)[: max(1, n // 3)])
+    got = rng.uniform_at(key, idx)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(full[idx].numpy()))
+    ref = jax.random.uniform(jax.random.fold_in(jax.random.PRNGKey(seed), 1), (n,))
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(np.asarray(ref)[idx.numpy()]))
+
+
+def test_hash_uniform_on_cpu_equals_uniform_many():
+    """The device hash's entry point, on CPU tensors, is the plain hash:
+    the 16 round keys of a rejection step over W counters."""
+    from repro_torch.kernels.threefry import hash_uniform
+
+    kb = rng.fold_in(rng.PRNGKey(3), 2)
+    keys = np.stack([rng.fold_in(kb, t) for t in range(16)])
+    got = hash_uniform(keys, torch.arange(301, dtype=torch.int64))
+    np.testing.assert_array_equal(_bits(got.numpy()),
+                                  _bits(rng.uniform_many(keys, 301, device="cpu").numpy()))
+    assert hash_uniform.launches == 0

@@ -12,6 +12,7 @@ from repro.core import methods as jmt  # noqa: E402
 from repro.core import select as jsel  # noqa: E402
 from repro.graph import csr_from_edges as j_csr_from_edges  # noqa: E402
 from repro.graph import generators as jgen  # noqa: E402
+from repro_torch import kernels  # noqa: E402
 from repro_torch.core import algorithms as talg  # noqa: E402
 from repro_torch.core import backend as tbk  # noqa: E402
 from repro_torch.core import methods as tmt  # noqa: E402
@@ -19,6 +20,7 @@ from repro_torch.core import select as tsel  # noqa: E402
 from repro_torch.core.rng import key_from_array  # noqa: E402
 from repro_torch.graph import csr_from_arrays  # noqa: E402
 from repro_torch.graph import generators as tgen  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 
 
 def _bits(x) -> np.ndarray:
@@ -117,6 +119,8 @@ def test_alias_build_equals_reference_on_skewed_hubs(hub_degree):
 
 @pytest.mark.parametrize("cap", [None, 128])
 def test_flat_draws_equal_reference(cap):
+    """The uncapped (tail) and capped alias and rejection draws of the
+    kernels' plain versions against ``repro``'s flat draws."""
     g = _star()
     indptr, bias = np.asarray(g.indptr), np.asarray(g.weights)
     prob, alias = jsel.build_alias(indptr, bias)
@@ -136,10 +140,10 @@ def test_flat_draws_equal_reference(cap):
     jr = jsel.rejection_draw_flat(jnp.asarray(starts), jnp.asarray(degs), g.weights,
                                   jnp.asarray(rm), g.indices, jnp.asarray(rej), cap=cap)
     t = torch.from_numpy
-    ta = tsel.alias_draw_flat(t(starts), t(degs), t(prob), t(alias), t(np.asarray(g.indices)),
-                              t(r.copy()), cap=cap)
-    tr = tsel.rejection_draw_flat(t(starts), t(degs), t(bias.copy()), t(rm), t(np.asarray(g.indices)),
-                                  t(rej.copy()), cap=cap)
+    ta = kernels.alias_step(t(starts), t(degs), t(np.array(g.indices)), t(prob), t(alias),
+                            t(r.copy()), max_seg=cap)
+    tr = ref.reject_step_block_ref(t(starts), t(degs), t(np.array(g.indices)), t(bias.copy()),
+                                   t(rm), t(rej.copy()), seg=cap)
     np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
     np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
 
