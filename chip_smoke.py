@@ -28,7 +28,9 @@ comes out.  One walk per vertex, depth 40 (DeepWalk's walk length):
    on its path's first-step inputs, one entry per launch the step makes,
    with its time per step (device time, launches back to back; ``call_ms``:
    the host clock per call, what the path pays when the host is slower),
-   its bound and the plain version's time.  The
+   its bound and the plain version's time (``walk_step`` also on the same
+   walkers grouped by cohort and sorted by degree: ``binned_*``,
+   ``sorted_*``).  The
    bound is the larger of the bytes over 3.35 TB/s and the operations over
    their rates: f32 operations over 67 TFLOP/s, and the counted hash's
    32-bit integer operations (``reject_step``, ``walk_step``: 75 per
@@ -417,8 +419,26 @@ class Smoke:
             plain_fn = self.chunked(lambda s: ref.alias_step_block_ref(
                 st[s], dg[s], g.indices, tables.prob, tables.alias, r[s], seg=None), w)
         work = lambda want: self.work(kernel_name, g, cur, want, bias, tables, kf, plan)  # noqa: E731
-        return [self.compare(path, kernel_name, "step", launch, plain_fn, work, walkers=w,
-                             live=int((deg > 0).sum()), walkers_by_cohort=by_cohort)]
+        entry = self.compare(path, kernel_name, "step", launch, plain_fn, work, walkers=w,
+                             live=int((deg > 0).sum()), walkers_by_cohort=by_cohort)
+        if kernel_name == "walk_step":
+            # the same walkers reordered: whether a warp's mix of row lengths
+            # sets the kernel's pace (binned: walkers grouped by cohort;
+            # sorted: by degree; the counters follow the new order)
+            for label, order in (("binned", torch.argsort(cohort, stable=True)),
+                                 ("sorted", torch.argsort(deg, stable=True))):
+                cur_v, out_v = cur[order].contiguous(), torch.full_like(cur, -1)
+                run = self.compare(
+                    path, kernel_name, f"step, walkers {label}",
+                    lambda cur_v=cur_v, out_v=out_v: K.walk_step(kf, g.indptr, g.indices, bias,
+                                                                 cur_v, out=out_v, **plan),
+                    lambda cur_v=cur_v: ref.walk_step_ref(kf, g.indptr, g.indices, bias, cur_v,
+                                                          **plan),
+                    lambda want, cur_v=cur_v: self.work(kernel_name, g, cur_v, want, bias, tables,
+                                                        kf, plan))
+                entry.update({f"{label}_{m}": run[m] for m in ("ms", "bound_ms", "mismatches")})
+                entry[f"{label}_x_bound"] = run["ms"] / run["bound_ms"]
+        return [entry]
 
     def work(self, kernel_name, g, cur, out, bias, tables, kf, plan):
         """Bytes, f32 and 32-bit integer operations this launch needs on
