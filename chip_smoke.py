@@ -26,20 +26,22 @@ comes out.  One walk per vertex, depth 40 (DeepWalk's walk length):
    context and ``its_select`` with K = 1;
 7. per kernel — each kernel against its plain PyTorch version on the card,
    on its path's first-step inputs, one entry per launch the step makes,
-   with its time per step (device time, launches back to back; ``call_ms``:
-   the host clock per call, what the path pays when the host is slower),
-   its bound and the plain version's time (``walk_step`` also on the same
-   walkers grouped by cohort and sorted by degree: ``binned_*``,
-   ``sorted_*``).  The
-   bound is the larger of the bytes over 3.35 TB/s and the operations over
-   their rates: f32 operations over 67 TFLOP/s, and the counted hash's
-   32-bit integer operations (``reject_step``, ``walk_step``: 75 per
-   uniform, the uniforms each walker hashes counted from the plain
-   version's output) over the INT32 rate, 64 lanes an SM at the SM clock
-   that ``nvidia-smi --query-gpu=clocks.max.sm`` reports.  ``its_select``
-   also at K = 8 with 32 rounds on the same rows, so collisions and region
-   search run; ``walk_step_window`` also on the node2vec path's last step,
-   where more walkers sit on hubs;
+   with its time per step (``ms``: device time, launches back to back
+   behind a device spin; ``loop_ms``: CUDA events around the launches from
+   an idle device, which counts the host's time between launches when it is
+   the longer), its bound and the plain version's time (``walk_step`` also
+   with its word-by-word loads, from a bias off 16-byte alignment:
+   ``word_loads_ms``).  The bound is the
+   larger of the bytes over 3.35 TB/s (each input word once, however many
+   walkers read it) and the operations over their rates: f32 operations
+   over 67 TFLOP/s, and the counted hash's 32-bit integer operations
+   (``reject_step``, ``walk_step``: 75 per uniform, the uniforms each walker
+   hashes counted from the plain version's output) over the INT32 rate, 64
+   lanes an SM at the SM clock that ``nvidia-smi --query-gpu=clocks.max.sm``
+   reports.  ``its_select`` also at K = 8 with 32 rounds on the same rows,
+   so collisions and region search run; ``walk_step_window``,
+   ``walk_step`` and ``reject_step`` also on their path's last step
+   (``later_step``), where walkers sit at vertices the walk reached;
 8. cross-check — the first 4,096 walkers of each path, rerun on the CPU by
    the plain versions, equal the card's walks; every hop is a graph edge (or
    an MH stay, a jump to a valid vertex, a restart to the walk's seed);
@@ -52,22 +54,22 @@ just after; a kernel its path never launched fails the run, and a flat
 path must launch each of its methods' kernels once a step.
 
 Each path also records its counted-RNG time per step (flat paths: the host's
-key derivation and the draws the step still makes outside a kernel), and a
-torch.profiler trace of two steps: device busy time, idle share and the
-kernels that took the most device time.
+key derivation and the draws the step still makes outside a kernel; CUDA
+events from an idle device, as ``loop_ms``), and a torch.profiler trace of
+two steps: device busy time, idle share and the kernels that took the most
+device time.
 
 Usage, from the root of a checkout (builds the kernels into build/kernels/):
 
     python3 chip_smoke.py
 
-Prints a ``paths`` line (SEPS per path, timed after a warm-up call, which
-for a flat path is the whole walk, kept as ``first_call_s``; ``plan_s``,
-the host's plan and table build, which on the alias path is the alias
-build; the device hash
-check), a ``kernels`` line (per kernel: ms per step, bound, ``x_bound``,
-plain ms, all measured in this run), the card's name and power limit, and
-last
-``{"ok": true, "device": {...}}``.  Exits non-zero,
+Prints a ``paths`` line (SEPS and ms per step per path, timed after a
+one-step warm-up call; a flat path's walk again as ``steady_*``, with the
+allocator's pool already grown by the first; ``plan_s``, the host's plan
+and table build, which on the alias path is the alias build; the device
+hash check), a ``kernels`` line (per kernel: ms per step, bound,
+``x_bound``, plain ms, all measured in this run), the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
 """
 from __future__ import annotations
@@ -129,13 +131,12 @@ class Smoke:
         import torch
 
         from repro_torch import kernels
-        from repro_torch.core import algorithms, backend, engine, methods, rng, select, transition
+        from repro_torch.core import algorithms, backend, engine, methods, rng, transition
         from repro_torch.graph import generators
         from repro_torch.kernels import _build, ref, threefry
 
         self.torch, self.kernels, self.alg = torch, kernels, algorithms
         self.bk, self.eng, self.mt, self.rng, self.tp = backend, engine, methods, rng, transition
-        self.sel = select
         self.gen, self.build, self.ref, self.threefry = generators, _build, ref, threefry
         self.dev = torch.device("cuda")
         self.key = rng.PRNGKey(SEED)
@@ -152,29 +153,36 @@ class Smoke:
     def sync(self):
         self.torch.cuda.synchronize()
 
-    def event_ms(self, fn, reps: int) -> tuple[float, float]:
-        """``(device ms, call ms)`` per call of ``fn``.  The call time is
-        the host clock over ``reps`` calls and a synchronise: what a caller
-        pays, host work included.  The device time is CUDA events around
-        ``reps`` calls queued behind a device spin (``torch.cuda._sleep``)
-        longer than the host needs to queue them, so the calls run back to
-        back and the host's own time between launches does not count."""
+    def loop_ms(self, fn, reps: int) -> float:
+        """Ms per call of ``fn``: CUDA events around ``reps`` calls after a
+        warm-up call, from an idle device.  Where the host takes longer to
+        issue a call than the device to run it, the host's time counts: what
+        a caller pays."""
         torch = self.torch
         fn()
         self.sync()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        self.sync()
-        call_ms = (time.perf_counter() - t0) / reps * 1e3
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(2 * reps * call_ms * 1e-3 * self.sm_clock_mhz * 1e6))
         start.record()
         for _ in range(reps):
             fn()
         end.record()
         self.sync()
-        return start.elapsed_time(end) / reps, call_ms
+        return start.elapsed_time(end) / reps
+
+    def device_ms(self, fn, reps: int, loop_ms: float) -> float:
+        """Ms per call of ``fn`` on the device alone: CUDA events around
+        ``reps`` calls queued behind a device spin (``torch.cuda._sleep``)
+        twice as long as :meth:`loop_ms` says the host needs to queue them,
+        so the calls run back to back."""
+        torch = self.torch
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2 * reps * loop_ms * 1e-3 * self.sm_clock_mhz * 1e6))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        self.sync()
+        return start.elapsed_time(end) / reps
 
     def cpu_graph(self, g):
         """One CPU copy per graph, shared by its paths' cross-checks."""
@@ -241,13 +249,8 @@ class Smoke:
 
         seeds = torch.arange(g.num_vertices, dtype=torch.int32, device=self.dev)
         walk = dict(depth=depth, spec=spec, max_degree=max_degree, device=self.dev)
-        # warm-up: a flat path's whole walk, so that the timed call finds the
-        # allocator's pool grown (its time is kept as first_call_s); one step
-        # of the costlier window and opaque paths
-        t0 = time.perf_counter()
-        self.eng.random_walk(g, seeds, self.key, **dict(walk, depth=depth if methods else 1))
+        self.eng.random_walk(g, seeds, self.key, **dict(walk, depth=1))  # warm-up
         self.sync()
-        first_call_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         self.kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -255,6 +258,13 @@ class Smoke:
         self.sync()
         seconds = time.perf_counter() - t0
         launches = self.kernels.launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        steady_s = None
+        if methods:  # a flat walk again, the allocator's pool grown by the first
+            t0 = time.perf_counter()
+            self.eng.random_walk(g, seeds, self.key, **walk)
+            self.sync()
+            steady_s = time.perf_counter() - t0
         _require(launches[kernel_name] > 0, f"{name}: {kernel_name} never launched: {launches}")
         if methods:  # one launch per method and step
             per_method = {"rejection": "reject_step", "alias": "alias_step"}
@@ -269,8 +279,9 @@ class Smoke:
             walkers=g.num_vertices, depth=depth, plan=plan, launches=launches,
             sampled_edges=edges, off_edge_hops=off_edge, seconds=seconds,
             seps=edges / seconds, ms_per_step=1e3 * seconds / depth,
-            peak_gib=torch.cuda.max_memory_allocated() / 2**30, graph_s=gen_s, plan_s=plan_s,
-            first_call_s=first_call_s if methods else None,
+            steady_seps=edges / steady_s if steady_s else None,
+            steady_ms_per_step=1e3 * steady_s / depth if steady_s else None,
+            peak_gib=peak_gib, graph_s=gen_s, plan_s=plan_s,
         )
         _log(f"[{name}] {json.dumps(row)}")
 
@@ -289,6 +300,7 @@ class Smoke:
         del res, cpu
 
         if kernel_name not in self.kernel_rows:
+            later = None
             if kernel_name == "walk_step_window":
                 seeds_prev = torch.full_like(seeds, -1)
                 entries = self.measure_window(name, g, spec, seeds, seeds_prev, 0)
@@ -296,9 +308,13 @@ class Smoke:
             elif kernel_name == "its_select":
                 entries = self.measure_select(name, g, spec)
             else:
-                entries = self.measure_flat(name, g, spec, methods, tables, buckets, kernel_name)
+                flat = lambda cur, step: self.measure_flat(  # noqa: E731
+                    name, g, spec, methods, tables, buckets, kernel_name, cur, step)
+                entries = flat(seeds, 0)
+                if kernel_name != "alias_step":
+                    later = flat(last[:, 1].contiguous(), depth - 1)
             self.kernel_row(kernel_name, name, entries)
-            if kernel_name == "walk_step_window":
+            if later is not None:
                 ms, bound = sum(e["ms"] for e in later), sum(e["bound_ms"] for e in later)
                 self.kernel_rows[kernel_name]["later_step"] = dict(
                     step=depth - 1, ms=ms, bound_ms=bound, x_bound=ms / bound, cohorts=later)
@@ -308,11 +324,11 @@ class Smoke:
         return row
 
     def rng_ms(self, g, methods, buckets):
-        """Wall time of one step's counted RNG outside the kernels at W
-        walkers (one a vertex), as ``walk_step_adaptive`` runs it: the
-        host's key derivation, the W-wide bucket uniform only for an alias
-        cohort, the tail's uniforms only for its walkers.  ``reject_step``
-        and ``walk_step`` hash theirs in the kernel."""
+        """Ms of one step's counted RNG outside the kernels at W walkers
+        (one a vertex), as ``walk_step_adaptive`` runs it: the host's key
+        derivation, the W-wide bucket uniform only for an alias cohort, the
+        tail's uniforms only for its walkers.  ``reject_step`` and
+        ``walk_step`` hash theirs in the kernel."""
         torch, rng = self.torch, self.rng
         w = g.num_vertices
         deg = g.indptr[1:] - g.indptr[:-1]
@@ -325,20 +341,14 @@ class Smoke:
                 rng.fold_in(kf, 0)
             if "rejection" in methods:
                 kb = rng.fold_in(kf, 2)
-                for t in range(2 * self.sel.REJECT_ITERS):
+                for t in range(2 * self.ref.REJECT_ITERS):
                     rng.fold_in(kb, t)
             if "alias" in methods[:len(buckets)]:
                 rng.uniform(rng.fold_in(kf, 0), (w,), device=self.dev)
             if tail in ("its", "alias"):
                 rng.uniform_at(rng.fold_in(kf, 1), huge)
 
-        draws()
-        self.sync()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            draws()
-        self.sync()
-        return (time.perf_counter() - t0) / 5 * 1e3
+        return self.loop_ms(draws, 5)
 
     # -- per-kernel comparison, time and bound ------------------------------
 
@@ -361,10 +371,11 @@ class Smoke:
         _require(mismatches == 0, f"{path}/{kernel_name} {label}: {mismatches} mismatches")
         nbytes, nops, nint = work(want)
         by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, self.ops_s(nops, nint)
-        ms, call_ms = self.event_ms(launch, TIMING_REPS)
+        loop_ms = self.loop_ms(launch, TIMING_REPS)
         entry = dict(
             cohort=label, mismatches=mismatches, max_abs_err=err,
-            ms=ms, call_ms=call_ms, plain_ms=self.event_ms(plain, 2)[0],
+            ms=self.device_ms(launch, TIMING_REPS, loop_ms), loop_ms=loop_ms,
+            plain_ms=self.loop_ms(plain, 2),
             bound_ms=max(by_bytes, by_ops) * 1e3,
             bound_by="bytes" if by_bytes >= by_ops else "operations",
             bytes=nbytes, ops=nops, int_ops=nint, **extra,
@@ -389,15 +400,14 @@ class Smoke:
         integer operations at their peak rates."""
         return nops / F32_OPS_PER_S + nint / self.int32_ops_per_s
 
-    def measure_flat(self, path, g, spec, methods, tables, buckets, kernel_name):
-        """The path's first step, one walker a vertex, as
+    def measure_flat(self, path, g, spec, methods, tables, buckets, kernel_name, cur, step):
+        """Step ``step`` of the path for walkers at ``cur``, as
         ``walk_step_adaptive`` runs it: one launch of ``kernel_name`` for
         all the cohorts of its method."""
         torch, rng, ref, K, bk = self.torch, self.rng, self.ref, self.kernels, self.bk
         bias = self.tp.lower(spec).bias.fn(g)
-        w = g.num_vertices
-        kf = rng.fold_in(rng.fold_in(self.key, 0), 1)
-        cur = torch.arange(w, dtype=torch.int32, device=self.dev)
+        w = cur.shape[0]
+        kf = rng.fold_in(rng.fold_in(self.key, step), 1)
         plan = dict(buckets=buckets, use_chunked=True, methods=methods)
         _, _, deg = ref.walker_rows(g.indptr, cur)
         cohort = ref.walker_cohorts(deg, buckets, True)
@@ -419,33 +429,28 @@ class Smoke:
             plain_fn = self.chunked(lambda s: ref.alias_step_block_ref(
                 st[s], dg[s], g.indices, tables.prob, tables.alias, r[s], seg=None), w)
         work = lambda want: self.work(kernel_name, g, cur, want, bias, tables, kf, plan)  # noqa: E731
-        entry = self.compare(path, kernel_name, "step", launch, plain_fn, work, walkers=w,
+        entry = self.compare(path, kernel_name, f"step={step}", launch, plain_fn, work, walkers=w,
                              live=int((deg > 0).sum()), walkers_by_cohort=by_cohort)
         if kernel_name == "walk_step":
-            # the same walkers reordered: whether a warp's mix of row lengths
-            # sets the kernel's pace (binned: walkers grouped by cohort;
-            # sorted: by degree; the counters follow the new order)
-            for label, order in (("binned", torch.argsort(cohort, stable=True)),
-                                 ("sorted", torch.argsort(deg, stable=True))):
-                cur_v, out_v = cur[order].contiguous(), torch.full_like(cur, -1)
-                run = self.compare(
-                    path, kernel_name, f"step, walkers {label}",
-                    lambda cur_v=cur_v, out_v=out_v: K.walk_step(kf, g.indptr, g.indices, bias,
-                                                                 cur_v, out=out_v, **plan),
-                    lambda cur_v=cur_v: ref.walk_step_ref(kf, g.indptr, g.indices, bias, cur_v,
-                                                          **plan),
-                    lambda want, cur_v=cur_v: self.work(kernel_name, g, cur_v, want, bias, tables,
-                                                        kf, plan))
-                entry.update({f"{label}_{m}": run[m] for m in ("ms", "bound_ms", "mismatches")})
-                entry[f"{label}_x_bound"] = run["ms"] / run["bound_ms"]
+            # the same step from a bias 4 bytes off 16-byte alignment: the
+            # kernel's word-by-word loads, which must pick as the 16-byte ones
+            shifted = torch.empty(bias.shape[0] + 1, dtype=bias.dtype, device=self.dev)[1:]
+            shifted.copy_(bias)
+            out_s = torch.full_like(cur, -1)
+            run = lambda: K.walk_step(kf, g.indptr, g.indices, shifted, cur, out=out_s, **plan)  # noqa: E731
+            _require(torch.equal(run(), out), f"{path}: walk_step's word loads pick otherwise")
+            entry["word_loads_ms"] = self.device_ms(run, TIMING_REPS, self.loop_ms(run, TIMING_REPS))
+            del shifted
         return [entry]
 
     def work(self, kernel_name, g, cur, out, bias, tables, kf, plan):
         """Bytes, f32 and 32-bit integer operations this launch needs on
-        this data: each input word read once, each output written once; a
-        rejection draw counts only the rounds up to its acceptance, each
-        two hashed uniforms; an ITS draw reads its capped row once and
-        hashes one uniform when the row has mass."""
+        this data: each output written once, each input word read once
+        however many walkers read it (walkers at one vertex share its row
+        offsets, envelope, bias row and ids); a rejection draw counts the
+        rounds up to its acceptance, each two hashed uniforms; an ITS draw
+        hashes one uniform when its row has mass, scans each capped row once
+        and compares each walker's uniform with its row's prefixes."""
         torch, ref = self.torch, self.ref
         buckets, methods = plan["buckets"], plan["methods"]
         w = cur.shape[0]
@@ -454,39 +459,52 @@ class Smoke:
         cap = deg
         for k, seg in enumerate(buckets):
             cap = torch.where(cohort == k, torch.clamp(deg, max=seg), cap)
-        n_live = int((cur >= 0).sum())
         if kernel_name == "alias_step":
             live = cap > 0
             n_live, n_out = int(live.sum()), int((out >= 0).sum())
             # degs + out; starts + r; prob + alias words; ids
             return 8 * w + 8 * n_live + 8 * n_live + 4 * n_out, 3 * n_live, 0
+
+        def words(*parts):  # 4 bytes for each distinct index
+            return 4 * int(torch.unique(torch.cat([p.long() for p in parts])).numel())
+
         method = "its" if kernel_name == "walk_step" else "rejection"
         served = torch.zeros_like(cur, dtype=torch.bool)
         for k, m in enumerate(methods):
             if m == method and (k < len(buckets) or method == "rejection"):
                 served |= cohort == k
         n_served = int(served.sum())
-        n_ids = int((served & (out >= 0)).sum())
-        nbytes = 4 * w + 8 * n_live + 4 * n_served + 4 * n_ids  # cur; row offsets; out; ids
+        picked = served & (out >= 0)
+        n_picked = int(picked.sum())
+        live = cur >= 0
+        # cur; row offsets; out; ids (one per distinct (vertex, pick))
+        nbytes = (4 * w + words(safe[live], safe[live] + 1) + 4 * n_served
+                  + words(safe[picked] * g.num_vertices + out[picked].long()))
         if kernel_name == "walk_step":
+            row_cap = torch.zeros(g.num_vertices, dtype=torch.int64, device=cur.device)
+            row_cap[safe[served]] = cap[served].long()  # a vertex's cap is its cohort's
+            rows = int(row_cap.sum())
             entries = int(cap[served].long().sum())
-            # the row once; per entry the in-block add, the prefix add, the compare;
-            # the uniform of each row with mass
-            return nbytes + 4 * entries, 3 * entries, HASH_INT_OPS * n_ids
+            # each row once, per entry the in-block add and the prefix add; per
+            # walker and entry the compare; the uniform of each row with mass
+            return nbytes + 4 * rows, 2 * rows + entries, HASH_INT_OPS * n_picked
         rm = tables.row_max[safe]
         rej = ref.rejection_randoms(self.rng.fold_in(kf, 2), (w,), device=self.dev)
         hi = torch.clamp(cap - 1, min=0)
         todo = served & (rm > 0)
-        rounds = torch.zeros_like(cap)
+        rounds, reached = torch.zeros_like(cap), []
         for t in range(rej.shape[1]):
             slot = torch.minimum((rej[:, t, 0] * cap.float()).int(), hi)
-            acc = rej[:, t, 1] * rm < bias[(starts + slot).long().clamp(max=bias.shape[0] - 1)]
+            pos = (starts + slot).long().clamp(max=bias.shape[0] - 1)
+            acc = rej[:, t, 1] * rm < bias[pos]
+            reached.append(pos[todo])
             rounds += todo.int()
             todo = todo & ~acc
         n_rounds = int(rounds.long().sum())
         del rej
-        # the envelope; per round one bias word, 3 f32 operations, 2 uniforms
-        return (nbytes + 4 * n_served + 4 * n_rounds, 3 * n_rounds,
+        # the envelopes; the bias words the rounds reach; per round 3 f32
+        # operations and 2 uniforms
+        return (nbytes + words(safe[served]) + words(*reached), 3 * n_rounds,
                 2 * HASH_INT_OPS * n_rounds)
 
     def measure_window(self, path, g, spec, cur, prev, step):
@@ -517,7 +535,7 @@ class Smoke:
                 st, dg, g.indices, bias, rr, max_seg=seg)
             plain_fn = lambda s, st=st, dg=dg, bias=bias, rr=rr, seg=seg: ref.walk_step_window_block_ref(
                 st[s], dg[s], g.indices, bias[s], rr[s], seg=seg)
-            work = lambda want, dg=dg: self.window_work(dg, want)  # noqa: E731
+            work = lambda want, st=st, dg=dg: self.window_work(st, dg, want)  # noqa: E731
             entries.append(self.compare(path, "walk_step_window", f"step={step} seg={seg}", launch,
                                         self.chunked(plain_fn, rows.shape[0]), work,
                                         walkers=rows.shape[0], live=rows.shape[0],
@@ -525,15 +543,17 @@ class Smoke:
             del bias
         return entries
 
-    @staticmethod
-    def window_work(dg, out):
+    def window_work(self, st, dg, out):
         """``walk_step_window``'s bytes and operations on this data: per
-        walker its start, degree, uniform and output and one id gather, and
-        per row entry one bias word and the in-block add, the prefix add and
-        the compare."""
+        walker its start, degree, uniform and output, one id word for each
+        distinct (row, pick), and per entry of the walker's own bias row one
+        word and the in-block add, the prefix add and the compare."""
         w = dg.shape[0]
         entries = int(dg.long().sum())
-        return 8 * w + 8 * w + 4 * int((out >= 0).sum()) + 4 * entries, 3 * entries, 0
+        picked = out >= 0
+        pairs = st[picked].long() * 2**31 + out[picked].long()
+        ids = 4 * int(self.torch.unique(pairs).numel())
+        return 8 * w + 8 * w + ids + 4 * entries, 3 * entries, 0
 
     def measure_select(self, path, g, spec):
         """``its_select`` on the opaque path's first-step rows (the dense
@@ -608,7 +628,7 @@ class Smoke:
             launches=self.paths[-1]["launches"][kernel_name],
             launches_per_step=len(entries), mismatches=total("mismatches"),
             max_abs_err=max(e["max_abs_err"] for e in entries),
-            ms=total("ms"), call_ms=sum(e.get("call_ms", 0.0) for e in entries),
+            ms=total("ms"), loop_ms=total("loop_ms"),
             plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
             bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=None,
             x_bound=total("ms") / total("bound_ms"),
@@ -627,7 +647,7 @@ class Smoke:
         16 rejection round keys of the main path's first step."""
         torch, rng = self.torch, self.rng
         kb = rng.fold_in(rng.fold_in(rng.fold_in(self.key, 0), 1), 2)
-        keys = np.stack([rng.fold_in(kb, t) for t in range(2 * self.sel.REJECT_ITERS)])
+        keys = np.stack([rng.fold_in(kb, t) for t in range(2 * self.ref.REJECT_ITERS)])
         counters = torch.arange(w, dtype=torch.int64, device=self.dev)
         launch = lambda: self.threefry.hash_uniform(keys, counters)  # noqa: E731
         plain = lambda: rng.uniform_many(keys, w, device=self.dev)  # noqa: E731
@@ -636,9 +656,10 @@ class Smoke:
         mismatches = int((got.view(torch.int32) != want.view(torch.int32)).sum())
         _require(mismatches == 0, f"device hash: {mismatches} of {got.numel()} uniforms differ")
         n = got.numel()
+        loop_ms = self.loop_ms(launch, 5)
         self.hash_row = dict(
             keys=keys.shape[0], counters=w, uniforms=n, mismatches=mismatches,
-            ms=self.event_ms(launch, 5)[0], plain_ms=self.event_ms(plain, 2)[0],
+            ms=self.device_ms(launch, 5, loop_ms), loop_ms=loop_ms, plain_ms=self.loop_ms(plain, 2),
             bound_ms=max(4 * n / HBM_BYTES_PER_S, HASH_INT_OPS * n / self.int32_ops_per_s) * 1e3,
         )
         _log(f"[hash] {json.dumps(self.hash_row)}")

@@ -10,8 +10,8 @@ The walk parts of ``repro.core.select``:
 - the adaptive runtime's O(1) methods: alias tables (:func:`build_alias`,
   host numpy) and rejection envelopes (:func:`build_row_max`); the draws
   themselves are the ``alias_step`` and ``reject_step`` kernels, and the
-  rejection budget as a tensor (:func:`rejection_randoms`) is their plain
-  versions' (``kernels.ref``).
+  rejection budget as a tensor (``kernels.ref.rejection_randoms``) is their
+  plain versions'.
 """
 from __future__ import annotations
 
@@ -20,7 +20,6 @@ import torch
 
 from repro_torch.core.rng import uniform
 from repro_torch.kernels import ref
-from repro_torch.kernels.ref import REJECT_ITERS, rejection_randoms  # noqa: F401 — reference names
 
 #: width of XLA-CPU's partial sums in a row reduction (see :func:`row_sum`)
 SUM_WINDOW = 32

@@ -139,7 +139,8 @@ __device__ __forceinline__ int cohort_of(const Ladder& L, int deg, int& cap) {
 
 // Replaces reject_step_pallas (src/repro/kernels/walk_step.py:267, body
 // _reject_step_kernel :96) and the draws around it: the rejection budget of
-// core.select.rejection_randoms and the cohort split of walk_step_adaptive.
+// src/repro/core/select.py::rejection_randoms and the cohort split of
+// walk_step_adaptive.
 // One thread per walker over the whole batch, one launch a step for every
 // cohort planned as rejection (the tail included).  The thread reads its
 // vertex, row and envelope, finds its cohort, and runs up to kRejectIters
@@ -237,6 +238,42 @@ __device__ __forceinline__ void window_block(const float* __restrict__ row, int 
   }
 }
 
+// window_block from a window whose origin row - local is 16-float aligned
+// (the flat CSR under a segment of whole 128-lane tiles: the origin
+// start - local is a multiple of seg).  A block that lies inside the array
+// (room: the floats from the origin to the array's end) is four 16-byte
+// loads, a quarter of the scalar loads' instructions.  The columns outside
+// [0, deg) are zeroed after the loads.
+__device__ __forceinline__ void window_block_vec(const float* __restrict__ row, int b, int local,
+                                                 int deg, int room, float* v) {
+  const int c0 = b * kScanBlock - local;
+  if ((b + 1) * kScanBlock > room) {
+    window_block(row, b, local, deg, v);
+    return;
+  }
+  const float4* q = reinterpret_cast<const float4*>(row + c0);
+#pragma unroll
+  for (int j = 0; j < kScanBlock / 4; ++j) {
+    const float4 f = __ldg(q + j);
+    v[4 * j] = f.x;
+    v[4 * j + 1] = f.y;
+    v[4 * j + 2] = f.z;
+    v[4 * j + 3] = f.w;
+  }
+#pragma unroll
+  for (int j = 0; j < kScanBlock; ++j) v[j] = c0 + j >= 0 && c0 + j < deg ? v[j] : 0.0f;
+}
+
+template <bool kVec>
+__device__ __forceinline__ void load_block(const float* __restrict__ row, int b, int local,
+                                           int deg, int room, float* v) {
+  if (kVec) {
+    window_block_vec(row, b, local, deg, room, v);
+  } else {
+    window_block(row, b, local, deg, v);
+  }
+}
+
 // One pass of the compact scan over a walker's row.  The row's deg values
 // sit at offsets [local, local + deg) of a 2*seg window of zeros, and only
 // the 16-blocks it touches are scanned: the zeros around the row add exactly
@@ -251,16 +288,17 @@ __device__ __forceinline__ void window_block(const float* __restrict__ row, int 
 // kCount = false returns the total: the scan's value at position 2*seg - 1,
 // the top level's last value, which for several groups is not the last row
 // prefix.  kCount = true sets cnt to the count of row prefixes <= target.
-template <bool kCount>
+// kVec loads blocks by window_block_vec (room as there).
+template <bool kCount, bool kVec>
 __device__ __forceinline__ float window_pass(const float* __restrict__ row, int deg, int local,
-                                             int nb, float target, int& cnt) {
+                                             int nb, float target, int& cnt, int room = 0) {
   const int b0 = local / kScanBlock, b1 = (local + deg - 1) / kScanBlock;
   float gs = 0.0f, top = 0.0f, bprev = 0.0f, ps = 0.0f, last_bprev = 0.0f;
   float v[kScanBlock], nv[kScanBlock];
   int n = 0;
-  window_block(row, b0, local, deg, v);
+  load_block<kVec>(row, b0, local, deg, room, v);
   for (int b = b0; b <= b1; ++b) {
-    if (b < b1) window_block(row, b + 1, local, deg, nv);
+    if (b < b1) load_block<kVec>(row, b + 1, local, deg, room, nv);
     const int c0 = b * kScanBlock - local;
     ps = v[0];
     if (kCount) n += c0 >= 0 && __fadd_rn(ps, bprev) <= target ? 1 : 0;
@@ -316,53 +354,104 @@ __global__ void walk_step_window_kernel(const int* __restrict__ starts,
   const int nb = 2 * seg / kScanBlock;
   const float* row = bias_rows + (size_t)i * seg;
   int cnt = 0;
-  const float total = window_pass<false>(row, deg, local, nb, 0.0f, cnt);
+  const float total = window_pass<false, false>(row, deg, local, nb, 0.0f, cnt);
   if (total <= 1e-12f) {
     out[i] = -1;
     return;
   }
-  window_pass<true>(row, deg, local, nb, __fmul_rn(rand[i], total), cnt);
+  window_pass<true, false>(row, deg, local, nb, __fmul_rn(rand[i], total), cnt);
   out[i] = indices[start + min(cnt, deg - 1)];
 }
+
+// The most 16-blocks a row of at most 512 entries touches in its window.
+constexpr int kMaxRowBlocks = 512 / kScanBlock + 1;
 
 // Replaces walk_step_pallas (src/repro/kernels/walk_step.py:158, body
 // _walk_step_kernel :29) with the wrapper around it that draws its uniform
 // (src/repro/kernels/ops.py:38 walk_step) and the cohort split of
 // walk_step_adaptive: the flat-bias ITS step, one launch a step for every
 // bucket planned as ITS.  walk_step_window_kernel's design with the CSR as
-// the row: one thread per walker, two window_pass passes over the walker's
-// bias row [start, start + min(deg, seg)) at offset local = start % seg of
-// its 2*seg window (seg: the cohort's segment, so the window origin is part
-// of the bits), work in proportion to the row and not to the window.  The
-// uniform is hashed only for a row with mass, at counter i.  Bound by bytes
-// (the row once, the id, the walker's vertex and row offsets) and the hash.
-__global__ void walk_step_kernel(const int* __restrict__ cur,
-                                 const int* __restrict__ indptr,
-                                 const int* __restrict__ indices,
-                                 const float* __restrict__ bias,
-                                 int* __restrict__ out, int w, Ladder L, Key key) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= w) return;
-  const int c = cur[i];
-  if (c < 0) return;
-  const int start = indptr[c];
-  const int deg = indptr[c + 1] - start;
-  if (deg <= 0) return;  // no cohort
-  int seg;
-  const int k = cohort_of(L, deg, seg);
-  if (k >= L.nseg || !((L.serve >> k) & 1)) return;  // the ITS tail is the chunked scan
-  const int d = min(deg, seg);
-  const int local = start % seg;
-  const int nb = 2 * seg / kScanBlock;
-  const float* row = bias + start;
+// the row: one thread per walker, window_pass over the walker's bias row
+// [start, start + min(deg, seg)) at offset local = start % seg of its 2*seg
+// window (seg: the cohort's segment, so the window origin is part of the
+// bits), work in proportion to the row and not to the window.  A warp's
+// time follows its longest row, and once walkers sit where the walk took
+// them, rows of 1 to 33 blocks mix in every warp.  So the block first
+// sorts its walkers by the number of window blocks their rows touch (a
+// counting sort in shared memory), and thread t scans the t-th shortest
+// row: each warp then holds rows of about one length.  The window origin
+// start - local is a multiple of seg, so with a 16-byte aligned bias (kVec)
+// each window block is four 16-byte loads.  The uniform is hashed at the
+// walker's own counter i, only for a row with mass.  Bound by bytes (the
+// row once, the id, the walker's vertex and row offsets) and the hash.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) walk_step_kernel(
+    const int* __restrict__ cur, const int* __restrict__ indptr,
+    const int* __restrict__ indices, const float* __restrict__ bias, int* __restrict__ out,
+    int w, int n_bias, Ladder L, Key key) {
+  constexpr int kBins = kMaxRowBlocks + 1;  // 0 blocks: a walker not served here
+  __shared__ int s_bin[kBins];
+  __shared__ int s_order[kThreads], s_start[kThreads], s_deg[kThreads], s_seg[kThreads];
+  const int t = threadIdx.x;
+  const int i = blockIdx.x * kThreads + t;
+  // this thread's walker, when one of its cohorts is served here
+  int start = 0, d = 0, seg = 0;
+  if (i < w) {
+    const int c = cur[i];
+    if (c >= 0) {
+      start = indptr[c];
+      const int deg = indptr[c + 1] - start;
+      if (deg > 0) {  // else no cohort
+        const int k = cohort_of(L, deg, seg);
+        if (k < L.nseg && ((L.serve >> k) & 1)) d = min(deg, seg);  // the ITS tail is the chunked scan
+      }
+    }
+  }
+  const int local = d > 0 ? start % seg : 0;
+  const int nblk = d > 0 ? (local + d - 1) / kScanBlock - local / kScanBlock + 1 : 0;
+  s_start[t] = start;
+  s_deg[t] = d;
+  s_seg[t] = seg;
+  if (t < kBins) s_bin[t] = 0;
+  __syncthreads();
+  const int rank = atomicAdd(&s_bin[nblk], 1);
+  __syncthreads();
+  if (t < 32) {  // exclusive scan of the bin counts: bins t and 32 + t
+    const int c0 = s_bin[t], c1 = 32 + t < kBins ? s_bin[32 + t] : 0;
+    int x0 = c0, x1 = c1;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y0 = __shfl_up_sync(kFull, x0, o), y1 = __shfl_up_sync(kFull, x1, o);
+      if (t >= o) {
+        x0 += y0;
+        x1 += y1;
+      }
+    }
+    const int lo_total = __shfl_sync(kFull, x0, 31);
+    s_bin[t] = x0 - c0;
+    if (32 + t < kBins) s_bin[32 + t] = lo_total + x1 - c1;
+  }
+  __syncthreads();
+  s_order[s_bin[nblk] + rank] = t;
+  __syncthreads();
+  const int src = s_order[t];  // the walker this thread scans
+  const int rd = s_deg[src];
+  if (rd <= 0) return;
+  const int rstart = s_start[src], rseg = s_seg[src];
+  const int rlocal = rstart % rseg;
+  const int nb = 2 * rseg / kScanBlock;
+  const int room = n_bias - (rstart - rlocal);
+  const int ri = blockIdx.x * kThreads + src;
+  const float* row = bias + rstart;
   int cnt = 0;
-  const float total = window_pass<false>(row, d, local, nb, 0.0f, cnt);
+  const float total = window_pass<false, kVec>(row, rd, rlocal, nb, 0.0f, cnt, room);
   if (total <= 1e-12f) {
-    out[i] = -1;
+    out[ri] = -1;
     return;
   }
-  window_pass<true>(row, d, local, nb, __fmul_rn(counted_uniform(key, i), total), cnt);
-  out[i] = indices[start + min(cnt, d - 1)];
+  window_pass<true, kVec>(row, rd, rlocal, nb, __fmul_rn(counted_uniform(key, ri), total), cnt,
+                          room);
+  out[ri] = indices[rstart + min(cnt, rd - 1)];
 }
 
 // The device hash alone, for its tests: out[k][j] = the uniform of
@@ -834,12 +923,21 @@ int alias_step_launch(const void* starts, const void* degs, const void* indices,
 }
 
 int walk_step_launch(const void* cur, const void* indptr, const void* indices,
-                     const void* bias, void* out, int w, const int* ladder,
+                     const void* bias, void* out, int w, int n_bias, const int* ladder,
                      const unsigned* key_words, void* stream) {
   if (w > 0) {
-    walk_step_kernel<<<(w + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)bias, (int*)out,
-        w, make_ladder(ladder), Key{key_words[0], key_words[1]});
+    const int blocks = (w + kThreads - 1) / kThreads;
+    const Ladder L = make_ladder(ladder);
+    const Key key{key_words[0], key_words[1]};
+    if ((uintptr_t)bias % 16 == 0) {
+      walk_step_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+          (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)bias,
+          (int*)out, w, n_bias, L, key);
+    } else {
+      walk_step_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+          (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)bias,
+          (int*)out, w, n_bias, L, key);
+    }
   }
   return (int)cudaGetLastError();
 }

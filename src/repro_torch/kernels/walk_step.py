@@ -115,7 +115,7 @@ def walk_step(
     lib = _build.load()
     code = lib.walk_step_launch(
         cur.data_ptr(), indptr.data_ptr(), indices.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        w, ladder, _key_words(fold_in(key, 0)), _build.stream_handle(cur),
+        w, bias.shape[0], ladder, _key_words(fold_in(key, 0)), _build.stream_handle(cur),
     )
     _build.check(lib, code, "walk_step")
     walk_step.launches += 1
@@ -188,7 +188,7 @@ def reject_step(
     envelopes.  Round ``t`` of walker ``i`` hashes its slot uniform under
     ``fold_in(fold_in(key, 2), 2t)`` and its accept uniform under
     ``fold_in(fold_in(key, 2), 2t + 1)``, both at counter ``i`` — the
-    ``core.select.rejection_randoms`` budget, of which the kernel hashes
+    ``ref.rejection_randoms`` budget, of which the kernel hashes
     only the rounds the walker reaches.  A bucket cohort's rows are
     truncated to its segment; the tail draws over the whole row.  Writes
     into ``out`` as :func:`walk_step` does.  Returns ``out``.

@@ -135,6 +135,50 @@ def test_step_kernels_match_plain_versions(cuda_device, ladder, tail, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+def test_walk_step_at_every_bias_alignment(cuda_device, shift):
+    """``walk_step`` loads a window block as four 16-byte words when the
+    bias is 16-byte aligned and word by word otherwise; both give the plain
+    version's picks, on every row, the last rows included (their last
+    window block runs past the end of the array)."""
+    w = 4099
+    cpu = _case(77 + shift, w=w)
+    cpu["cur"][:40] = torch.arange(40, dtype=torch.int32)
+    gpu = {k: v.to(cuda_device) for k, v in cpu.items()}
+    e = cpu["bias"].shape[0]
+    buf = torch.zeros(e + 4, dtype=torch.float32, device=cuda_device)
+    gpu["bias"] = buf[shift:shift + e]
+    gpu["bias"].copy_(cpu["bias"])
+    assert (gpu["bias"].data_ptr() % 16 == 0) == (shift == 0)
+    for ladder, tail in [((128, 512), True), ((128,), False), ((256,), False)]:
+        key = PRNGKey(shift + 3 * len(ladder))
+        want = _step(kernels.walk_step, cpu, key, ladder, tail, "its")
+        got = _step(kernels.walk_step, gpu, key, ladder, tail, "its")
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=str(ladder))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ladder,tail", [((128, 512), True), ((128,), False)])
+def test_walk_step_on_negative_bias(cuda_device, ladder, tail):
+    """A row with a negative value takes ``walk_step``'s full second pass
+    (the count from block totals holds only for values >= 0); the picks
+    equal the plain version's on every row."""
+    w = 4099
+    cpu = _case(91 + len(ladder), w=w)
+    e = cpu["bias"].shape[0]
+    flip = torch.from_numpy(np.random.default_rng(5).integers(0, e, e // 20))
+    cpu["bias"][flip] = -cpu["bias"][flip]
+    gpu = {k: v.to(cuda_device) for k, v in cpu.items()}
+    key = PRNGKey(len(ladder))
+    want = _step(kernels.walk_step, cpu, key, ladder, tail, "its")
+    got = _step(kernels.walk_step, gpu, key, ladder, tail, "its")
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert (want >= 0).any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("ladder,tail,methods", [
     ((128, 512), True, ("its", "rejection", "alias")),
     ((128, 512), True, ("rejection", "alias", "its")),

@@ -11,7 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import rng  # noqa: E402
-from repro_torch.core.select import rejection_randoms  # noqa: E402
+from repro_torch.kernels.ref import rejection_randoms  # noqa: E402
 
 
 def _bits(x) -> np.ndarray:
