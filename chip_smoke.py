@@ -19,8 +19,8 @@ comes out.  One walk per vertex, depth 40 (DeepWalk's walk length):
 4. its — ``weighted_random_walk`` pinned to ITS on a 1M-vertex power-law
    graph (maximum degree about 1k, so the chunked ITS tail stays at two
    chunks or fewer): one ``walk_step`` launch a step;
-5. alias — ``weighted_random_walk``, auto plan (alias in every cohort), on
-   the same power-law graph;
+5. alias — ``weighted_random_walk``, auto plan (alias in every cohort and
+   the tail: one ``alias_step`` launch a step), on the same power-law graph;
 6. opaque — ``weighted_random_walk`` with its flat form and program stripped
    (an arbitrary edge-bias hook) on the same power-law graph: the dense
    context and ``its_select`` with K = 1;
@@ -31,17 +31,21 @@ comes out.  One walk per vertex, depth 40 (DeepWalk's walk length):
    an idle device, which counts the host's time between launches when it is
    the longer), its bound and the plain version's time (``walk_step`` also
    with its word-by-word loads, from a bias off 16-byte alignment:
-   ``word_loads_ms``).  The bound is the
+   ``word_loads_ms``; ``alias_step``, which reads the packed table, also
+   reading ``prob`` and ``alias`` as two words: ``unpacked_ms``, timed in
+   turns with the packed version).  The bound is the
    larger of the bytes over 3.35 TB/s (each input word once, however many
    walkers read it) and the operations over their rates: f32 operations
    over 67 TFLOP/s, and the counted hash's 32-bit integer operations
-   (``reject_step``, ``walk_step``: 75 per uniform, the uniforms each walker
-   hashes counted from the plain version's output) over the INT32 rate, 64
+   (``reject_step``, ``walk_step``, ``alias_step``: 75 per uniform, the
+   uniforms each walker hashes counted from the plain version's output)
+   over the INT32 rate, 64
    lanes an SM at the SM clock that ``nvidia-smi --query-gpu=clocks.max.sm``
    reports.  ``its_select`` also at K = 8 with 32 rounds on the same rows,
    so collisions and region search run; ``walk_step_window``,
-   ``walk_step`` and ``reject_step`` also on their path's last step
-   (``later_step``), where walkers sit at vertices the walk reached;
+   ``walk_step``, ``reject_step`` and ``alias_step`` also on their path's
+   last step (``later_step``), where walkers sit at vertices the walk
+   reached;
 8. cross-check — the first 4,096 walkers of each path, rerun on the CPU by
    the plain versions, equal the card's walks; every hop is a graph edge (or
    an MH stay, a jump to a valid vertex, a restart to the walk's seed);
@@ -56,8 +60,8 @@ path must launch each of its methods' kernels once a step.
 Each path also records its counted-RNG time per step (flat paths: the host's
 key derivation and the draws the step still makes outside a kernel; CUDA
 events from an idle device, as ``loop_ms``), and a torch.profiler trace of
-two steps: device busy time, idle share and the kernels that took the most
-device time.
+two-step walks, repeated until the trace spans 20 ms: device busy time,
+idle share and the kernels that took the most device time.
 
 Usage, from the root of a checkout (builds the kernels into build/kernels/):
 
@@ -108,6 +112,7 @@ TELEPORT_PROB = 0.15
 #: its_select's collision check: K draws, ITERS rounds
 SELECT_K, SELECT_ITERS = 8, 32
 TIMING_REPS = 20
+PROFILE_MIN_S = 0.02  # the shortest trace
 PLAIN_CHUNK = 1 << 18  # walkers per plain-version call (bounds its temporaries)
 KERNELS = ("reject_step", "alias_step", "walk_step", "walk_step_window", "its_select")
 
@@ -311,8 +316,7 @@ class Smoke:
                 flat = lambda cur, step: self.measure_flat(  # noqa: E731
                     name, g, spec, methods, tables, buckets, kernel_name, cur, step)
                 entries = flat(seeds, 0)
-                if kernel_name != "alias_step":
-                    later = flat(last[:, 1].contiguous(), depth - 1)
+                later = flat(last[:, 1].contiguous(), depth - 1)
             self.kernel_row(kernel_name, name, entries)
             if later is not None:
                 ms, bound = sum(e["ms"] for e in later), sum(e["bound_ms"] for e in later)
@@ -326,11 +330,9 @@ class Smoke:
     def rng_ms(self, g, methods, buckets):
         """Ms of one step's counted RNG outside the kernels at W walkers
         (one a vertex), as ``walk_step_adaptive`` runs it: the host's key
-        derivation, the W-wide bucket uniform only for an alias cohort, the
-        tail's uniforms only for its walkers.  ``reject_step`` and
-        ``walk_step`` hash theirs in the kernel."""
+        derivation, and an ITS tail's uniforms for its walkers alone.  The
+        three step kernels hash theirs in the kernel."""
         torch, rng = self.torch, self.rng
-        w = g.num_vertices
         deg = g.indptr[1:] - g.indptr[:-1]
         huge = torch.nonzero(deg > buckets[-1]).squeeze(1)
         tail = methods[len(buckets)]
@@ -343,9 +345,9 @@ class Smoke:
                 kb = rng.fold_in(kf, 2)
                 for t in range(2 * self.ref.REJECT_ITERS):
                     rng.fold_in(kb, t)
-            if "alias" in methods[:len(buckets)]:
-                rng.uniform(rng.fold_in(kf, 0), (w,), device=self.dev)
-            if tail in ("its", "alias"):
+            if "alias" in methods:
+                rng.fold_in(kf, 0), rng.fold_in(kf, 1)
+            if tail == "its":
                 rng.uniform_at(rng.fold_in(kf, 1), huge)
 
         return self.loop_ms(draws, 5)
@@ -404,7 +406,7 @@ class Smoke:
         """Step ``step`` of the path for walkers at ``cur``, as
         ``walk_step_adaptive`` runs it: one launch of ``kernel_name`` for
         all the cohorts of its method."""
-        torch, rng, ref, K, bk = self.torch, self.rng, self.ref, self.kernels, self.bk
+        torch, rng, ref, K = self.torch, self.rng, self.ref, self.kernels
         bias = self.tp.lower(spec).bias.fn(g)
         w = cur.shape[0]
         kf = rng.fold_in(rng.fold_in(self.key, step), 1)
@@ -423,11 +425,10 @@ class Smoke:
             plain_fn = lambda: ref.reject_step_ref(kf, g.indptr, g.indices, bias,  # noqa: E731
                                                    tables.row_max, cur, **plan)
         else:
-            served, st, dg, r = bk.alias_operands(kf, g.indptr, cur, **plan)
-            launch = lambda: K.alias_step(st, dg, g.indices, tables.prob, tables.alias, r,  # noqa: E731
-                                          max_seg=None)
-            plain_fn = self.chunked(lambda s: ref.alias_step_block_ref(
-                st[s], dg[s], g.indices, tables.prob, tables.alias, r[s], seg=None), w)
+            launch = lambda: K.alias_step(kf, g.indptr, g.indices, tables.prob, tables.alias,  # noqa: E731
+                                          cur, out=out, packed=tables.packed, **plan)
+            plain_fn = lambda: ref.alias_step_ref(kf, g.indptr, g.indices, tables.prob,  # noqa: E731
+                                                  tables.alias, cur, **plan)
         work = lambda want: self.work(kernel_name, g, cur, want, bias, tables, kf, plan)  # noqa: E731
         entry = self.compare(path, kernel_name, f"step={step}", launch, plain_fn, work, walkers=w,
                              live=int((deg > 0).sum()), walkers_by_cohort=by_cohort)
@@ -441,6 +442,20 @@ class Smoke:
             _require(torch.equal(run(), out), f"{path}: walk_step's word loads pick otherwise")
             entry["word_loads_ms"] = self.device_ms(run, TIMING_REPS, self.loop_ms(run, TIMING_REPS))
             del shifted
+        if kernel_name == "alias_step":
+            # the same step reading prob and alias as two words (two sectors)
+            # where the packed table is one; timed in turns with the packed
+            # version: packed, unpacked, unpacked, packed
+            out_u = torch.full_like(cur, -1)
+            run = lambda: K.alias_step(kf, g.indptr, g.indices, tables.prob, tables.alias,  # noqa: E731
+                                       cur, out=out_u, **plan)
+            _require(torch.equal(run(), out), f"{path}: alias_step's unpacked reads pick otherwise")
+            timed = lambda fn: self.device_ms(fn, TIMING_REPS, self.loop_ms(fn, TIMING_REPS))  # noqa: E731
+            unpacked = [timed(run), timed(run)]
+            packed = [entry["ms"], timed(launch)]
+            entry.update(unpacked_ms=sum(unpacked) / 2, packed_ms=sum(packed) / 2,
+                         unpacked_ms_runs=unpacked, packed_ms_runs=packed)
+            _log(f"[{path}] alias_step step={step} packed {packed} unpacked {unpacked}")
         return [entry]
 
     def work(self, kernel_name, g, cur, out, bias, tables, kf, plan):
@@ -450,7 +465,9 @@ class Smoke:
         offsets, envelope, bias row and ids); a rejection draw counts the
         rounds up to its acceptance, each two hashed uniforms; an ITS draw
         hashes one uniform when its row has mass, scans each capped row once
-        and compares each walker's uniform with its row's prefixes."""
+        and compares each walker's uniform with its row's prefixes; an alias
+        draw hashes one uniform (two in the tail), reads one table entry
+        (its prob and alias words) and does 3 f32 operations."""
         torch, ref = self.torch, self.ref
         buckets, methods = plan["buckets"], plan["methods"]
         w = cur.shape[0]
@@ -459,19 +476,14 @@ class Smoke:
         cap = deg
         for k, seg in enumerate(buckets):
             cap = torch.where(cohort == k, torch.clamp(deg, max=seg), cap)
-        if kernel_name == "alias_step":
-            live = cap > 0
-            n_live, n_out = int(live.sum()), int((out >= 0).sum())
-            # degs + out; starts + r; prob + alias words; ids
-            return 8 * w + 8 * n_live + 8 * n_live + 4 * n_out, 3 * n_live, 0
 
         def words(*parts):  # 4 bytes for each distinct index
             return 4 * int(torch.unique(torch.cat([p.long() for p in parts])).numel())
 
-        method = "its" if kernel_name == "walk_step" else "rejection"
+        method = {"walk_step": "its", "reject_step": "rejection", "alias_step": "alias"}[kernel_name]
         served = torch.zeros_like(cur, dtype=torch.bool)
         for k, m in enumerate(methods):
-            if m == method and (k < len(buckets) or method == "rejection"):
+            if m == method and (k < len(buckets) or method != "its"):
                 served |= cohort == k
         n_served = int(served.sum())
         picked = served & (out >= 0)
@@ -488,6 +500,16 @@ class Smoke:
             # each row once, per entry the in-block add and the prefix add; per
             # walker and entry the compare; the uniform of each row with mass
             return nbytes + 4 * rows, 2 * rows + entries, HASH_INT_OPS * n_picked
+        if kernel_name == "alias_step":
+            idx = torch.nonzero(served).squeeze(1)
+            in_tail = cohort[idx] == len(buckets)
+            r = torch.where(in_tail, self.rng.uniform_at(self.rng.fold_in(kf, 1), idx),
+                            self.rng.uniform_at(self.rng.fold_in(kf, 0), idx))
+            c = cap[idx]
+            slot = torch.minimum((r * c.float()).int(), c - 1)
+            # the table entries the draws read, 8 bytes each
+            return (nbytes + 2 * words(starts[idx] + slot), 3 * n_served,
+                    HASH_INT_OPS * (n_served + int(in_tail.sum())))
         rm = tables.row_max[safe]
         rej = ref.rejection_randoms(self.rng.fold_in(kf, 2), (w,), device=self.dev)
         hi = torch.clamp(cap - 1, min=0)
@@ -668,15 +690,20 @@ class Smoke:
     # -- profile ------------------------------------------------------------
 
     def profile(self, name, g, seeds, walk) -> dict:
-        """Trace two steps; device time from the card's own events."""
+        """Trace two-step walks, again until the trace spans
+        ``PROFILE_MIN_S`` (a fast path's two steps alone take a fraction of
+        a millisecond); device time from the card's own events."""
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
         self.sync()
+        walks = 0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            self.eng.random_walk(g, seeds, self.key, **dict(walk, depth=2))
-            self.sync()
+            while not walks or time.perf_counter() - t0 < PROFILE_MIN_S:
+                self.eng.random_walk(g, seeds, self.key, **dict(walk, depth=2))
+                self.sync()
+                walks += 1
             wall = time.perf_counter() - t0
         # device-side events only: the aten ops on the host carry their
         # kernels' time too, and would count it twice
@@ -688,9 +715,12 @@ class Smoke:
         ]
         rows.sort(key=lambda x: -x[1])
         busy_ms = sum(r[1] for r in rows) / 1e3
+        if busy_ms <= 0:
+            kinds = sorted({str(e.device_type) for e in prof.key_averages()})
+            _log(f"[{name}] trace of {walks} walks: {len(prof.key_averages())} keys, {kinds}")
         _require(busy_ms > 0, f"{name}: the trace shows no device time")
         return dict(
-            profile_steps=2, profile_wall_ms=wall * 1e3, profile_device_busy_ms=busy_ms,
+            profile_steps=2 * walks, profile_wall_ms=wall * 1e3, profile_device_busy_ms=busy_ms,
             device_idle_share=1 - busy_ms / (wall * 1e3),
             profile_top=[[k[:60], us / 1e3, c] for k, us, c in rows[:8]],
         )

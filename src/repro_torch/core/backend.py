@@ -137,34 +137,6 @@ def _chunked_tail(key, indptr, indices, safe, deg, seg_hi, nxt, scan):
     return nxt
 
 
-def alias_operands(key, indptr, cur, *, buckets, use_chunked, methods):
-    """The operands of one ``alias_step`` launch for every alias cohort of a
-    step: ``(served, starts, capped degrees, uniforms)``, each walker's row
-    capped at its cohort's segment (the tail uncapped), its uniform the
-    bucket uniform ``fold_in(key, 0)`` or, in the tail, ``fold_in(key, 1)``,
-    at the walker's index — the draws of one launch per cohort, bit for
-    bit.  Walkers outside the alias cohorts get degree 0."""
-    _, starts, deg = ref.walker_rows(indptr, cur)
-    cohort = ref.walker_cohorts(deg, buckets, use_chunked)
-    served = torch.zeros_like(cur, dtype=torch.bool)
-    capped = deg
-    for k, m in enumerate(methods):
-        if m == "alias":
-            inb = cohort == k
-            served = served | inb
-            if k < len(buckets):
-                capped = torch.where(inb, torch.clamp(deg, max=buckets[k]), capped)
-    w = cur.shape[0]
-    if "alias" in methods[:len(buckets)]:
-        rand = uniform(fold_in(key, 0), (w,), device=cur.device)
-    else:
-        rand = torch.zeros(w, dtype=torch.float32, device=cur.device)
-    if use_chunked and methods[len(buckets)] == "alias":
-        huge = torch.nonzero(cohort == len(buckets)).squeeze(1)
-        rand[huge] = uniform_at(fold_in(key, 1), huge)
-    return served, torch.where(served, starts, 0), torch.where(served, capped, 0), rand
-
-
 def walk_step_adaptive(
     key: np.ndarray,
     indptr: torch.Tensor,
@@ -183,19 +155,18 @@ def walk_step_adaptive(
     degree cohort — ``"its"``, ``"alias"`` (``tables.prob``/``tables.alias``)
     or ``"rejection"`` (envelope ``tables.row_max``) — one entry per bucket
     plus one for the tail when present.  Each method runs one kernel launch
-    for all its cohorts: ``reject_step`` (the tail included) and
-    ``walk_step`` find their walkers' cohorts themselves and write them into
-    one output; the alias cohorts go to one ``alias_step``.  An ITS tail
-    takes the chunked scan.
+    for all its cohorts: ``reject_step`` and ``alias_step`` (the tail
+    included) and ``walk_step`` find their walkers' cohorts themselves and
+    write them into one output.  An ITS tail takes the chunked scan.
 
     Counted RNG, as the reference: the bucket uniform is ``fold_in(key, 0)``
     (alias cohorts consume the same uniform an ITS cohort would); the ITS
     and alias tails use ``fold_in(key, 1)``; the rejection budget, shared by
     every rejection cohort including the tail, is
     ``rejection_randoms(fold_in(key, 2))``; walker ``i`` draws at counter
-    ``i`` of each.  ``walk_step`` and ``reject_step`` hash their uniforms in
-    the kernel, and the tails hash theirs for their walkers alone, so the
-    W-wide bucket uniform is drawn only for an alias cohort.  Alias and
+    ``i`` of each.  The three step kernels hash their walkers' uniforms
+    themselves, and an ITS tail hashes its uniforms for its walkers alone,
+    so no W-wide uniform is drawn; the host derives the keys.  Alias and
     rejection tails draw over the whole row; only an ITS tail scans.
     Returns next vertices (W,) int32, -1 for finished walkers and dead ends.
     """
@@ -206,10 +177,8 @@ def walk_step_adaptive(
     if "its" in methods[:len(buckets)]:
         walk_step(key, indptr, indices, flat_bias, cur, **ladder)
     if "alias" in methods:
-        served, st, dg, rand = alias_operands(key, indptr, cur, buckets=buckets,
-                                              use_chunked=use_chunked, methods=methods)
-        cand = alias_step(st, dg, indices, tables.prob, tables.alias, rand, max_seg=None)
-        nxt = torch.where(served, cand, nxt)
+        alias_step(key, indptr, indices, tables.prob, tables.alias, cur, packed=tables.packed,
+                   **ladder)
     if use_chunked and methods[len(buckets)] == "its":
         safe, _, deg = ref.walker_rows(indptr, cur)
         nxt = _chunked_tail(

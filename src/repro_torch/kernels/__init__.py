@@ -6,7 +6,8 @@ PyTorch version.
 - ``walk_step_window`` — window-bias ITS step (``walk_step_window_pallas``)
 - ``reject_step``      — counted-budget rejection step, every rejection
   cohort in one launch (``reject_step_pallas``)
-- ``alias_step``       — O(1) alias-table step (``alias_step_pallas``)
+- ``alias_step``       — O(1) alias-table step, every alias cohort and the
+  tail in one launch (``alias_step_pallas``)
 - ``its_select``       — K-of-P ITS selection with region search
   (``its_select_pallas``)
 - ``ref``              — the plain versions, and the scan rule

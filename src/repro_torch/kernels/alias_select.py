@@ -4,48 +4,72 @@ Dispatches on its operands' device like ``kernels.walk_step``: a CUDA
 tensor launches the kernel of ``csrc/walk_kernels.cu``, a CPU tensor runs
 the plain version in ``kernels/ref.py``.  ``alias_step.launches`` counts the
 kernel's launches.
+
+``alias_step`` is a whole step, as ``walk_step`` and ``reject_step`` are: it
+takes the step's key and the walkers' vertices, finds each walker's cohort
+on the ladder, serves every cohort planned as ``"alias"`` (the tail
+included) in one launch, and hashes each served walker's uniform in the
+kernel.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build, ref
-
-_INT_MAX = (1 << 31) - 1
+from repro_torch.kernels.threefry import fold_in
+from repro_torch.kernels.walk_step import _key_words, _ladder, _step_operands
 
 
 def alias_step(
-    starts: torch.Tensor,
-    degs: torch.Tensor,
+    key: np.ndarray,
+    indptr: torch.Tensor,
     indices: torch.Tensor,
     prob: torch.Tensor,
     alias: torch.Tensor,
-    rand: torch.Tensor,
+    cur: torch.Tensor,
     *,
-    max_seg: int | None = 512,
+    buckets: tuple,
+    use_chunked: bool,
+    methods: tuple,
+    out: torch.Tensor | None = None,
+    packed: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """One alias draw for W walkers (``alias_step_pallas``).
+    """One O(1) alias step (``alias_step_pallas``) for every cohort planned
+    as ``"alias"``, the tail included, in one launch.
 
-    starts/degs: (W,) int32; indices (E,) int32, prob (E,) float32 and alias
-    (E,) int32: CSR-aligned arrays, the tables from
-    ``core.select.build_alias``; rand: (W,) float32.  Rows longer than
-    ``max_seg`` are truncated to it; ``max_seg=None`` draws over the whole
-    row.  Returns next vertices (W,) int32, -1 for a dead end.
+    key, indptr, indices, cur and the ladder (``buckets``, ``use_chunked``,
+    ``methods``) as ``kernels.walk_step``; prob (E,) float32 and alias (E,)
+    int32: the CSR-aligned tables of ``core.select.build_alias``.  A bucket
+    cohort's walker ``i`` draws ``uniform(fold_in(key, 0))`` at counter
+    ``i`` over its row capped at the cohort's segment; a tail walker draws
+    ``uniform(fold_in(key, 1))`` at counter ``i`` over its whole row.
+    ``packed``: on the card, the (E, 2) int32 table of ``core.methods``
+    holding each position's prob bits and alias side by side, read in one
+    8-byte load in place of ``prob`` and ``alias``.  Writes the served
+    walkers' next vertices (-1 for a zero-total row) into ``out`` (W,) int32
+    and leaves the other entries as they are; ``out=None`` starts from all
+    -1.  Returns ``out``.
     """
-    if starts.device.type == "cpu":
-        return ref.alias_step_block_ref(starts, degs, indices, prob, alias, rand, seg=max_seg)
-    i32, f32 = torch.int32, torch.float32
-    _build.require_cuda("alias_step", ((starts, i32), (degs, i32), (rand, f32)),
-                        ((indices, i32), (prob, f32), (alias, i32)))
-    out = torch.empty_like(starts)
-    w = starts.shape[0]
-    if w == 0:
+    ladder = _ladder("alias_step", buckets, use_chunked, methods, "alias", tail=True)
+    if cur.device.type == "cpu":
+        return ref.alias_step_ref(key, indptr, indices, prob, alias, cur, buckets=buckets,
+                                  use_chunked=use_chunked, methods=methods, out=out)
+    out = _step_operands("alias_step", cur, out, indptr,
+                         ((indices, torch.int32), (prob, torch.float32), (alias, torch.int32)))
+    if packed is not None:
+        _build.require_cuda("alias_step", ((packed, torch.int32),), (), others=((prob, torch.float32),))
+        if packed.shape != (prob.shape[0], 2) or packed.data_ptr() % 8:
+            raise ValueError(f"alias_step: packed must be (E, 2) and 8-byte aligned, "
+                             f"got {tuple(packed.shape)}")
+    w = cur.shape[0]
+    if w == 0 or ladder[2] == 0:
         return out
     lib = _build.load()
     code = lib.alias_step_launch(
-        starts.data_ptr(), degs.data_ptr(), indices.data_ptr(), prob.data_ptr(),
-        alias.data_ptr(), rand.data_ptr(), out.data_ptr(), w,
-        _INT_MAX if max_seg is None else max_seg, _build.stream_handle(starts),
+        cur.data_ptr(), indptr.data_ptr(), indices.data_ptr(), prob.data_ptr(),
+        alias.data_ptr(), None if packed is None else packed.data_ptr(), out.data_ptr(), w, ladder,
+        _key_words(fold_in(key, 0), fold_in(key, 1)), _build.stream_handle(cur),
     )
     _build.check(lib, code, "alias_step")
     alias_step.launches += 1

@@ -11,7 +11,7 @@
 // [start, start + min(deg, cap)) directly and gathers the int32 id directly,
 // which equals the reference for every id (the TPU kernels only below 2^24).
 //
-// What bounds them: bytes of random gathers, and for the two step kernels
+// What bounds them: bytes of random gathers, and for the three step kernels
 // the counted hash as well.  A walker's row sits at a data-dependent offset
 // in arrays far larger than L2, so each draw costs a few 32-byte sectors of
 // device memory; the f32 arithmetic is a handful of operations per gathered
@@ -19,7 +19,8 @@
 // (rejection: one bias word per round and one id, stopping at the first
 // acceptance; alias: two table words and one id; ITS: the row once), and
 // launch enough walkers to keep many gathers in flight.  The step kernels
-// (reject_step, walk_step) hash their walkers' counted uniforms themselves:
+// (reject_step, alias_step, walk_step) each serve every cohort of their
+// method in one launch and hash their walkers' counted uniforms themselves:
 // threefry2x32 is about 75 32-bit integer operations per uniform, so a
 // rejection round costs about 150 integer operations beside its one bias
 // word, and the hash is of the same order as the gathers: both count in
@@ -192,38 +193,63 @@ __global__ void reject_step_kernel(const int* __restrict__ cur,
 }
 
 // Replaces alias_step_pallas (src/repro/kernels/alias_select.py:66, body
-// _alias_step_kernel :29).  One thread per walker: one uniform splits into
-// slot and coin, then two table gathers at the same position and one id
-// gather.  No scan and no loop: three dependent random reads per walker.
-__global__ void alias_step_kernel(const int* __restrict__ starts,
-                                  const int* __restrict__ degs,
+// _alias_step_kernel :29) and the draws and cohort split around it in
+// walk_step_adaptive: the O(1) alias step, one launch a step for every
+// cohort planned as alias (the tail included).  One thread per walker over
+// the whole batch: it reads its vertex and row offsets, hashes its bucket
+// uniform (counter i under bucket_key) while that gather is in flight, finds
+// its cohort, and draws: slot and coin from one uniform, one table read at
+// start + slot, one id read.  A tail walker (the row uncapped) hashes again
+// under tail_key; they are a few thousand of a million walkers.
+// Bound by bytes: the walker's vertex, two row offsets, the table entry and
+// the id, each a random 32-byte sector for a 4-byte word, with the hash's
+// 75 integer operations beside them.  kPacked reads the entry as one 8-byte
+// word of a (E, 2) table holding prob's bits and alias side by side (one
+// sector where prob[pos] and alias[pos] are two).  Writes only the walkers
+// it serves: -1 for a zero-total row (alias < 0).
+template <bool kPacked>
+__global__ void alias_step_kernel(const int* __restrict__ cur, const int* __restrict__ indptr,
                                   const int* __restrict__ indices,
                                   const float* __restrict__ prob,
                                   const int* __restrict__ alias,
-                                  const float* __restrict__ rand,
-                                  int* __restrict__ out, int w, int cap) {
+                                  const int2* __restrict__ packed, int* __restrict__ out, int w,
+                                  Ladder L, Key bucket_key, Key tail_key) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= w) return;
-  const int deg = degs[i];
-  if (deg <= 0) {
-    out[i] = -1;
-    return;
-  }
-  const int start = starts[i];
+  const int c = cur[i];
+  if (c < 0) return;
+  const int start = __ldg(indptr + c);
+  const int end = __ldg(indptr + c + 1);
+  float r = counted_uniform(bucket_key, i);  // depends on i only: overlaps the gather
+  const int deg = end - start;
+  if (deg <= 0) return;  // no cohort
+  int cap;
+  const int k = cohort_of(L, deg, cap);
+  if (!((L.serve >> k) & 1)) return;
+  if (k == L.nseg) r = counted_uniform(tail_key, i);  // the tail: cap is INT_MAX
   const int deg_eff = min(deg, cap);
   const int hi = deg_eff - 1;
-  const float u = __fmul_rn(rand[i], (float)deg_eff);
+  const float u = __fmul_rn(r, (float)deg_eff);
   const int slot = min((int)u, hi);
   const float frac = __fsub_rn(u, (float)slot);
   const int pos = start + slot;
-  const int a = alias[pos];
+  float p;
+  int a;
+  if (kPacked) {
+    const int2 e = __ldg(packed + pos);
+    p = __int_as_float(e.x);
+    a = e.y;
+  } else {
+    p = __ldg(prob + pos);
+    a = __ldg(alias + pos);
+  }
   if (a < 0) {  // zero-total row
     out[i] = -1;
     return;
   }
-  int chosen = frac < prob[pos] ? slot : a;
+  int chosen = frac < p ? slot : a;
   chosen = min(max(chosen, 0), hi);
-  out[i] = indices[start + chosen];
+  out[i] = __ldg(indices + start + chosen);
 }
 
 // Window block b of one walker's row in registers: row columns
@@ -911,13 +937,22 @@ int reject_step_launch(const void* cur, const void* indptr, const void* indices,
   return (int)cudaGetLastError();
 }
 
-int alias_step_launch(const void* starts, const void* degs, const void* indices,
-                      const void* prob, const void* alias, const void* rand, void* out,
-                      int w, int cap, void* stream) {
+int alias_step_launch(const void* cur, const void* indptr, const void* indices,
+                      const void* prob, const void* alias, const void* packed, void* out, int w,
+                      const int* ladder, const unsigned* key_words, void* stream) {
   if (w > 0) {
-    alias_step_kernel<<<(w + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int*)starts, (const int*)degs, (const int*)indices, (const float*)prob,
-        (const int*)alias, (const float*)rand, (int*)out, w, cap);
+    const int blocks = (w + kThreads - 1) / kThreads;
+    const Ladder L = make_ladder(ladder);
+    const Key bucket_key{key_words[0], key_words[1]}, tail_key{key_words[2], key_words[3]};
+    if (packed != nullptr) {
+      alias_step_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+          (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)prob,
+          (const int*)alias, (const int2*)packed, (int*)out, w, L, bucket_key, tail_key);
+    } else {
+      alias_step_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+          (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)prob,
+          (const int*)alias, (const int2*)packed, (int*)out, w, L, bucket_key, tail_key);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -6,8 +6,8 @@ bit-identical to its ``repro.kernels.ref`` oracle and Pallas kernel.  The
 kernel wrappers run these on CPU tensors; on the card they serve only as
 the yardstick the kernels are checked against.
 
-The step-level versions (:func:`walk_step_ref`, :func:`reject_step_ref`)
-take the step's key and the walkers' vertices, as their kernels do: they
+The step-level versions (:func:`walk_step_ref`, :func:`reject_step_ref`,
+:func:`alias_step_ref`) take the step's key and the walkers' vertices, as their kernels do: they
 draw the counted uniforms with ``kernels.threefry`` and run the cohort-level
 versions (``*_block_ref``) on each cohort the ladder gives.
 
@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels.threefry import fold_in, uniform, uniform_many
+from repro_torch.kernels.threefry import fold_in, uniform, uniform_at, uniform_many
 
 _EPS = 1e-12
 #: the BRS clip bound ``1 - 1e-12`` as JAX applies it to f32 (1.0)
@@ -401,6 +401,36 @@ def reject_step_ref(
     for _, seg, rows in groups:
         out[rows] = reject_step_block_ref(starts[rows], deg[rows], indices, bias,
                                           row_max[safe[rows]], rej[rows], seg=seg)
+    return out
+
+
+def alias_step_ref(
+    key: np.ndarray,
+    indptr: torch.Tensor,
+    indices: torch.Tensor,
+    prob: torch.Tensor,
+    alias: torch.Tensor,
+    cur: torch.Tensor,
+    *,
+    buckets: tuple,
+    use_chunked: bool,
+    methods: tuple,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """One O(1) alias step for the walkers of every cohort planned as
+    ``"alias"``, the tail included (``alias_step`` kernel).
+
+    A bucket cohort's uniform is ``uniform(fold_in(key, 0), (W,))``, the
+    tail's ``uniform(fold_in(key, 1), (W,))``, walker ``i`` at counter
+    ``i``; each is hashed at the cohort's walkers only.  A bucket cohort
+    caps its rows at its segment, the tail draws over the whole row
+    (:func:`alias_step_block_ref`).  Writes into ``out`` as
+    :func:`walk_step_ref` does.  Returns ``out``.
+    """
+    _, starts, deg, out, groups = _served(cur, indptr, buckets, use_chunked, methods, "alias", out)
+    for _, seg, rows in groups:
+        r = uniform_at(fold_in(key, 0 if seg is not None else 1), rows)
+        out[rows] = alias_step_block_ref(starts[rows], deg[rows], indices, prob, alias, r, seg=seg)
     return out
 
 

@@ -72,37 +72,42 @@ LADDERS = [((128,), True), ((128,), False), ((128, 512), True), ((128, 512), Fal
 LADDER_IDS = ["128+tail", "128", "128,512+tail", "128,512", "4-rungs+tail", "256"]
 
 
-def _step(fn, c, key, ladder, tail, method, out=None):
-    extra = (c["row_max_v"],) if fn is kernels.reject_step else ()
-    return fn(key, c["indptr"], c["indices"], c["bias"], *extra, c["cur"], buckets=ladder,
-              use_chunked=tail, methods=(method,) * (len(ladder) + tail), out=out)
+def _step(fn, c, key, ladder, tail, method, out=None, **kw):
+    if fn is kernels.alias_step:
+        tables = (c["prob"], c["alias"])
+    else:
+        tables = (c["bias"], *((c["row_max_v"],) if fn is kernels.reject_step else ()))
+    return fn(key, c["indptr"], c["indices"], *tables, c["cur"], buckets=ladder,
+              use_chunked=tail, methods=(method,) * (len(ladder) + tail), out=out, **kw)
+
+
+def _packed(c):
+    """The (E, 2) table ``core.methods`` builds for ``alias_step``."""
+    return torch.stack([c["prob"].view(torch.int32), c["alias"]], dim=1)
+
+
+STEP_KERNELS = [(kernels.reject_step, "rejection"), (kernels.walk_step, "its"),
+                (kernels.alias_step, "alias")]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("seg", [128, 512, None])
 def test_kernels_match_plain_versions(cuda_device, seg):
-    """Each walk-step kernel against its plain version: the alias cohort
-    capped at ``seg`` (None: uncapped); the step kernels over the ladder
-    ending at ``seg`` (None: (128, 512) with its tail)."""
+    """Each step kernel against its plain version over the ladder ending at
+    ``seg`` (None: (128, 512) with its tail)."""
     cpu = _case(4, w=4096)
     gpu = {k: v.to(cuda_device) for k, v in cpu.items()}
     kernels.reset_launch_counts()
-    extra = ("prob", "alias", "rand")
-    want = kernels.alias_step(cpu["starts"], cpu["degs"], cpu["indices"], *(cpu[k] for k in extra),
-                              max_seg=seg)
-    got = kernels.alias_step(gpu["starts"], gpu["degs"], gpu["indices"], *(gpu[k] for k in extra),
-                             max_seg=seg)
-    torch.cuda.synchronize()
-    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg="alias_step")
     ladder, tail = {128: ((128,), False), 512: ((128, 512), False), None: ((128, 512), True)}[seg]
     key = PRNGKey(seg or 1)
-    for fn, method in [(kernels.reject_step, "rejection"), (kernels.walk_step, "its")]:
+    for fn, method in STEP_KERNELS:
         want = _step(fn, cpu, key, ladder, tail, method)
         got = _step(fn, gpu, key, ladder, tail, method)
         torch.cuda.synchronize()
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=fn.__name__)
         assert (want >= 0).any() and (want == -1).any()
     # the plain version run on the card gives the same ids
+    want = _step(kernels.walk_step, cpu, key, ladder, tail, "its")
     on_card = ref.walk_step_ref(key, gpu["indptr"], gpu["indices"], gpu["bias"], gpu["cur"],
                                 buckets=ladder, use_chunked=tail,
                                 methods=("its",) * (len(ladder) + tail))
@@ -132,6 +137,62 @@ def test_step_kernels_match_plain_versions(cuda_device, ladder, tail, w):
         assert (want == -5).any()  # finished walkers, degree 0, and (ITS) the tail
         if w > 1000:
             assert (want >= 0).any() and (want == -1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ladder,tail", LADDERS, ids=LADDER_IDS)
+@pytest.mark.parametrize("w", [4099, 1237, 31])
+def test_alias_step_matches_plain_version(cuda_device, ladder, tail, w):
+    """``alias_step`` over every ladder, with and without a tail, at W not
+    a multiple of 32, reading ``prob``/``alias`` and reading the packed
+    table: one launch each, every served walker equal to
+    ``ref.alias_step_ref``, every other entry of ``out`` left as it was."""
+    cpu = _case(len(ladder) + 10 * tail + w + 1, w=w)
+    gpu = {k: v.to(cuda_device) for k, v in cpu.items()}
+    key = PRNGKey(w + 2)
+    plan = dict(buckets=ladder, use_chunked=tail, methods=("alias",) * (len(ladder) + tail))
+    want = ref.alias_step_ref(key, cpu["indptr"], cpu["indices"], cpu["prob"], cpu["alias"],
+                              cpu["cur"], out=torch.full((w,), -5, dtype=torch.int32), **plan)
+    for packed in (None, _packed(gpu)):
+        kernels.reset_launch_counts()
+        got = _step(kernels.alias_step, gpu, key, ladder, tail, "alias", packed=packed,
+                    out=torch.full((w,), -5, dtype=torch.int32, device=cuda_device))
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(),
+                                      err_msg=f"packed={packed is not None}")
+        assert kernels.launch_counts()["alias_step"] == 1
+    assert (want == -5).any()  # finished walkers and degree 0
+    if w > 1000:
+        assert (want >= 0).any() and (want == -1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", [True, False])
+def test_alias_step_on_finished_empty_and_dead_rows(cuda_device, tail):
+    """Finished walkers (``cur = -1``) and walkers on degree-0 vertices
+    belong to no cohort and keep ``out``; walkers on the zero-total row
+    (``alias = -1``) are served and give -1; the packed table holds
+    ``prob``'s bits and ``alias`` as they are."""
+    w = 2053
+    cpu = _case(31 + tail, w=w)
+    pattern = torch.tensor([-1, 0, 5, 7, 3, 9, 21], dtype=torch.int32)  # 0, 5: degree 0; 7: dead
+    cpu["cur"] = pattern.repeat(w // pattern.numel() + 1)[:w].contiguous()
+    gpu = {k: v.to(cuda_device) for k, v in cpu.items()}
+    packed = _packed(gpu)
+    assert torch.equal(packed[:, 0].cpu(), cpu["prob"].view(torch.int32))
+    assert torch.equal(packed[:, 1].cpu(), cpu["alias"])
+    ladder = (128, 512)
+    want = _step(kernels.alias_step, cpu, PRNGKey(6), ladder, tail, "alias",
+                 out=torch.full((w,), -5, dtype=torch.int32))
+    for p in (None, packed):
+        got = _step(kernels.alias_step, gpu, PRNGKey(6), ladder, tail, "alias", packed=p,
+                    out=torch.full((w,), -5, dtype=torch.int32, device=cuda_device))
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    cur = cpu["cur"]
+    assert (want[(cur == -1) | (cur == 0) | (cur == 5)] == -5).all()
+    assert (want[cur == 7] == -1).all()
+    assert (want[(cur == 3) | (cur == 9) | (cur == 21)] >= 0).all()
 
 
 @pytest.mark.cuda

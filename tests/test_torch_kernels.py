@@ -229,9 +229,35 @@ def test_walk_step_matches_jax_walk_step(ladder, tail, seed):
                 > ladder[-1]).any()
 
 
+def _alias_oracle(c, key, ladder, tail):
+    """The JAX package's alias step: ``core.backend.walk_step_adaptive``
+    with every cohort planned as alias, ``alias_step_pallas`` in interpret
+    mode in the buckets and the flat draw over the whole row in the tail."""
+    cohort, _ = _cohorts(c, ladder, tail)
+    indices, bias = jnp.asarray(c["indices"]), jnp.asarray(c["bias"])
+    jtables = jmt.MethodTables(prob=jnp.asarray(c["prob"]), alias=jnp.asarray(c["alias"]),
+                               row_max=None)
+    want = jbk.walk_step_adaptive(
+        key, jnp.asarray(c["indptr"]), indices, bias, jbk.pad_walk_csr(indices, bias, ladder),
+        jnp.asarray(c["cur"]), buckets=ladder, use_chunked=tail,
+        methods=("alias",) * (len(ladder) + tail), tables=jtables, backend="pallas",
+        interpret=True)
+    return np.asarray(want), cohort
+
+
+def _alias_step(c, key, ladder, tail, out=None):
+    return kernels.alias_step(np.asarray(jax.random.key_data(key)), *_step_args(c)[:2],
+                              _t(c["prob"]), _t(c["alias"]), _t(c["cur"]), buckets=ladder,
+                              use_chunked=tail, methods=("alias",) * (len(ladder) + tail),
+                              out=out)
+
+
 @pytest.mark.parametrize("seg", [128, 512])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_alias_step_plain_matches_oracle_and_pallas(seg, seed):
+    """The cohort-level plain version against the oracle and the Pallas
+    kernel on given uniforms, and the step over the ladder ending at
+    ``seg`` (with its tail) against the JAX package's step."""
     c = _case(seed)
     inds_p, bias_p = pad_csr_for_kernel(jnp.asarray(c["indices"]), jnp.asarray(c["bias"]), seg)
     alias_p, prob_p = pad_csr_for_kernel(jnp.asarray(c["alias"]), jnp.asarray(c["prob"]), seg)
@@ -240,10 +266,41 @@ def test_alias_step_plain_matches_oracle_and_pallas(seg, seed):
     pallas = np.asarray(alias_step_pallas(st, dg, inds_p, prob_p, alias_p, r, max_seg=seg,
                                           interpret=True))
     np.testing.assert_array_equal(oracle, pallas)
-    got = kernels.alias_step(_t(c["starts"]), _t(c["degs"]), _t(c["indices"]), _t(c["prob"]),
-                             _t(c["alias"]), _t(c["rand"]), max_seg=seg)
+    got = ref.alias_step_block_ref(_t(c["starts"]), _t(c["degs"]), _t(c["indices"]),
+                                   _t(c["prob"]), _t(c["alias"]), _t(c["rand"]), seg=seg)
     np.testing.assert_array_equal(got.numpy(), oracle)
     assert (got.numpy() == -1).any() and (got.numpy() >= 0).any()
+
+    ladder = (128,) if seg == 128 else (128, 512)
+    key = jax.random.PRNGKey(seed + 11)
+    want, _ = _alias_oracle(c, key, ladder, True)
+    np.testing.assert_array_equal(_alias_step(c, key, ladder, True).numpy(), want)
+
+
+@pytest.mark.parametrize("ladder,tail", LADDERS, ids=LADDER_IDS)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_alias_step_matches_jax_pallas(ladder, tail, seed):
+    """Every ladder, with and without a tail, every cohort planned as
+    alias: equal to the JAX package's step under the same key, walker for
+    walker.  Finished walkers and walkers on degree-0 vertices belong to no
+    cohort: the JAX step gives them -1, and the port's leaves ``out``
+    there as it was."""
+    c = _case(seed + 50, w=160)
+    key = jax.random.PRNGKey(seed + 7)
+    want, cohort = _alias_oracle(c, key, ladder, tail)
+    np.testing.assert_array_equal(_alias_step(c, key, ladder, tail).numpy(), want)
+    out = torch.full((c["cur"].shape[0],), -7, dtype=torch.int32)
+    got = _alias_step(c, key, ladder, tail, out=out).numpy()
+    served = cohort >= 0
+    np.testing.assert_array_equal(got[served], want[served])
+    assert (got[~served] == -7).all() and (want[~served] == -1).all()
+    assert (got[served] >= 0).any() and (got[served] == -1).any()
+    assert (c["cur"] < 0).any() and ((c["cur"] >= 0) & ~served).any()
+    if tail:
+        assert (cohort == len(ladder)).sum() > 5
+    else:  # the absorbing bucket served rows above its segment
+        assert (np.where(c["cur"] >= 0, c["deg_v"][np.maximum(c["cur"], 0)], 0)[served]
+                > ladder[-1]).any()
 
 
 @pytest.mark.parametrize("seg", [128, 512])
@@ -346,6 +403,10 @@ def test_step_kernels_reject_bad_ladders(buckets, use_chunked, methods):
     with pytest.raises(ValueError):
         kernels.walk_step(key, *_step_args(c), _t(c["cur"]), buckets=buckets,
                           use_chunked=use_chunked, methods=("its",) * len(methods))
+    with pytest.raises(ValueError):
+        kernels.alias_step(key, *_step_args(c)[:2], _t(c["prob"]), _t(c["alias"]), _t(c["cur"]),
+                           buckets=buckets, use_chunked=use_chunked,
+                           methods=("alias",) * len(methods))
 
 
 def test_cpu_wrappers_launch_nothing():
@@ -357,8 +418,9 @@ def test_cpu_wrappers_launch_nothing():
     kernels.walk_step(key, *_step_args(c), _t(c["cur"]), methods=("its",) * 3, **plan)
     kernels.reject_step(key, *_step_args(c), _t(c["row_max_v"]), _t(c["cur"]),
                         methods=("rejection",) * 3, **plan)
+    kernels.alias_step(key, *_step_args(c)[:2], _t(c["prob"]), _t(c["alias"]), _t(c["cur"]),
+                       methods=("alias",) * 3, **plan)
     args = (_t(c["starts"]), _t(np.minimum(c["degs"], 128)), _t(c["indices"]))
-    kernels.alias_step(*args, _t(c["prob"]), _t(c["alias"]), _t(c["rand"]), max_seg=128)
     kernels.walk_step_window(*args, torch.zeros(args[0].shape[0], 128), _t(c["rand"]),
                              max_seg=128)
     kernels.its_select(torch.ones(4, 100), torch.zeros(4, 2, 3))

@@ -12,7 +12,6 @@ from repro.core import methods as jmt  # noqa: E402
 from repro.core import select as jsel  # noqa: E402
 from repro.graph import csr_from_edges as j_csr_from_edges  # noqa: E402
 from repro.graph import generators as jgen  # noqa: E402
-from repro_torch import kernels  # noqa: E402
 from repro_torch.core import algorithms as talg  # noqa: E402
 from repro_torch.core import backend as tbk  # noqa: E402
 from repro_torch.core import methods as tmt  # noqa: E402
@@ -140,8 +139,8 @@ def test_flat_draws_equal_reference(cap):
     jr = jsel.rejection_draw_flat(jnp.asarray(starts), jnp.asarray(degs), g.weights,
                                   jnp.asarray(rm), g.indices, jnp.asarray(rej), cap=cap)
     t = torch.from_numpy
-    ta = kernels.alias_step(t(starts), t(degs), t(np.array(g.indices)), t(prob), t(alias),
-                            t(r.copy()), max_seg=cap)
+    ta = ref.alias_step_block_ref(t(starts), t(degs), t(np.array(g.indices)), t(prob), t(alias),
+                                  t(r.copy()), seg=cap)
     tr = ref.reject_step_block_ref(t(starts), t(degs), t(np.array(g.indices)), t(bias.copy()),
                                    t(rm), t(rej.copy()), seg=cap)
     np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
