@@ -31,9 +31,7 @@ comes out.  One walk per vertex, depth 40 (DeepWalk's walk length):
    an idle device, which counts the host's time between launches when it is
    the longer), its bound and the plain version's time (``walk_step`` also
    with its word-by-word loads, from a bias off 16-byte alignment:
-   ``word_loads_ms``; ``alias_step``, which reads the packed table, also
-   reading ``prob`` and ``alias`` as two words: ``unpacked_ms``, timed in
-   turns with the packed version).  The bound is the
+   ``word_loads_ms``).  The bound is the
    larger of the bytes over 3.35 TB/s (each input word once, however many
    walkers read it) and the operations over their rates: f32 operations
    over 67 TFLOP/s, and the counted hash's 32-bit integer operations
@@ -426,7 +424,7 @@ class Smoke:
                                                    tables.row_max, cur, **plan)
         else:
             launch = lambda: K.alias_step(kf, g.indptr, g.indices, tables.prob, tables.alias,  # noqa: E731
-                                          cur, out=out, packed=tables.packed, **plan)
+                                          cur, out=out, **plan)
             plain_fn = lambda: ref.alias_step_ref(kf, g.indptr, g.indices, tables.prob,  # noqa: E731
                                                   tables.alias, cur, **plan)
         work = lambda want: self.work(kernel_name, g, cur, want, bias, tables, kf, plan)  # noqa: E731
@@ -442,20 +440,6 @@ class Smoke:
             _require(torch.equal(run(), out), f"{path}: walk_step's word loads pick otherwise")
             entry["word_loads_ms"] = self.device_ms(run, TIMING_REPS, self.loop_ms(run, TIMING_REPS))
             del shifted
-        if kernel_name == "alias_step":
-            # the same step reading prob and alias as two words (two sectors)
-            # where the packed table is one; timed in turns with the packed
-            # version: packed, unpacked, unpacked, packed
-            out_u = torch.full_like(cur, -1)
-            run = lambda: K.alias_step(kf, g.indptr, g.indices, tables.prob, tables.alias,  # noqa: E731
-                                       cur, out=out_u, **plan)
-            _require(torch.equal(run(), out), f"{path}: alias_step's unpacked reads pick otherwise")
-            timed = lambda fn: self.device_ms(fn, TIMING_REPS, self.loop_ms(fn, TIMING_REPS))  # noqa: E731
-            unpacked = [timed(run), timed(run)]
-            packed = [entry["ms"], timed(launch)]
-            entry.update(unpacked_ms=sum(unpacked) / 2, packed_ms=sum(packed) / 2,
-                         unpacked_ms_runs=unpacked, packed_ms_runs=packed)
-            _log(f"[{path}] alias_step step={step} packed {packed} unpacked {unpacked}")
         return [entry]
 
     def work(self, kernel_name, g, cur, out, bias, tables, kf, plan):

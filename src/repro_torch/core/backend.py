@@ -177,8 +177,7 @@ def walk_step_adaptive(
     if "its" in methods[:len(buckets)]:
         walk_step(key, indptr, indices, flat_bias, cur, **ladder)
     if "alias" in methods:
-        alias_step(key, indptr, indices, tables.prob, tables.alias, cur, packed=tables.packed,
-                   **ladder)
+        alias_step(key, indptr, indices, tables.prob, tables.alias, cur, **ladder)
     if use_chunked and methods[len(buckets)] == "its":
         safe, _, deg = ref.walker_rows(indptr, cur)
         nxt = _chunked_tail(

@@ -45,7 +45,6 @@ class MethodTables(NamedTuple):
     prob: Optional[torch.Tensor] = None  # (E,) f32 alias acceptance thresholds
     alias: Optional[torch.Tensor] = None  # (E,) int32 row-local alias redirects
     row_max: Optional[torch.Tensor] = None  # (V,) f32 rejection envelopes
-    packed: Optional[torch.Tensor] = None  # (E, 2) int32: prob's bits and alias side by side
 
 
 EMPTY_TABLES = MethodTables()
@@ -81,20 +80,16 @@ class _PlanEntry:
         return t
 
     def tables(self, methods, indptr, device) -> MethodTables:
-        prob = alias = row_max = packed = None
+        prob = alias = row_max = None
         if any(m == "alias" for m in methods):
             if "prob" not in self._host:
                 self._host["prob"], self._host["alias"] = sel.build_alias(indptr, self.bias_np)
             prob, alias = self._table("prob", device), self._table("alias", device)
-            packed = self._device.get(("packed", device))
-            if packed is None:  # built on the device, from the tables already there
-                packed = torch.stack([prob.view(torch.int32), alias], dim=1)
-                self._device[("packed", device)] = packed
         if any(m == "rejection" for m in methods):
             if "row_max" not in self._host:
                 self._host["row_max"] = sel.build_row_max(indptr, self.bias_np)
             row_max = self._table("row_max", device)
-        return MethodTables(prob=prob, alias=alias, row_max=row_max, packed=packed)
+        return MethodTables(prob=prob, alias=alias, row_max=row_max)
 
 
 def row_stats(indptr, bias_np, deg=None):

@@ -34,7 +34,7 @@ _PI = ctypes.POINTER(ctypes.c_int)  # a host array: the step's ladder
 _PU = ctypes.POINTER(ctypes.c_uint32)  # a host array: key words
 _SIGNATURES = {
     "reject_step_launch": [_P, _P, _P, _P, _P, _P, _I, _PI, _PU, _P],
-    "alias_step_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _PI, _PU, _P],
+    "alias_step_launch": [_P, _P, _P, _P, _P, _P, _I, _PI, _PU, _P],
     "walk_step_launch": [_P, _P, _P, _P, _P, _I, _I, _PI, _PU, _P],
     "walk_step_window_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "its_select_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -33,7 +33,6 @@ def alias_step(
     use_chunked: bool,
     methods: tuple,
     out: torch.Tensor | None = None,
-    packed: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One O(1) alias step (``alias_step_pallas``) for every cohort planned
     as ``"alias"``, the tail included, in one launch.
@@ -44,12 +43,9 @@ def alias_step(
     cohort's walker ``i`` draws ``uniform(fold_in(key, 0))`` at counter
     ``i`` over its row capped at the cohort's segment; a tail walker draws
     ``uniform(fold_in(key, 1))`` at counter ``i`` over its whole row.
-    ``packed``: on the card, the (E, 2) int32 table of ``core.methods``
-    holding each position's prob bits and alias side by side, read in one
-    8-byte load in place of ``prob`` and ``alias``.  Writes the served
-    walkers' next vertices (-1 for a zero-total row) into ``out`` (W,) int32
-    and leaves the other entries as they are; ``out=None`` starts from all
-    -1.  Returns ``out``.
+    Writes the served walkers' next vertices (-1 for a zero-total row) into
+    ``out`` (W,) int32 and leaves the other entries as they are;
+    ``out=None`` starts from all -1.  Returns ``out``.
     """
     ladder = _ladder("alias_step", buckets, use_chunked, methods, "alias", tail=True)
     if cur.device.type == "cpu":
@@ -57,18 +53,13 @@ def alias_step(
                                   use_chunked=use_chunked, methods=methods, out=out)
     out = _step_operands("alias_step", cur, out, indptr,
                          ((indices, torch.int32), (prob, torch.float32), (alias, torch.int32)))
-    if packed is not None:
-        _build.require_cuda("alias_step", ((packed, torch.int32),), (), others=((prob, torch.float32),))
-        if packed.shape != (prob.shape[0], 2) or packed.data_ptr() % 8:
-            raise ValueError(f"alias_step: packed must be (E, 2) and 8-byte aligned, "
-                             f"got {tuple(packed.shape)}")
     w = cur.shape[0]
     if w == 0 or ladder[2] == 0:
         return out
     lib = _build.load()
     code = lib.alias_step_launch(
         cur.data_ptr(), indptr.data_ptr(), indices.data_ptr(), prob.data_ptr(),
-        alias.data_ptr(), None if packed is None else packed.data_ptr(), out.data_ptr(), w, ladder,
+        alias.data_ptr(), out.data_ptr(), w, ladder,
         _key_words(fold_in(key, 0), fold_in(key, 1)), _build.stream_handle(cur),
     )
     _build.check(lib, code, "alias_step")

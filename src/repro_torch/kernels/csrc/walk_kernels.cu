@@ -198,21 +198,23 @@ __global__ void reject_step_kernel(const int* __restrict__ cur,
 // cohort planned as alias (the tail included).  One thread per walker over
 // the whole batch: it reads its vertex and row offsets, hashes its bucket
 // uniform (counter i under bucket_key) while that gather is in flight, finds
-// its cohort, and draws: slot and coin from one uniform, one table read at
-// start + slot, one id read.  A tail walker (the row uncapped) hashes again
-// under tail_key; they are a few thousand of a million walkers.
-// Bound by bytes: the walker's vertex, two row offsets, the table entry and
-// the id, each a random 32-byte sector for a 4-byte word, with the hash's
-// 75 integer operations beside them.  kPacked reads the entry as one 8-byte
-// word of a (E, 2) table holding prob's bits and alias side by side (one
-// sector where prob[pos] and alias[pos] are two).  Writes only the walkers
-// it serves: -1 for a zero-total row (alias < 0).
-template <bool kPacked>
+// its cohort, and draws: slot and coin from one uniform, the prob and alias
+// words at start + slot, one id.  A tail walker (the row uncapped) hashes
+// again under tail_key; they are a few thousand of a million walkers.
+// Bound by bytes: the walker's vertex, two row offsets, two table words and
+// the id, with the hash's 75 integer operations beside them.  Once walkers
+// sit at scattered vertices each read is its own 32-byte sector, four a
+// walker against about 22 bytes of distinct words, and those sectors set
+// the pace.  An (E, 2) table of prob bits and alias, one sector where the
+// two arrays are two, is not kept: on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py) it took 30 % off a walk's last step but 10 % off its
+// first, where neighbouring walkers read neighbouring rows, and it had to
+// save 15 % at both to pay for its memory and second path.  Writes only
+// the walkers it serves: -1 for a zero-total row (alias < 0).
 __global__ void alias_step_kernel(const int* __restrict__ cur, const int* __restrict__ indptr,
                                   const int* __restrict__ indices,
                                   const float* __restrict__ prob,
-                                  const int* __restrict__ alias,
-                                  const int2* __restrict__ packed, int* __restrict__ out, int w,
+                                  const int* __restrict__ alias, int* __restrict__ out, int w,
                                   Ladder L, Key bucket_key, Key tail_key) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= w) return;
@@ -233,16 +235,8 @@ __global__ void alias_step_kernel(const int* __restrict__ cur, const int* __rest
   const int slot = min((int)u, hi);
   const float frac = __fsub_rn(u, (float)slot);
   const int pos = start + slot;
-  float p;
-  int a;
-  if (kPacked) {
-    const int2 e = __ldg(packed + pos);
-    p = __int_as_float(e.x);
-    a = e.y;
-  } else {
-    p = __ldg(prob + pos);
-    a = __ldg(alias + pos);
-  }
+  const float p = __ldg(prob + pos);
+  const int a = __ldg(alias + pos);
   if (a < 0) {  // zero-total row
     out[i] = -1;
     return;
@@ -938,21 +932,13 @@ int reject_step_launch(const void* cur, const void* indptr, const void* indices,
 }
 
 int alias_step_launch(const void* cur, const void* indptr, const void* indices,
-                      const void* prob, const void* alias, const void* packed, void* out, int w,
-                      const int* ladder, const unsigned* key_words, void* stream) {
+                      const void* prob, const void* alias, void* out, int w, const int* ladder,
+                      const unsigned* key_words, void* stream) {
   if (w > 0) {
-    const int blocks = (w + kThreads - 1) / kThreads;
-    const Ladder L = make_ladder(ladder);
-    const Key bucket_key{key_words[0], key_words[1]}, tail_key{key_words[2], key_words[3]};
-    if (packed != nullptr) {
-      alias_step_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-          (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)prob,
-          (const int*)alias, (const int2*)packed, (int*)out, w, L, bucket_key, tail_key);
-    } else {
-      alias_step_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-          (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)prob,
-          (const int*)alias, (const int2*)packed, (int*)out, w, L, bucket_key, tail_key);
-    }
+    alias_step_kernel<<<(w + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)prob,
+        (const int*)alias, (int*)out, w, make_ladder(ladder), Key{key_words[0], key_words[1]},
+        Key{key_words[2], key_words[3]});
   }
   return (int)cudaGetLastError();
 }

@@ -72,18 +72,13 @@ LADDERS = [((128,), True), ((128,), False), ((128, 512), True), ((128, 512), Fal
 LADDER_IDS = ["128+tail", "128", "128,512+tail", "128,512", "4-rungs+tail", "256"]
 
 
-def _step(fn, c, key, ladder, tail, method, out=None, **kw):
+def _step(fn, c, key, ladder, tail, method, out=None):
     if fn is kernels.alias_step:
         tables = (c["prob"], c["alias"])
     else:
         tables = (c["bias"], *((c["row_max_v"],) if fn is kernels.reject_step else ()))
     return fn(key, c["indptr"], c["indices"], *tables, c["cur"], buckets=ladder,
-              use_chunked=tail, methods=(method,) * (len(ladder) + tail), out=out, **kw)
-
-
-def _packed(c):
-    """The (E, 2) table ``core.methods`` builds for ``alias_step``."""
-    return torch.stack([c["prob"].view(torch.int32), c["alias"]], dim=1)
+              use_chunked=tail, methods=(method,) * (len(ladder) + tail), out=out)
 
 
 STEP_KERNELS = [(kernels.reject_step, "rejection"), (kernels.walk_step, "its"),
@@ -144,8 +139,7 @@ def test_step_kernels_match_plain_versions(cuda_device, ladder, tail, w):
 @pytest.mark.parametrize("w", [4099, 1237, 31])
 def test_alias_step_matches_plain_version(cuda_device, ladder, tail, w):
     """``alias_step`` over every ladder, with and without a tail, at W not
-    a multiple of 32, reading ``prob``/``alias`` and reading the packed
-    table: one launch each, every served walker equal to
+    a multiple of 32: one launch, every served walker equal to
     ``ref.alias_step_ref``, every other entry of ``out`` left as it was."""
     cpu = _case(len(ladder) + 10 * tail + w + 1, w=w)
     gpu = {k: v.to(cuda_device) for k, v in cpu.items()}
@@ -153,14 +147,12 @@ def test_alias_step_matches_plain_version(cuda_device, ladder, tail, w):
     plan = dict(buckets=ladder, use_chunked=tail, methods=("alias",) * (len(ladder) + tail))
     want = ref.alias_step_ref(key, cpu["indptr"], cpu["indices"], cpu["prob"], cpu["alias"],
                               cpu["cur"], out=torch.full((w,), -5, dtype=torch.int32), **plan)
-    for packed in (None, _packed(gpu)):
-        kernels.reset_launch_counts()
-        got = _step(kernels.alias_step, gpu, key, ladder, tail, "alias", packed=packed,
-                    out=torch.full((w,), -5, dtype=torch.int32, device=cuda_device))
-        torch.cuda.synchronize()
-        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(),
-                                      err_msg=f"packed={packed is not None}")
-        assert kernels.launch_counts()["alias_step"] == 1
+    kernels.reset_launch_counts()
+    got = _step(kernels.alias_step, gpu, key, ladder, tail, "alias",
+                out=torch.full((w,), -5, dtype=torch.int32, device=cuda_device))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert kernels.launch_counts()["alias_step"] == 1
     assert (want == -5).any()  # finished walkers and degree 0
     if w > 1000:
         assert (want >= 0).any() and (want == -1).any()
@@ -171,24 +163,19 @@ def test_alias_step_matches_plain_version(cuda_device, ladder, tail, w):
 def test_alias_step_on_finished_empty_and_dead_rows(cuda_device, tail):
     """Finished walkers (``cur = -1``) and walkers on degree-0 vertices
     belong to no cohort and keep ``out``; walkers on the zero-total row
-    (``alias = -1``) are served and give -1; the packed table holds
-    ``prob``'s bits and ``alias`` as they are."""
+    (``alias = -1``) are served and give -1."""
     w = 2053
     cpu = _case(31 + tail, w=w)
     pattern = torch.tensor([-1, 0, 5, 7, 3, 9, 21], dtype=torch.int32)  # 0, 5: degree 0; 7: dead
     cpu["cur"] = pattern.repeat(w // pattern.numel() + 1)[:w].contiguous()
     gpu = {k: v.to(cuda_device) for k, v in cpu.items()}
-    packed = _packed(gpu)
-    assert torch.equal(packed[:, 0].cpu(), cpu["prob"].view(torch.int32))
-    assert torch.equal(packed[:, 1].cpu(), cpu["alias"])
     ladder = (128, 512)
     want = _step(kernels.alias_step, cpu, PRNGKey(6), ladder, tail, "alias",
                  out=torch.full((w,), -5, dtype=torch.int32))
-    for p in (None, packed):
-        got = _step(kernels.alias_step, gpu, PRNGKey(6), ladder, tail, "alias", packed=p,
-                    out=torch.full((w,), -5, dtype=torch.int32, device=cuda_device))
-        torch.cuda.synchronize()
-        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    got = _step(kernels.alias_step, gpu, PRNGKey(6), ladder, tail, "alias",
+                out=torch.full((w,), -5, dtype=torch.int32, device=cuda_device))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
     cur = cpu["cur"]
     assert (want[(cur == -1) | (cur == 0) | (cur == 5)] == -5).all()
     assert (want[cur == 7] == -1).all()
