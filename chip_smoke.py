@@ -49,7 +49,26 @@ comes out.  One walk per vertex, depth 40 (DeepWalk's walk length):
    an MH stay, a jump to a valid vertex, a restart to the walk's seed);
 9. the device hash — the kernels' threefry, alone, against ``rng.uniform``
    bit for bit, at the main path's W under its first step's 16 rejection
-   round keys.
+   round keys;
+10. traversal sampling — ``traversal_sample`` on the R-MAT 21 graph at
+   2,000 instances (the paper's count of sampling instances,
+   ``benchmarks/fig09_seps.py``) with ``max_degree`` 102,664, so no row is
+   cut: ``neighbor`` (``biased_neighbor_sampling(2, 8)``, one seed an
+   instance, depth 3, pools of 64, a visited map of every vertex),
+   ``snowball`` (``snowball_sampling(16, 8)``, the same pools, depth 2),
+   ``layer`` (``layer_sampling(8, 8)``, depth 3: pooled rows of 821,376
+   candidates) and ``mdrw`` (pools of 8 seeds, capacity 16, depth 16, as
+   fig09).  Seeds are drawn from the vertices with an edge.  Each path must
+   launch ``its_select`` and its wide kernel; every sampled edge must be a
+   graph edge; 16 instances are rerun whole on the card and on the CPU, and
+   every output (edges, counts, pools, ``iters``, ``searches``) must be
+   equal.  Each path's first launch of each ``its_select`` kernel (the
+   operands recorded during the warm-up, which runs the timed call's first
+   step under the same key) is held against the plain version: the frontier
+   selects under ``traversal`` in the ``its_select`` entry, the neighbor
+   rows in ``its_select_wide`` (times per launch), with rows of P = 4,097
+   at K = 33.  The wide kernel is also timed on the warp kernel's operands
+   (``wide_ms``: the frontier selects, and the opaque path's rows).
 
 Each path runs with the kernels' launch counts set to 0 just before and read
 just after; a kernel its path never launched fails the run, and a flat
@@ -66,7 +85,9 @@ Usage, from the root of a checkout (builds the kernels into build/kernels/):
     python3 chip_smoke.py
 
 Prints a ``paths`` line (SEPS and ms per step per path, timed after a
-one-step warm-up call; a flat path's walk again as ``steady_*``, with the
+one-step warm-up call; a traversal path's SEPS is its sampled edges over
+the call, beside its ``iters``, ``searches``, launches, peak memory and idle
+share; a flat path's walk again as ``steady_*``, with the
 allocator's pool already grown by the first; ``plan_s``, the host's plan
 and table build, which on the alias path is the alias build; the device
 hash check), a ``kernels`` line (per kernel: ms per step, bound,
@@ -77,6 +98,7 @@ printing no result, without a CUDA device or outside a checkout.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import subprocess
 import sys
@@ -112,7 +134,16 @@ SELECT_K, SELECT_ITERS = 8, 32
 TIMING_REPS = 20
 PROFILE_MIN_S = 0.02  # the shortest trace
 PLAIN_CHUNK = 1 << 18  # walkers per plain-version call (bounds its temporaries)
-KERNELS = ("reject_step", "alias_step", "walk_step", "walk_step_window", "its_select")
+#: traversal sampling: the paper's count of sampling instances
+#: (benchmarks/fig09_seps.py), the instances rerun on the CPU, the retry
+#: budget of a selection, MDRW's pools (fig09: 8 seeds, capacity 16, depth 16)
+TRAVERSAL_INSTANCES = 2000
+TRAVERSAL_CHECK = 16
+SELECT_BUDGET = 32
+MDRW_SEEDS, MDRW_CAPACITY, MDRW_DEPTH = 8, 16, 16
+POOL_CAPACITY = 64
+KERNELS = ("reject_step", "alias_step", "walk_step", "walk_step_window", "its_select",
+           "its_select_wide")
 
 
 def _fail(msg: str) -> int:
@@ -134,18 +165,23 @@ class Smoke:
         import torch
 
         from repro_torch import kernels
-        from repro_torch.core import algorithms, backend, engine, methods, rng, transition
+        from repro_torch.core import algorithms, backend, engine, methods, rng, select, transition
         from repro_torch.graph import generators
         from repro_torch.kernels import _build, ref, threefry
 
         self.torch, self.kernels, self.alg = torch, kernels, algorithms
         self.bk, self.eng, self.mt, self.rng, self.tp = backend, engine, methods, rng, transition
+        self.sel = select
+        self.its_mod = importlib.import_module("repro_torch.kernels.its_select")
         self.gen, self.build, self.ref, self.threefry = generators, _build, ref, threefry
         self.dev = torch.device("cuda")
         self.key = rng.PRNGKey(SEED)
         self.paths: list[dict] = []
         self.kernel_rows: dict[str, dict] = {}
         self.hash_row: dict = {}
+        self.wide_entries: dict[str, dict] = {}
+        self.narrow_entries: dict[str, dict] = {}
+        self.traversal_launches: dict[str, dict] = {}
         self._cpu_graphs: dict = {}
         self.sm_clock_mhz = _max_sm_clock_mhz()
         sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -205,15 +241,10 @@ class Smoke:
         alive = walks >= 0
         _require(not (alive[:, 1:] & ~alive[:, :-1]).any(), "a walker came back to life")
         v = g.num_vertices
-        deg = (g.indptr[1:] - g.indptr[:-1]).long()
-        row = torch.repeat_interleave(torch.arange(v, device=self.dev), deg)
-        edge_key = row * v + g.indices.long()  # ascending: rows are sorted
         a, b = walks[:, :-1].reshape(-1).long(), walks[:, 1:].reshape(-1).long()
         hop = b >= 0
         a, b = a[hop], b[hop]
-        q = a * v + b
-        pos = torch.searchsorted(edge_key, q).clamp(max=edge_key.shape[0] - 1)
-        is_edge = edge_key[pos] == q
+        is_edge = self.is_edge(g, a, b)
         ok = is_edge
         if hop_rule == "stay":
             ok = ok | (b == a)
@@ -226,6 +257,17 @@ class Smoke:
         _require(bad == 0, f"{bad} hops are neither edges nor allowed by the epilogue")
         _require(int(res.sampled_edges) == int(hop.sum()), "sampled_edges disagrees with the walks")
         return int(hop.sum()), int((~is_edge).sum())
+
+    def is_edge(self, g, a, b):
+        """Whether each ``(a, b)`` (vertex ids >= 0) is an edge of ``g``."""
+        torch = self.torch
+        v = g.num_vertices
+        deg = (g.indptr[1:] - g.indptr[:-1]).long()
+        row = torch.repeat_interleave(torch.arange(v, device=g.device), deg)
+        edge_key = row * v + g.indices.long()  # ascending: rows are sorted
+        q = a * v + b
+        pos = torch.searchsorted(edge_key, q).clamp(max=edge_key.shape[0] - 1)
+        return edge_key[pos] == q
 
     # -- one path ----------------------------------------------------------
 
@@ -316,13 +358,17 @@ class Smoke:
                 entries = flat(seeds, 0)
                 later = flat(last[:, 1].contiguous(), depth - 1)
             self.kernel_row(kernel_name, name, entries)
+            if kernel_name == "its_select":  # the wide kernel on the same rows
+                self.kernel_rows[kernel_name]["wide_ms"] = sum(e["wide_ms"] for e in entries)
+                self.kernel_rows[kernel_name]["traversal"] = self.narrow_entries
             if later is not None:
                 ms, bound = sum(e["ms"] for e in later), sum(e["bound_ms"] for e in later)
                 self.kernel_rows[kernel_name]["later_step"] = dict(
                     step=depth - 1, ms=ms, bound_ms=bound, x_bound=ms / bound, cohorts=later)
             row["kernel_ms_per_step"] = self.kernel_rows[kernel_name]["ms"]
         del last
-        row.update(self.profile(name, g, seeds, walk))
+        row.update(self.profile(
+            name, lambda: self.eng.random_walk(g, seeds, self.key, **dict(walk, depth=2))))
         return row
 
     def rng_ms(self, g, methods, buckets):
@@ -601,6 +647,7 @@ class Smoke:
                 self.chunked(lambda s, biases=biases, rr=rr: ref.its_select_ref(biases[s], rr[s]), n),
                 lambda want, n=n, p=p: self.select_work(n, p, 1, want[1]),
                 walkers=n, width=p, **k8))
+            entries[-1].update(self.time_wide(path, biases, rr))
             del biases, r8
         return entries
 
@@ -616,7 +663,7 @@ class Smoke:
         nops = n * p + 2 * searches * max(1, (p - 1).bit_length())
         return nbytes, nops, 0
 
-    def kernel_row(self, kernel_name, path, entries):
+    def kernel_row(self, kernel_name, path, entries, launches=None):
         K = self.kernels
         total = lambda k: sum(e[k] for e in entries)  # noqa: E731
         by_bytes = sum(e["bytes"] for e in entries) / HBM_BYTES_PER_S
@@ -627,11 +674,12 @@ class Smoke:
             "walk_step": "src/repro/kernels/walk_step.py:158",
             "walk_step_window": "src/repro/kernels/walk_step.py:211",
             "its_select": "src/repro/kernels/its_select.py:113",
+            "its_select_wide": "src/repro/kernels/its_select.py:113",
         }
         self.kernel_rows[kernel_name] = dict(
             name=kernel_name, route="cuda", source="src/repro_torch/kernels/csrc/walk_kernels.cu",
             replaces=src[kernel_name], path=path,
-            launches=self.paths[-1]["launches"][kernel_name],
+            launches=self.paths[-1]["launches"][kernel_name] if launches is None else launches,
             launches_per_step=len(entries), mismatches=total("mismatches"),
             max_abs_err=max(e["max_abs_err"] for e in entries),
             ms=total("ms"), loop_ms=total("loop_ms"),
@@ -642,8 +690,196 @@ class Smoke:
             cohorts=entries,
         )
         # comparison launches are not the main path's: only the path's count stays
-        for fn in K.KERNEL_WRAPPERS:
-            fn.launches = 0
+        K.reset_launch_counts()
+
+    # -- traversal sampling ---------------------------------------------------
+
+    def traversal_paths(self, g, gen_s):
+        """Phase 10: the frontier-pool algorithms on the walk paths' graph,
+        at ``TRAVERSAL_INSTANCES`` instances, seeds drawn from the vertices
+        with at least one edge.  Every neighbor selection reads the whole
+        row of a frontier vertex, ``max_degree`` wide, so none is cut."""
+        alg = self.alg
+        rng = np.random.default_rng(SEED)
+        deg = (g.indptr[1:] - g.indptr[:-1]).cpu().numpy()
+        live = np.nonzero(deg > 0)[0]
+        one = rng.choice(live, (TRAVERSAL_INSTANCES, 1)).astype(np.int32)
+        pools = rng.choice(live, (TRAVERSAL_INSTANCES, MDRW_SEEDS)).astype(np.int32)
+        v = g.num_vertices
+        for name, spec, seeds, depth, cap, mv in [
+            ("neighbor", alg.biased_neighbor_sampling(2, 8), one, 3, POOL_CAPACITY, v),
+            ("snowball", alg.snowball_sampling(16, 8), one, 2, POOL_CAPACITY, v),
+            ("layer", alg.layer_sampling(8, 8), one, 3, POOL_CAPACITY, v),
+            ("mdrw", alg.multi_dimensional_random_walk(), pools, MDRW_DEPTH, MDRW_CAPACITY, 0),
+        ]:
+            self.run_traversal(name, g, spec, seeds, depth, cap, mv, gen_s)
+        self.wide_entries["check"] = self.measure_wide_check()
+        wide = [self.wide_entries[k] for k in ("layer", "snowball", "neighbor", "mdrw", "check")]
+        layer = self.traversal_launches["layer"]
+        self.kernel_row("its_select_wide", "layer", wide, launches=layer["launches"])
+        row = self.kernel_rows["its_select_wide"]
+        row["launches_by_path"] = {k: v["launches"] for k, v in self.traversal_launches.items()}
+        row["launches_per_step"] = layer["launches"] / layer["depth"]
+        # the row's times are the layer path's first launch (one block of rows)
+        for key in ("ms", "loop_ms", "plain_ms", "bound_ms"):
+            row[key] = wide[0][key]
+        row["x_bound"] = row["ms"] / row["bound_ms"]
+        row["bound_by"] = wide[0]["bound_by"]
+
+    def run_traversal(self, name, g, spec, seeds, depth, capacity, max_vertices, gen_s):
+        torch, eng, K = self.torch, self.eng, self.kernels
+        md = g.max_degree()
+        fs, ns = spec.frontier_size, spec.neighbor_size
+        kw = dict(spec=spec, max_degree=md, pool_capacity=capacity, max_vertices=max_vertices)
+        pools = torch.from_numpy(seeds).to(self.dev)
+        width = fs * md if not spec.per_vertex else md
+        _log(f"[{name}] V={g.num_vertices} instances={seeds.shape[0]} seeds={seeds.shape[1]} "
+             f"fs={fs} ns={ns} depth={depth} select_width={width}")
+        # warm-up: the timed call's first step under the same key, which
+        # records the operands of its first launch of each its_select kernel
+        first = self.first_selects(lambda: eng.traversal_sample(
+            g, pools, self.key, depth=1, device=self.dev, **kw))
+        self.sync()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = eng.traversal_sample(g, pools, self.key, depth=depth, device=self.dev, **kw)
+        self.sync()
+        seconds = time.perf_counter() - t0
+        launches = K.launch_counts()
+        wide = K.its_select.wide_launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        _require(launches["its_select"] > 0 and wide > 0,
+                 f"{name}: its_select launched {launches['its_select']} times, {wide} wide")
+        self.traversal_launches[name] = dict(launches=wide, depth=depth)
+        edges = self.check_samples(g, res, seeds, spec.track_visited and max_vertices > 0,
+                                   spec.per_vertex, name)
+        row = dict(
+            path=name, spec=spec.name, instances=seeds.shape[0], seeds=seeds.shape[1],
+            depth=depth, pool_capacity=capacity, max_vertices=max_vertices, frontier_size=fs,
+            neighbor_size=ns, max_degree=md, select_width=-(-width // self.bk.LANES) * self.bk.LANES,
+            sampled_edges=edges, seconds=seconds, seps=edges / seconds,
+            ms_per_step=1e3 * seconds / depth, iters=int(res.iters), searches=int(res.searches),
+            launches=launches, its_select_wide_launches=wide, peak_gib=peak_gib, graph_s=gen_s,
+        )
+        _log(f"[{name}] {json.dumps(row)}")
+
+        # cross-check: the first instances again, whole, on the card and on
+        # the CPU; an instance's draws do not depend on the batch, so they
+        # are also the full run's first instances
+        n = TRAVERSAL_CHECK
+        t0 = time.perf_counter()
+        small = eng.traversal_sample(g, pools[:n], self.key, depth=depth, device=self.dev, **kw)
+        cpu = eng.traversal_sample(self.cpu_graph(g), seeds[:n], self.key, depth=depth,
+                                   device="cpu", **kw)
+        for field, a, b in zip(cpu._fields, cpu, small):
+            _require(torch.equal(a, b.cpu()), f"{name}: card {field} differs from the CPU's")
+        for field in ("edges_src", "edges_dst", "num_edges", "frontier_pool"):
+            _require(torch.equal(getattr(res, field)[:n].cpu(), getattr(cpu, field)),
+                     f"{name}: the full run's first {n} instances differ in {field}")
+        row["cpu_check_instances"] = n
+        row["cpu_check_s"] = time.perf_counter() - t0
+        self.paths.append(row)
+        del res, small, cpu
+        _require(set(first) == {"narrow", "wide"},
+                 f"{name}: the first step launched only {sorted(first)} its_select kernels")
+        biases, rands = first["narrow"]
+        self.narrow_entries[name] = self.measure_first_select(name, "its_select", biases, rands,
+                                                              with_wide=True)
+        biases, rands = first["wide"]
+        self.wide_entries[name] = self.measure_first_select(name, "its_select_wide", biases, rands)
+        del first, biases, rands
+        row.update(self.profile(name, lambda: eng.traversal_sample(
+            g, pools, self.key, depth=2, device=self.dev, **kw)))
+        return row
+
+    def check_samples(self, g, res, seeds, tracked, per_vertex, name):
+        """Every sampled edge is a graph edge out of a sampled vertex and the
+        counts match the edges; with the visited map no instance samples
+        its seed, and with per-vertex pools no vertex twice (a pooled row
+        may hold one neighbor of two frontier vertices, and the reference
+        may take both edges).  Returns the sampled edges."""
+        torch = self.torch
+        src, dst = res.edges_src.long(), res.edges_dst.long()
+        hop = dst >= 0
+        _require(bool((src[hop] >= 0).all()), f"{name}: a sampled edge without a source")
+        bad = int((~self.is_edge(g, src[hop], dst[hop])).sum())
+        _require(bad == 0, f"{name}: {bad} sampled edges are not graph edges")
+        _require(torch.equal(res.num_edges.long(), hop.sum(dim=1)), f"{name}: num_edges")
+        if tracked and per_vertex:
+            d = torch.sort(torch.where(hop, dst, -1 - torch.arange(dst.shape[1], device=dst.device)),
+                           dim=1).values
+            _require(not bool((d[:, 1:] == d[:, :-1]).any()), f"{name}: a vertex sampled twice")
+        if tracked:
+            home = torch.from_numpy(seeds).to(dst.device).long()
+            _require(not bool((dst[:, :, None] == home[:, None, :]).any()),
+                     f"{name}: an instance sampled its own seed")
+        return int(hop.sum())
+
+    def first_selects(self, call):
+        """Run ``call`` with the engine's ``its_select`` calls observed, and
+        return the operands ``(biases, rands)`` of the first call that went
+        to each kernel, keyed ``narrow`` (the warp kernel) and ``wide``."""
+        bk, its = self.bk, self.its_mod
+        first = {}
+
+        def observed(biases, rands):
+            narrow = rands.shape[2] <= its.MAX_K and biases.shape[1] <= its.MAX_P
+            first.setdefault("narrow" if narrow else "wide", (biases, rands))
+            return its.its_select(biases, rands)
+
+        bk.its_select = observed
+        try:
+            call()
+        finally:
+            bk.its_select = its.its_select
+        return first
+
+    def measure_first_select(self, path, kernel_name, biases, rands, with_wide=False):
+        """``its_select`` on the operands of one of the path's launches,
+        against its plain version.  ``with_wide`` also runs the wide kernel
+        on the warp kernel's operands, which must agree, and times it
+        (``wide_ms``, ``wide_loop_ms``)."""
+        K, ref = self.kernels, self.ref
+        n, p = biases.shape
+        k = rands.shape[2]
+        entry = self.compare(
+            path, kernel_name, f"step=0 first launch P={p} K={k}",
+            lambda: K.its_select(biases, rands),
+            self.chunked(lambda s: ref.its_select_ref(biases[s], rands[s]), n),
+            lambda want: self.select_work(n, p, k, want[1]), rows=n, width=p, k=k)
+        if with_wide:
+            entry.update(self.time_wide(path, biases, rands))
+        return entry
+
+    def time_wide(self, path, biases, rands):
+        """The wide kernel launched on operands the shape gives the warp
+        kernel: its result must equal the plain version's; its device and
+        loop times."""
+        torch, ref = self.torch, self.ref
+        launch = lambda: self.its_mod._launch(biases, rands, wide=True)  # noqa: E731
+        got = launch()
+        want = self.chunked(lambda s: ref.its_select_ref(biases[s], rands[s]), biases.shape[0])()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        _require(same, f"{path}: the wide its_select kernel differs from the plain version")
+        loop_ms = self.loop_ms(launch, TIMING_REPS)
+        return dict(wide_ms=self.device_ms(launch, TIMING_REPS, loop_ms), wide_loop_ms=loop_ms)
+
+    def measure_wide_check(self):
+        """The wide kernel just past the warp kernel's shapes (P = 4,097,
+        K = 33) on rows of few candidates (dense collisions), against its
+        plain version."""
+        torch, K = self.torch, self.kernels
+        n, p, k = TRAVERSAL_INSTANCES, 4097, 33
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(SEED)
+        biases = torch.rand((n, p), generator=gen, device=self.dev)
+        biases = torch.where(torch.rand((n, p), generator=gen, device=self.dev) < 0.02, biases, 0.0)
+        rands = torch.rand((n, SELECT_BUDGET, k), generator=gen, device=self.dev)
+        return self.compare(
+            "check", "its_select_wide", f"P={p} K={k}", lambda: K.its_select(biases, rands),
+            self.chunked(lambda s: self.ref.its_select_ref(biases[s], rands[s]), n),
+            lambda want: self.select_work(n, p, k, want[1]), rows=n, width=p, k=k)
 
     # -- the device hash ------------------------------------------------------
 
@@ -673,10 +909,10 @@ class Smoke:
 
     # -- profile ------------------------------------------------------------
 
-    def profile(self, name, g, seeds, walk) -> dict:
-        """Trace two-step walks, again until the trace spans
-        ``PROFILE_MIN_S`` (a fast path's two steps alone take a fraction of
-        a millisecond); device time from the card's own events."""
+    def profile(self, name, call) -> dict:
+        """Trace ``call`` (a path's run at depth 2), again until the trace
+        spans ``PROFILE_MIN_S`` (a fast path's two steps alone take a
+        fraction of a millisecond); device time from the card's own events."""
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
@@ -685,7 +921,7 @@ class Smoke:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             while not walks or time.perf_counter() - t0 < PROFILE_MIN_S:
-                self.eng.random_walk(g, seeds, self.key, **dict(walk, depth=2))
+                call()
                 self.sync()
                 walks += 1
             wall = time.perf_counter() - t0
@@ -736,6 +972,7 @@ class Smoke:
         ]:
             self.run_path(name, g, spec, "reject_step", gen_s, expect_plan=rejection,
                           depth=EPILOGUE_DEPTH, hop_rule=rule)
+        self.traversal_paths(g, gen_s)
         del g
         self._cpu_graphs.clear()
         self.mt.clear_plan_cache()

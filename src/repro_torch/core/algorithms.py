@@ -1,7 +1,8 @@
-"""Algorithm zoo, random walks (paper Table I).
+"""Algorithm zoo (paper Table I): random walks and traversal sampling.
 
-Each constructor returns a :class:`SamplingSpec` with the hooks of
-``repro.core.algorithms`` and the same declared transition program.
+Each constructor returns a :class:`SamplingSpec` with the hooks and knobs
+of ``repro.core.algorithms`` and, for the walks, the same declared
+transition program.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ from repro_torch.core.api import (
     EdgeCtx,
     SamplingSpec,
     degree_edge_bias,
+    degree_vertex_bias,
+    identity_update,
     uniform_edge_bias,
     weight_edge_bias,
 )
@@ -49,6 +52,7 @@ def deepwalk() -> SamplingSpec:
         flat_edge_bias=_flat_uniform,
         transition=TransitionProgram(bias=FlatBias(_flat_uniform)),
         name="deepwalk",
+        track_visited=False,
     )
 
 
@@ -59,6 +63,7 @@ def biased_random_walk() -> SamplingSpec:
         flat_edge_bias=_flat_degree,
         transition=TransitionProgram(bias=FlatBias(_flat_degree)),
         name="biased_rw",
+        track_visited=False,
     )
 
 
@@ -69,6 +74,7 @@ def weighted_random_walk() -> SamplingSpec:
         flat_edge_bias=_flat_weight,
         transition=TransitionProgram(bias=FlatBias(_flat_weight)),
         name="weighted_rw",
+        track_visited=False,
     )
 
 
@@ -98,6 +104,7 @@ def node2vec(p: float = 2.0, q: float = 0.5) -> SamplingSpec:
             )
         ),
         name="node2vec",
+        track_visited=False,
     )
 
 
@@ -114,6 +121,7 @@ def metropolis_hastings_walk() -> SamplingSpec:
         update=update,
         transition=TransitionProgram(bias=FlatBias(_flat_uniform), epilogue=MHAcceptEpilogue()),
         name="mhrw",
+        track_visited=False,
     )
 
 
@@ -135,6 +143,7 @@ def random_walk_with_jump(jump_prob: float, num_vertices: int) -> SamplingSpec:
             epilogue=TeleportEpilogue(jump_prob, "uniform", num_vertices=num_vertices),
         ),
         name="rw_jump",
+        track_visited=False,
     )
 
 
@@ -163,11 +172,88 @@ def random_walk_with_restart(restart_prob: float, home: int | None = None) -> Sa
         update=update,
         transition=TransitionProgram(bias=FlatBias(_flat_uniform), epilogue=epilogue),
         name="rw_restart",
+        track_visited=False,
     )
 
 
-#: the walk specs by name (``repro.core.algorithms.ALGORITHMS``'s walks;
-#: jump and restart take arguments)
+# ---------------------------------------------------------------------------
+# Traversal-based sampling (frontier pools)
+# ---------------------------------------------------------------------------
+
+
+def unbiased_neighbor_sampling(neighbor_size: int = 2, frontier_size: int = 8) -> SamplingSpec:
+    return SamplingSpec(
+        edge_bias=uniform_edge_bias,
+        frontier_size=frontier_size,
+        neighbor_size=neighbor_size,
+        per_vertex=True,
+        name="neighbor_unbiased",
+    )
+
+
+def biased_neighbor_sampling(neighbor_size: int = 2, frontier_size: int = 8) -> SamplingSpec:
+    """Constant NeighborSize per vertex, edge-weight bias."""
+    return SamplingSpec(
+        edge_bias=weight_edge_bias,
+        frontier_size=frontier_size,
+        neighbor_size=neighbor_size,
+        per_vertex=True,
+        name="neighbor_biased",
+    )
+
+
+def forest_fire_sampling(p_f: float = 0.7, max_burn: int = 8, frontier_size: int = 8) -> SamplingSpec:
+    """Probabilistic neighbor sampling: geometric(p_f) burn count per vertex."""
+    return SamplingSpec(
+        edge_bias=uniform_edge_bias,
+        frontier_size=frontier_size,
+        neighbor_size=max_burn,
+        per_vertex=True,
+        burn_prob=p_f,
+        name="forest_fire",
+    )
+
+
+def layer_sampling(neighbor_size: int = 8, frontier_size: int = 8) -> SamplingSpec:
+    """Constant NeighborSize per *layer* over the pooled frontier neighbors."""
+    return SamplingSpec(
+        edge_bias=weight_edge_bias,
+        frontier_size=frontier_size,
+        neighbor_size=neighbor_size,
+        per_vertex=False,
+        name="layer",
+    )
+
+
+def snowball_sampling(max_degree_keep: int = 16, frontier_size: int = 8) -> SamplingSpec:
+    """Add (up to a cap of) all neighbors of every sampled vertex."""
+    return SamplingSpec(
+        edge_bias=uniform_edge_bias,
+        frontier_size=frontier_size,
+        neighbor_size=max_degree_keep,
+        per_vertex=True,
+        name="snowball",
+    )
+
+
+def multi_dimensional_random_walk(frontier_size: int = 1) -> SamplingSpec:
+    """MDRW / frontier sampling (paper Figs. 3(b), 4): degree-biased frontier
+    selection, uniform neighbor choice, selected vertex replaced in the pool."""
+    return SamplingSpec(
+        vertex_bias=degree_vertex_bias,
+        edge_bias=uniform_edge_bias,
+        update=identity_update,
+        frontier_size=frontier_size,
+        neighbor_size=1,
+        per_vertex=False,
+        replace_selected=True,
+        track_visited=False,
+        name="mdrw",
+    )
+
+
+#: the specs by name: ``repro.core.algorithms.ALGORITHMS``, and the walks
+#: with jump and restart (which take arguments)
 ALGORITHMS = {
     "deepwalk": deepwalk,
     "biased_rw": biased_random_walk,
@@ -176,4 +262,10 @@ ALGORITHMS = {
     "mhrw": metropolis_hastings_walk,
     "rw_jump": random_walk_with_jump,
     "rw_restart": random_walk_with_restart,
+    "neighbor_unbiased": unbiased_neighbor_sampling,
+    "neighbor_biased": biased_neighbor_sampling,
+    "forest_fire": forest_fire_sampling,
+    "layer": layer_sampling,
+    "snowball": snowball_sampling,
+    "mdrw": multi_dimensional_random_walk,
 }

@@ -12,7 +12,10 @@ bucket take a tail (the workload-aware scheduling of the paper, as
   evaluated on each cohort's compact row windows, the pick runs the
   ``walk_step_window`` kernel, and the tail is the chunked window scan.
 - :func:`select_with_replacement` — the opaque path's ITS draw over dense
-  candidate rows, through the ``its_select`` kernel.
+  candidate rows, through the ``its_select`` kernel;
+- :func:`select_without_replacement` — traversal sampling's K-of-P
+  selection: ``its_brs`` through the ``its_select`` kernel with the
+  counted retry budget, the other methods in plain PyTorch.
 
 The device of the tensors decides what runs: on the card every cohort
 launches its CUDA kernel, on the CPU the kernels' plain versions run.
@@ -46,9 +49,7 @@ def pad_lanes(biases: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(biases, (0, pad)) if pad else biases
 
 
-def _masked(biases: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
-    b = torch.clamp(biases.to(torch.float32), min=0.0)
-    return b if mask is None else torch.where(mask, b, 0.0)
+_masked = sel._masked
 
 
 def select_with_replacement(
@@ -77,6 +78,43 @@ def select_with_replacement(
         rand = uniform(key, (biases.shape[0], 1, 1), device=biases.device)
     idx, _ = its_select(pad_lanes(_masked(biases, mask)).contiguous(), rand.contiguous())
     return torch.where(idx >= 0, idx, p - 1)
+
+
+def select_without_replacement(
+    key,
+    biases: torch.Tensor,
+    mask: torch.Tensor | None,
+    k: int,
+    *,
+    method: str = "its_brs",
+    max_iters: int = 32,
+    offset: int = 0,
+) -> sel.SelectResult:
+    """K-of-P selection without replacement over ``(..., P)`` rows, as
+    ``repro.core.backend.select_without_replacement`` runs it on the Pallas
+    backend.
+
+    ``its_brs`` runs the ``its_select`` kernel over the rows padded to a
+    lane multiple with zeros, with the counted retry budget
+    ``retry_randoms(key, batch, max_iters, k)``, so indices, validity and
+    the ``(iters, searches)`` counters equal the reference retry loop's.
+    ``gumbel``, ``repeated`` and ``updated`` have no kernel: they run
+    ``select.select_without_replacement`` in plain PyTorch on the rows'
+    device and, on the card, report ``fell_back=True``.  ``offset`` is the
+    first row in the batch the key's draws cover (the engine selects in
+    blocks of rows).
+    """
+    if method != "its_brs":
+        res = sel.select_without_replacement(key, biases, mask, k, method=method,
+                                             max_iters=max_iters, offset=offset)
+        return res._replace(fell_back=biases.device.type == "cuda")
+    b = _masked(biases, mask)
+    batch, p = b.shape[:-1], b.shape[-1]
+    n = int(np.prod(batch))
+    rands = sel.retry_randoms(key, (n,), max_iters, k, device=b.device, offset=offset)
+    idx, stats = its_select(pad_lanes(b.reshape(n, p)).contiguous(), rands)
+    return sel.SelectResult(idx.reshape(*batch, k), (idx >= 0).reshape(*batch, k),
+                            stats[:, 0].reshape(batch), stats[:, 1].reshape(batch))
 
 
 def walk_bucket_plan(

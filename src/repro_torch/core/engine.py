@@ -1,4 +1,5 @@
-"""C-SAW random-walk engine (paper Fig. 2(b) MAIN loop).
+"""C-SAW sampling engines (paper Fig. 2(b) MAIN loop): random walks and
+traversal sampling.
 
 ``random_walk`` runs one step per loop iteration for all instances at once
 (the paper's inter-warp parallelism is the walker dimension).  The spec is
@@ -14,8 +15,14 @@ lowered to its transition program and each step dispatches on its mode, as
   ``edge_bias`` hook, and the ITS draw by the ``its_select`` kernel.
 
 Then the lowered epilogue (identity, MH, teleport, or the ``update`` hook).
+
+``traversal_sample`` runs the frontier-pool algorithms (neighbor, forest
+fire, snowball, layer, MDRW): each step selects a frontier from every
+instance's pool and neighbors from its dense context, K of P without
+replacement through the ``its_select`` kernel, then updates the pools.
+
 CUDA kernels run on the card, their plain versions on the CPU, with the
-reference's counted RNG, so the walks equal ``repro``'s bit for bit.
+reference's counted RNG, so walks and samples equal ``repro``'s bit for bit.
 """
 from __future__ import annotations
 
@@ -25,8 +32,9 @@ import torch
 
 from repro_torch.core import backend as bk
 from repro_torch.core import methods as mt
+from repro_torch.core import select as sel
 from repro_torch.core import transition as tp
-from repro_torch.core.api import EdgeCtx, SamplingSpec
+from repro_torch.core.api import EdgeCtx, SamplingSpec, VertexCtx
 from repro_torch.core.rng import fold_in, key_from_array, uniform
 from repro_torch.graph.csr import CSRGraph, neighbors_padded, resolve_device
 
@@ -47,24 +55,28 @@ def _degree(graph: CSRGraph, v: torch.Tensor) -> torch.Tensor:
 
 
 def _edge_ctx(graph: CSRGraph, v, prev, depth, max_degree, needs_prev_neighbors):
-    """The dense EDGEBIAS context of a batch of walkers: ``(W, max_degree)``
-    neighbor ids, weights and degrees, and — when asked — membership of
-    each candidate in N(prev) by an O(D²) compare.  Returns ``(ctx, mask)``.
+    """The dense EDGEBIAS context of a batch of vertices ``v`` of any shape
+    (walkers ``(W,)``, traversal frontiers ``(I, fs)``): ``v.shape +
+    (max_degree,)`` neighbor ids, weights and degrees, and — when asked —
+    membership of each candidate in N(prev) by an O(D²) compare.  Built over
+    the flattened batch and reshaped back.  Returns ``(ctx, mask)``.
     """
-    nbrs, wts, mask = neighbors_padded(graph, torch.clamp(v, min=0), max_degree)
-    nbrs = torch.where((v >= 0)[:, None] & mask, nbrs, -1)
+    shape = tuple(v.shape) + (max_degree,)
+    vf, pf = v.reshape(-1), prev.reshape(-1)
+    nbrs, wts, mask = neighbors_padded(graph, torch.clamp(vf, min=0), max_degree)
+    nbrs = torch.where((vf >= 0)[:, None] & mask, nbrs, -1)
     mask = nbrs >= 0
     ipn = None
     if needs_prev_neighbors:
-        pnbrs, _, pmask = neighbors_padded(graph, torch.clamp(prev, min=0), max_degree)
-        pnbrs = torch.where((prev >= 0)[:, None] & pmask & (pnbrs >= 0), pnbrs, -2)
-        ipn = (nbrs[:, :, None] == pnbrs[:, None, :]).any(dim=-1) & mask
+        pnbrs, _, pmask = neighbors_padded(graph, torch.clamp(pf, min=0), max_degree)
+        pnbrs = torch.where((pf >= 0)[:, None] & pmask & (pnbrs >= 0), pnbrs, -2)
+        ipn = ((nbrs[:, :, None] == pnbrs[:, None, :]).any(dim=-1) & mask).reshape(shape)
     ctx = EdgeCtx(
-        v=v, u=nbrs, weight=wts, deg_v=_degree(graph, v),
-        deg_u=torch.where(mask, _degree(graph, nbrs), 0), prev=prev,
+        v=v, u=nbrs.reshape(shape), weight=wts.reshape(shape), deg_v=_degree(graph, v),
+        deg_u=torch.where(mask, _degree(graph, nbrs), 0).reshape(shape), prev=prev,
         is_prev_neighbor=ipn, depth=depth,
     )
-    return ctx, mask
+    return ctx, mask.reshape(shape)
 
 
 def _select_epilogue(key, graph, program, spec, v, prev, depth, u, home):
@@ -278,3 +290,252 @@ def random_walk(
     walks = torch.stack(path, dim=1)
     lengths = (walks >= 0).sum(dim=-1, dtype=torch.int32)
     return WalkResult(walks, lengths, torch.clamp(lengths - 1, min=0).sum())
+
+
+# ---------------------------------------------------------------------------
+# Traversal sampling (paper Fig. 2(b) MAIN over frontier pools)
+# ---------------------------------------------------------------------------
+
+#: elements per block of traversal's dense context: each block of instances
+#: gathers at most this many (row, candidate) entries at once
+TRAVERSAL_ELEMS = 1 << 27
+
+
+class SampleResult(NamedTuple):
+    edges_src: torch.Tensor  # (I, cap) int32 sampled edge sources (-1 pad)
+    edges_dst: torch.Tensor  # (I, cap) int32 sampled edge destinations
+    num_edges: torch.Tensor  # (I,) int32 per-instance sampled edge count
+    frontier_pool: torch.Tensor  # (I, C) int32 final pool
+    iters: torch.Tensor  # () int32 total selection retry rounds (Fig. 11)
+    searches: torch.Tensor  # () int32 total CTPS searches (Fig. 12)
+
+
+def _in_visited(visited: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``visited[i, u]`` for ``u`` of shape ``(I, ...)``; ids at or past the
+    bitmap's width read as visited (the reference's out-of-bounds gather
+    fills with True), -1 as not visited."""
+    width = visited.shape[1]
+    flat = u.reshape(u.shape[0], -1)
+    got = torch.gather(visited, 1, torch.clamp(flat, 0, width - 1).long())
+    got = torch.where(flat >= width, True, got) & (flat >= 0)
+    return got.reshape(u.shape)
+
+
+def _mark_visited(visited: torch.Tensor, v: torch.Tensor) -> None:
+    """Set ``visited[i, v]`` in place for the ids ``0 <= v < width`` of each
+    instance's row ``v[i]`` (the reference's one-hot drops the others)."""
+    ok = (v >= 0) & (v < visited.shape[1])
+    rows = torch.arange(v.shape[0], device=v.device)[:, None].expand(v.shape)
+    visited[rows[ok].long(), v[ok].long()] = True
+
+
+def _insert_into_pool(pool: torch.Tensor, new_v: torch.Tensor) -> torch.Tensor:
+    """Insert new vertices into -1 slots, left-compacting both sides.
+
+    One cumsum compaction over the concatenated ``(pool, new)`` row, as the
+    reference: surviving pool entries keep their order in the first slots,
+    new entries follow, overflow past the capacity is dropped.  A scatter to
+    each entry's slot replaces the reference's ``(I, C + n, C)`` one-hot.
+    """
+    cap = pool.shape[-1]
+    merged = torch.cat([pool, new_v], dim=-1)
+    valid = merged >= 0
+    pos = torch.cumsum(valid.to(torch.int32), dim=-1) - 1
+    slot = torch.where(valid & (pos < cap), pos, cap).long()
+    out = torch.full((pool.shape[0], cap + 1), -1, dtype=pool.dtype, device=pool.device)
+    out.scatter_(1, slot, torch.where(slot < cap, merged, -1))
+    return out[:, :cap].contiguous()
+
+
+def _select_frontier(key, graph: CSRGraph, pool, depth, spec: SamplingSpec, method: str):
+    """SELECT the ``(I, fs)`` frontier from each pool by VERTEXBIAS; returns
+    ``(frontier, selection)``, -1 where fewer candidates were selectable."""
+    pmask = pool >= 0
+    vctx = VertexCtx(v=pool, deg=torch.where(pmask, _degree(graph, pool), 0), depth=depth)
+    vbias = torch.where(pmask, spec.vertex_bias(vctx), 0.0)
+    res = bk.select_without_replacement(key, vbias, pmask, spec.frontier_size, method=method)
+    picked = torch.gather(pool, 1, torch.clamp(res.indices, 0, pool.shape[1] - 1).long())
+    return torch.where(res.valid, picked, -1), res
+
+
+def _neighbor_context(graph: CSRGraph, frontier, visited, depth, spec: SamplingSpec,
+                      max_degree: int):
+    """GATHER + EDGEBIAS for a block of frontiers ``(b, fs)``: the dense
+    context, the masked biases with visited candidates zeroed (``visited``
+    the block's rows of the map, or None) and the candidate mask."""
+    ctx, emask = _edge_ctx(graph, frontier, torch.full_like(frontier, -1), depth, max_degree,
+                           spec.needs_prev_neighbors)
+    ebias = torch.where(emask, spec.edge_bias(ctx), 0.0)
+    if visited is not None:
+        seen = _in_visited(visited, ctx.u)
+        ebias = torch.where(seen, 0.0, ebias)
+        emask = emask & ~seen
+    return ctx, ebias, emask
+
+
+def _sample_neighbors(key, graph: CSRGraph, frontier, visited, depth, spec: SamplingSpec, *,
+                      max_degree: int, method: str):
+    """GATHER + EDGEBIAS + SELECT-neighbors of one step, in blocks of
+    instances (at most :data:`TRAVERSAL_ELEMS` dense entries a block).
+
+    Each block builds its instances' dense context, zeroes visited
+    candidates and selects over its rows; the selection's counted draws are
+    the full batch's at the block's rows (``offset``), so no pick depends
+    on the blocking.  Returns ``(src, dst, iters, searches)``: per-vertex
+    specs give ``(I, fs, ns)`` picks, pooled ones ``(I, ns)``.
+    """
+    n_inst, fs = frontier.shape
+    ns = spec.neighbor_size
+    width = fs * max(max_degree, 1)
+    block = max(1, TRAVERSAL_ELEMS // width)
+    srcs, dsts, iters, searches = [], [], 0, 0
+    for s in range(0, n_inst, block):
+        fr = frontier[s:s + block]
+        b = fr.shape[0]
+        ctx, ebias, emask = _neighbor_context(
+            graph, fr, None if visited is None else visited[s:s + b], depth, spec, max_degree)
+        if spec.per_vertex:
+            # an independent NeighborPool per frontier vertex (neighbor sampling)
+            res = bk.select_without_replacement(key, ebias, emask, ns, method=method,
+                                                offset=s * fs)
+            gi = torch.clamp(res.indices, 0, max_degree - 1).long()
+            srcs.append(fr[..., None].expand(b, fs, ns))
+            dsts.append(torch.where(res.valid, torch.gather(ctx.u, -1, gi), -1))
+        else:
+            # one pooled NeighborPool over all frontier vertices (layer, MDRW)
+            res = bk.select_without_replacement(key, ebias.reshape(b, -1), emask.reshape(b, -1),
+                                                ns, method=method, offset=s)
+            gi = torch.clamp(res.indices, 0, width - 1).long()
+            flat_v = fr[..., None].expand(ctx.u.shape).reshape(b, -1)
+            srcs.append(torch.where(res.valid, torch.gather(flat_v, -1, gi), -1))
+            dsts.append(torch.where(res.valid, torch.gather(ctx.u.reshape(b, -1), -1, gi), -1))
+        iters = iters + res.iters.sum(dtype=torch.int64)
+        searches = searches + res.searches.sum(dtype=torch.int64)
+        del ctx, emask, ebias
+    return torch.cat(srcs), torch.cat(dsts), iters, searches
+
+
+def traversal_sample(
+    graph: CSRGraph,
+    seed_pools,
+    key,
+    *,
+    depth: int,
+    spec: SamplingSpec,
+    max_degree: int,
+    pool_capacity: int,
+    method: str = "its_brs",
+    max_vertices: int = 0,
+    device="cuda",
+) -> SampleResult:
+    """Paper Fig. 2(b) MAIN over frontier pools: each step SELECTs a
+    frontier from every instance's pool, GATHERs its neighbors, SELECTs
+    neighbors and UPDATEs the pool, as ``repro.core.engine.traversal_sample``.
+
+    ``seed_pools`` is ``(I, S)``, -1 padded; ``max_vertices > 0`` (with
+    ``spec.track_visited``) keeps a visited map of that many vertices, so an
+    instance never samples a vertex twice.  Step ``it`` uses ``kit =
+    fold_in(key, it)``: the frontier selection under ``fold_in(kit, 0)``,
+    the neighbor selection under ``fold_in(kit, 1)``, forest fire's burn
+    under ``fold_in(kit, 7)`` and the UPDATE epilogue under
+    ``fold_in(kit, 2)``, as the reference, so the samples and the Fig.
+    11/12 counters equal the reference's bit for bit.  ``its_brs``
+    selections run the ``its_select`` kernel on the card (any K and P);
+    the other methods run in plain PyTorch.  The dense neighbor context
+    runs in blocks of instances (:data:`TRAVERSAL_ELEMS`).
+
+    Runs on ``device`` — ``cuda`` unless the caller passes ``"cpu"``.
+
+    Example — 2-hop neighbor sampling from two 1-seed instances on a
+    4-cycle, on the CPU (every sampled edge is a graph edge):
+
+    >>> from repro_torch.core import algorithms as alg
+    >>> from repro_torch.core.rng import PRNGKey
+    >>> from repro_torch.graph import csr_from_edges
+    >>> g = csr_from_edges(4, [0, 1, 2, 3], [1, 2, 3, 0], symmetrize=True, device="cpu")
+    >>> res = traversal_sample(g, [[0], [2]], PRNGKey(0), depth=2,
+    ...                        spec=alg.unbiased_neighbor_sampling(), max_degree=2,
+    ...                        pool_capacity=8, max_vertices=4, device="cpu")
+    >>> tuple(res.edges_src.shape), bool((res.num_edges >= 1).all())
+    ((2, 32), True)
+    """
+    dev = resolve_device(device)
+    graph = graph.to(dev)
+    seed_pools = torch.as_tensor(seed_pools).to(device=dev, dtype=torch.int32)
+    key = key_from_array(key)
+    program = tp.lower(spec)
+    n_inst = seed_pools.shape[0]
+    fs, ns = spec.frontier_size, spec.neighbor_size
+    per_iter = fs * ns if spec.per_vertex else ns
+    cap = depth * per_iter
+    track = spec.track_visited and max_vertices > 0
+
+    pool = torch.full((n_inst, pool_capacity), -1, dtype=torch.int32, device=dev)
+    pool[:, :seed_pools.shape[1]] = seed_pools[:, :pool_capacity]
+    visited = None
+    if track:
+        visited = torch.zeros((n_inst, max_vertices), dtype=torch.bool, device=dev)
+        _mark_visited(visited, seed_pools)
+    esrc = torch.full((n_inst, cap), -1, dtype=torch.int32, device=dev)
+    edst = torch.full_like(esrc, -1)
+    ecnt = torch.zeros(n_inst, dtype=torch.int32, device=dev)
+    tot_iters = torch.zeros((), dtype=torch.int64, device=dev)
+    tot_searches = torch.zeros((), dtype=torch.int64, device=dev)
+
+    for it in range(depth):
+        kit = fold_in(key, it)
+        # SELECT frontier from pool (line 4)
+        frontier, fres = _select_frontier(fold_in(kit, 0), graph, pool, it, spec, method)
+        tot_iters += fres.iters.sum(dtype=torch.int64)
+        tot_searches += fres.searches.sum(dtype=torch.int64)
+
+        # GATHER + EDGEBIAS + SELECT neighbors (lines 5-6)
+        src, dst, n_iters, n_searches = _sample_neighbors(
+            fold_in(kit, 1), graph, frontier, visited, it, spec, max_degree=max_degree,
+            method=method)
+        tot_iters += n_iters
+        tot_searches += n_searches
+        if spec.per_vertex:
+            if spec.burn_prob is not None:
+                # forest fire: keep a geometric(p_f) prefix of the ns draws
+                g = uniform(fold_in(kit, 7), dst.shape, device=dev)
+                keep = torch.cumprod((g < tp.f32(spec.burn_prob)).to(torch.int32), dim=-1) > 0
+                keep = keep | (torch.arange(ns, device=dev) == 0)  # burn at least one
+                dst = torch.where(keep, dst, -1)
+            src, dst = src.reshape(n_inst, -1), dst.reshape(n_inst, -1)
+            if spec.track_visited:
+                # two frontier vertices may draw the same neighbor in one
+                # round (separate NeighborPools): keep the first
+                dup = (dst >= 0) & ~sel._dedup_priority(dst, dst >= 0)
+                dst = torch.where(dup, -1, dst)
+        valid = dst >= 0
+
+        # record sampled edges (line 8)
+        esrc[:, it * per_iter:(it + 1) * per_iter] = src
+        edst[:, it * per_iter:(it + 1) * per_iter] = dst
+        ecnt += valid.sum(dim=-1, dtype=torch.int32)
+
+        # UPDATE pool (line 7), through the lowered epilogue the walks run
+        ectx = EdgeCtx(
+            v=src, u=dst, weight=torch.ones(dst.shape, dtype=torch.float32, device=dev),
+            deg_v=torch.where(src >= 0, _degree(graph, src), 0),
+            deg_u=torch.where(dst >= 0, _degree(graph, dst), 0),
+            prev=torch.full((n_inst,), -1, dtype=torch.int32, device=dev),
+            is_prev_neighbor=None, depth=it,
+        )
+        new_v = tp.apply_epilogue(fold_in(kit, 2), program, spec, ectx, dst)
+        new_v = torch.where(valid, new_v, -1)
+        if track:
+            _mark_visited(visited, new_v)
+        if spec.replace_selected:
+            # MDRW: drop the selected frontier vertices, insert the new ones
+            sel_ids = torch.where(frontier >= 0, frontier, -2)
+            drop = (pool[:, :, None] == sel_ids[:, None, :]).any(dim=-1)
+            pool = _insert_into_pool(torch.where(drop, -1, pool), new_v)
+        elif spec.per_vertex:
+            # BFS-style: the next pool is exactly the newly sampled layer
+            pool = _insert_into_pool(torch.full_like(pool, -1), new_v)
+        else:
+            pool = _insert_into_pool(pool, new_v)
+    return SampleResult(esrc, edst, ecnt, pool, tot_iters.to(torch.int32),
+                        tot_searches.to(torch.int32))

@@ -11,7 +11,9 @@ bit for bit, so a port walk equals the reference walk for the same key.
   tensor's device.
 - The hash itself (threefry2x32, the counter layout, the bits-to-float
   step) lives in ``kernels.threefry``, beside the walk-step kernels that run
-  it per walker; this module re-exports it.
+  it per walker; this module re-exports it, with the draws built on it:
+  uniforms in a range (:func:`uniform_range`) and Gumbel noise
+  (:func:`gumbel`, on XLA-CPU's ``log``, :func:`xla_log`).
 """
 from __future__ import annotations
 
@@ -20,11 +22,14 @@ import torch
 
 from repro_torch.kernels.threefry import (  # noqa: F401 — the counted RNG's public names
     fold_in,
+    gumbel,
     random_bits,
     threefry2x32,
     uniform,
     uniform_at,
     uniform_many,
+    uniform_range,
+    xla_log,
 )
 
 _MASK = 0xFFFFFFFF

@@ -1,9 +1,13 @@
-"""Bias-based vertex selection for random walks (paper §II-B, §IV).
-
-The walk parts of ``repro.core.select``:
+"""Bias-based vertex selection (paper §II-B, §IV), as ``repro.core.select``:
 
 - the CTPS and ITS draw with replacement (:func:`build_ctps`,
   :func:`its_search`, :func:`select_with_replacement`);
+- selection of K distinct candidates without replacement
+  (:func:`select_without_replacement`): ITS with bipartite region search
+  (``its_brs``) or fresh re-draws (``repeated``) under the counted retry
+  loop, the CTPS recomputed after every pick (``updated``), or Gumbel top-k
+  (``gumbel``); the retry budget as a tensor (:func:`retry_randoms`) is
+  what the ``its_select`` kernel takes;
 - the chunked two-pass ITS scan for rows above the top degree bucket, over
   a flat bias (:func:`walk_transition_chunked`) or a window-bias hook
   (:func:`walk_transition_chunked_window`);
@@ -15,10 +19,12 @@ The walk parts of ``repro.core.select``:
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from repro_torch.core.rng import uniform
+from repro_torch.core.rng import fold_in, gumbel, uniform, uniform_many, xla_log
 from repro_torch.kernels import ref
 
 #: width of XLA-CPU's partial sums in a row reduction (see :func:`row_sum`)
@@ -57,9 +63,14 @@ def build_ctps(biases: torch.Tensor, mask: torch.Tensor | None = None) -> torch.
 
 def its_search(ctps: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """Index of the CTPS region holding each ``r``: the count of region
-    bounds ``<= r`` (``r`` is ``ctps.shape[:-1] + (k,)``), clipped."""
-    idx = (ctps[..., None, :] <= r[..., :, None]).sum(dim=-1)
-    return torch.clamp(idx, 0, ctps.shape[-1] - 1).to(torch.int32)
+    bounds ``<= r`` (``r`` is ``ctps.shape[:-1] + (k,)``), clipped.  Past
+    256 entries the scan's association can leave the start of a 16-block a
+    few ulps below the end of the block before, so the bounds are sorted
+    first (the count does not depend on their order) and the count is
+    their upper bound, without the reference's ``(..., k, p)`` compare."""
+    bounds = torch.sort(ctps, dim=-1).values
+    idx = torch.searchsorted(bounds, r.contiguous(), right=True)
+    return torch.clamp(idx, max=ctps.shape[-1] - 1).to(torch.int32)
 
 
 def select_with_replacement(key, biases: torch.Tensor, mask: torch.Tensor | None,
@@ -69,6 +80,163 @@ def select_with_replacement(key, biases: torch.Tensor, mask: torch.Tensor | None
     ctps = build_ctps(biases, mask)
     r = uniform(key, tuple(ctps.shape[:-1]) + (k,), device=ctps.device)
     return its_search(ctps, r)
+
+
+class SelectResult(NamedTuple):
+    indices: torch.Tensor  # (..., k) int32, -1 where selection failed/invalid
+    valid: torch.Tensor  # (..., k) bool
+    iters: torch.Tensor  # (...,) int32: retry-loop trip count (paper Fig. 11)
+    searches: torch.Tensor  # (...,) int32: total CTPS searches (paper Fig. 12)
+    #: True when a method without a kernel ran in plain PyTorch on the card
+    fell_back: bool = False
+
+
+def _dedup_priority(cand: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """Within-round conflict resolution: among active draws of one
+    candidate the lowest lane wins (the reference's K x K equality matrix
+    under a lower-triangular priority).  Returns the winners' mask."""
+    k = cand.shape[-1]
+    eq = cand[..., :, None] == cand[..., None, :]
+    both = active[..., :, None] & active[..., None, :]
+    lower = torch.tril(torch.ones(k, k, dtype=torch.bool, device=cand.device), diagonal=-1)
+    return active & ~(eq & both & lower).any(dim=-1)
+
+
+def retry_randoms(key, batch_shape: tuple, iters: int, k: int, device="cpu",
+                  offset: int = 0) -> torch.Tensor:
+    """The counted retry budget: ``(..., iters, k)`` uniforms whose round
+    ``t`` holds the bits the retry loop draws in round ``t``,
+    ``uniform(fold_in(key, t), batch + (k,))``.  One hash over all rounds
+    (``uniform_many``).  ``offset`` is the batch's first row in a larger
+    batch: the rows then draw their share of that batch's bits."""
+    if iters < 1:
+        raise ValueError(f"retry budget needs at least one round, got iters={iters}")
+    n = int(np.prod(batch_shape)) * k
+    keys = np.stack([fold_in(key, t) for t in range(iters)])
+    r = uniform_many(keys, n, device=device, offset=offset * k)
+    return r.reshape(iters, *batch_shape, k).movedim(0, -2).contiguous()
+
+
+def _masked(biases: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    b = torch.clamp(biases.to(torch.float32), min=0.0)
+    return b if mask is None else torch.where(mask, b, 0.0)
+
+
+def select_without_replacement(key, biases: torch.Tensor, mask: torch.Tensor | None, k: int,
+                               method: str = "its_brs", max_iters: int = 32,
+                               offset: int = 0) -> SelectResult:
+    """Select ``k`` distinct candidates with probability proportional to
+    bias, ``repro.core.select.select_without_replacement`` in plain PyTorch.
+
+    biases: (..., P); mask: (..., P) bool or None; returns indices
+    (..., k), -1 and invalid where fewer than k candidates are selectable.
+    ``offset`` is the first row of ``biases`` in the batch the key's draws
+    cover (the engine selects a batch in blocks of rows).
+    """
+    if method == "gumbel":
+        return _select_gumbel(key, biases, mask, k, offset)
+    if method == "updated":
+        return _select_updated(key, biases, mask, k, offset)
+    if method not in ("its_brs", "repeated"):
+        raise ValueError(f"unknown selection method {method!r}")
+    return _select_its_loop(key, biases, mask, k, use_brs=method == "its_brs",
+                            max_iters=max_iters, offset=offset)
+
+
+def _select_gumbel(key, biases, mask, k, offset=0) -> SelectResult:
+    """Gumbel top-k (Plackett-Luce): the k largest ``log(b) + g``, ties to
+    the lower index as ``lax.top_k`` breaks them."""
+    b = _masked(biases, mask)
+    if k > b.shape[-1]:
+        raise ValueError(f"gumbel top-k needs k <= P, got k={k} and P={b.shape[-1]}")
+    logits = xla_log(torch.clamp(b, min=ref._EPS))
+    logits = torch.where(b > 0, logits, float("-inf"))
+    g = gumbel(key, b.shape, device=b.device, offset=offset * b.shape[-1])
+    keys = torch.where(torch.isfinite(logits), logits + g, float("-inf"))
+    idx = torch.sort(keys, dim=-1, descending=True, stable=True).indices[..., :k]
+    navail = (b > 0).sum(dim=-1)
+    valid = torch.arange(k, device=b.device) < navail[..., None]
+    idx = torch.where(valid, idx, -1).to(torch.int32)
+    zeros = torch.zeros(b.shape[:-1], dtype=torch.int32, device=b.device)
+    return SelectResult(idx, valid, zeros + 1, zeros + k)
+
+
+def _select_updated(key, biases, mask, k, offset=0) -> SelectResult:
+    """Paper Fig. 6(b): the CTPS recomputed after every selection."""
+    b = _masked(biases, mask)
+    batch = b.shape[:-1]
+    b_cur = b.reshape(-1, b.shape[-1]).clone()
+    n = b_cur.shape[0]
+    out = torch.full((n, k), -1, dtype=torch.int32, device=b.device)
+    valid = torch.zeros((n, k), dtype=torch.bool, device=b.device)
+    for i in range(k):
+        ctps = build_ctps(b_cur)
+        r = uniform(fold_in(key, i), (n, 1), device=b.device, offset=offset)
+        idx = its_search(ctps, r).long()
+        ok = torch.gather(b_cur, 1, idx)[:, 0] > 0
+        out[:, i] = torch.where(ok, idx[:, 0].to(torch.int32), -1)
+        valid[:, i] = ok
+        b_cur.scatter_(1, idx, 0.0)  # b * (1 - one_hot(idx)), for b >= 0
+    zeros = torch.zeros(batch, dtype=torch.int32, device=b.device)
+    return SelectResult(out.reshape(*batch, k), valid.reshape(*batch, k), zeros + k, zeros + k)
+
+
+def _select_its_loop(key, biases, mask, k, *, use_brs: bool, max_iters: int,
+                     offset: int = 0) -> SelectResult:
+    """ITS without replacement with the paper's retry loop (Fig. 5 lines
+    9-14).  Each round every pending draw takes a fresh uniform; a draw that
+    hits a selected region re-draws next round (``repeated``) or, with
+    bipartite region search, moves to ``r2 = r1·(1-δ)`` shifted past the
+    region and searches once more in the same round (``its_brs``).
+    ``iters`` counts the rounds an instance had a pending draw, ``searches``
+    its CTPS searches, as the reference counts them.  The selected set is a
+    scatter into a ``(n, p + 1)`` map (column p takes the losers), not the
+    reference's ``(n, k, p)`` one-hot.
+    """
+    b = _masked(biases, mask)
+    batch, p = b.shape[:-1], b.shape[-1]
+    b = b.reshape(-1, p)
+    n, dev = b.shape[0], b.device
+    ctps = build_ctps(b).contiguous()
+    lower = torch.cat([torch.zeros_like(ctps[:, :1]), ctps[:, :-1]], dim=-1)
+    want = torch.clamp((b > 0).sum(dim=-1), max=k)
+    lane = torch.arange(k, device=dev)
+    done = lane >= want[:, None]
+    out = torch.full((n, k), -1, dtype=torch.int32, device=dev)
+    taken = torch.zeros((n, p + 1), dtype=torch.bool, device=dev)
+    iters = torch.zeros(n, dtype=torch.int32, device=dev)
+    searches = torch.zeros(n, dtype=torch.int32, device=dev)
+    for it in range(max_iters):
+        pending = ~done
+        if not bool(pending.any()):
+            break
+        r1 = uniform(fold_in(key, it), (n, k), device=dev, offset=offset * k)
+        idx1 = its_search(ctps, r1).long()
+        hit1 = torch.gather(taken, 1, idx1)
+        searches += pending.sum(dim=-1, dtype=torch.int32)
+        if use_brs:
+            lo = torch.gather(lower, 1, idx1)
+            delta = torch.gather(ctps, 1, idx1) - lo
+            r2 = r1 * (1.0 - delta)
+            r2 = torch.clamp(torch.where(r2 < lo, r2, r2 + delta), 0.0, ref._ONE_MINUS_EPS)
+            idx2 = its_search(ctps, r2).long()
+            hit2 = torch.gather(taken, 1, idx2)
+            searches += (pending & hit1).sum(dim=-1, dtype=torch.int32)
+            cand = torch.where(hit1, idx2, idx1)
+            ok = pending & ~torch.where(hit1, hit2, hit1)
+        else:
+            cand, ok = idx1, pending & ~hit1
+        ok = ok & (torch.gather(b, 1, cand) > 0)
+        win = _dedup_priority(cand, ok)
+        out = torch.where(win, cand.to(torch.int32), out)
+        taken.scatter_(1, torch.where(win, cand, p), True)
+        done_new = done | win
+        exhausted = done_new.sum(dim=-1) >= want
+        done_new = done_new | (exhausted[:, None] & (lane >= want[:, None]))
+        iters += pending.any(dim=-1).to(torch.int32)
+        done = done_new
+    return SelectResult(out.reshape(*batch, k), (out >= 0).reshape(*batch, k),
+                        iters.reshape(batch), searches.reshape(batch))
 
 
 #: rows per block of a chunked scan: (block, chunk) temporaries at any W

@@ -9,7 +9,8 @@ PyTorch version.
 - ``alias_step``       — O(1) alias-table step, every alias cohort and the
   tail in one launch (``alias_step_pallas``)
 - ``its_select``       — K-of-P ITS selection with region search
-  (``its_select_pallas``)
+  (``its_select_pallas``): a warp kernel for K <= 32 and P <= 4096, a wide
+  kernel for any other K and P
 - ``ref``              — the plain versions, and the scan rule
 - ``threefry``         — the counted-RNG hash the step kernels run per
   walker, in PyTorch, and ``hash_uniform``, the device hash alone
@@ -32,6 +33,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    its_select.wide_launches = 0
 
 
 __all__ = [

@@ -1,7 +1,8 @@
 // Walk-step and selection kernels for Hopper (sm_90a): one random-walk
 // transition per walker over a flat CSR graph (rejection, alias, flat-bias
 // ITS, window-bias ITS), and ITS selection of K of P candidates with
-// bipartite region search.
+// bipartite region search (a warp an instance for K <= 32 and P <= 4096, a
+// block a row for any other K and P).
 //
 // Each kernel computes what a Pallas TPU kernel of src/repro/kernels/
 // computes, bit for bit, and is held against its plain PyTorch version in
@@ -38,6 +39,7 @@
 // cudaGetLastError() as an int; the Python wrapper raises if it is not 0.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
@@ -567,7 +569,10 @@ __device__ __forceinline__ void store_block(float* buf, int b, const float* v) {
 // registers, associated exactly as kernels/ref.py::padded_cumsum, and write
 // the prefixes back in place, in order (store_block): divided by the total
 // when kDivide, else as they are.  Also writes pos[b], the bits of block b's
-// positive entries, and sets total = max(prefix at P - 1, 1e-12); returns
+// positive entries, each block's first and last prefix into sm and pm (the
+// inputs of warp_envelope), sets steps when a block starts below the end
+// of the block before (before the divide, which keeps order, so no step
+// is missed), and sets total = max(prefix at P - 1, 1e-12); returns
 // the count of positive entries.  Lane l owns 16-blocks l + 32m.  Level 1: each block summed in
 // order.  Level 2: the block totals in groups of 16 blocks (lanes 0-15 and
 // 16-31 of one m), each lane folding its group's lower totals in order,
@@ -579,7 +584,7 @@ __device__ __forceinline__ void store_block(float* buf, int b, const float* v) {
 // registers (one read of the row); above, the blocks are read again.
 template <int NM, bool kDivide>
 __device__ __forceinline__ int scan_row(float* buf, unsigned short* pos, int p, int lane,
-                                        float& total) {
+                                        float& total, float* pm, float* sm, bool& steps) {
   constexpr bool kRegs = NM <= 2;
   const int nb = (p + kScanBlock - 1) / kScanBlock;
   float t[NM];
@@ -630,13 +635,15 @@ __device__ __forceinline__ int scan_row(float* buf, unsigned short* pos, int p, 
   // element prefixes: the in-block sums plus the scanned total before the
   // block, held by the lane below (lane 0: by lane 31 of the previous m)
   const int lb = (p - 1) / kScanBlock, lj = (p - 1) % kScanBlock;
-  float carry = 0.0f, tv = 0.0f;
+  float carry = 0.0f, tv = 0.0f, carry_last = 0.0f;
+  bool step = false;
 #pragma unroll
   for (int m = 0; m < NM; ++m) {
     const float up = __shfl_up_sync(kFull, bsum[m], 1);
     const float bprev = lane == 0 ? carry : up;
     carry = __shfl_sync(kFull, bsum[m], 31);
     const int b = lane + 32 * m;
+    float first = INFINITY, last = -INFINITY;
     if (b < nb) {
       if constexpr (kRegs) {
 #pragma unroll
@@ -645,6 +652,8 @@ __device__ __forceinline__ int scan_row(float* buf, unsigned short* pos, int p, 
 #pragma unroll
           for (int x = 0; x < kScanBlock; ++x) tv = x == lj ? s[m][x] : tv;
         }
+        first = s[m][0];
+        last = b == lb ? tv : s[m][kScanBlock - 1];
       } else {
         load_block(buf, b, p, v);
 #pragma unroll
@@ -655,10 +664,19 @@ __device__ __forceinline__ int scan_row(float* buf, unsigned short* pos, int p, 
 #pragma unroll
           for (int x = 0; x < kScanBlock; ++x) tv = x == lj ? v[x] : tv;
         }
+        first = v[0];
+        last = b == lb ? tv : v[kScanBlock - 1];
         store_block(buf, b, v);
       }
+      sm[b] = first;  // the envelope's inputs (warp_envelope)
+      pm[b] = last;
     }
+    // a step: the block starts below the end of the block before
+    const float up_last = __shfl_up_sync(kFull, last, 1);
+    step = step || (b > 0 && (lane == 0 ? carry_last : up_last) > first);
+    carry_last = __shfl_sync(kFull, last, 31);
   }
+  steps = __any_sync(kFull, step);
   total = fmaxf(__shfl_sync(kFull, tv, lb % 32), 1e-12f);
   if (kRegs || kDivide) {
 #pragma unroll
@@ -683,11 +701,10 @@ __device__ __forceinline__ int scan_row(float* buf, unsigned short* pos, int p, 
   return __reduce_add_sync(kFull, npos);
 }
 
-// The upper bound of r in the CTPS (the count of entries <= r, for a
-// nondecreasing CTPS), by the whole warp, visiting exactly the entries that
-// the binary search lo = 0, hi = P, mid = (lo + hi) / 2 visits, so the
-// result is that search's (also where rounding leaves the CTPS
-// nonmonotone).  Each round, lane l evaluates node l + 1 of the next kTree
+// The upper bound of r in the CTPS, by the whole warp, visiting exactly the
+// entries that the binary search lo = 0, hi = P, mid = (lo + hi) / 2 visits,
+// so the result is that search's, which exact_count turns into the count
+// of entries <= r.  Each round, lane l evaluates node l + 1 of the next kTree
 // levels of the search tree (heap order: a node's children are 2n and
 // 2n + 1, right when the test holds), and the path is read off the ballot.
 // The sums are undivided: x -> RN(x / total) is nondecreasing for total > 0,
@@ -723,8 +740,8 @@ __device__ __forceinline__ int coop_upper_bound(const float* sums, int p, float 
   return lo;
 }
 
-// Count of ctps[0, p) entries <= r, one lane's binary search over the
-// divided CTPS.
+// The upper bound of r in ctps[0, p), one lane's binary search over the
+// divided CTPS (exact_count turns it into the count of entries <= r).
 __device__ __forceinline__ int upper_bound(const float* ctps, int p, float r) {
   int lo = 0, hi = p;
   while (lo < hi) {
@@ -733,6 +750,99 @@ __device__ __forceinline__ int upper_bound(const float* ctps, int p, float r) {
     else hi = mid;
   }
   return lo;
+}
+
+// The CTPS is not always nondecreasing: past 256 entries XLA's association
+// can leave the first entry of a 16-block a few ulps below the last entry of
+// the block before (s1 + (s2 + x) against (s1 + s2) + x), most often where a
+// block starts with zero biases.  The reference takes the count of entries
+// <= r, which a binary search gives only where no such step lies on either
+// side of r.  Each 16-block is nondecreasing (its in-block sums plus one
+// prefix), so the count follows from the blocks' envelope: pm[b], the
+// largest last entry of blocks 0..b, and sm[b], the smallest first entry of
+// blocks b..nb-1, both nondecreasing.  Entries are read divided by total
+// (div: __fdiv_rn, which keeps order, so pm and sm may hold the undivided
+// sums) or as they are.
+__device__ __forceinline__ float ctps_at(const float* a, long long q, float total, bool div) {
+  return div ? __fdiv_rn(a[q], total) : a[q];
+}
+
+__device__ __forceinline__ long long upper_bound_at(const float* a, long long lo, long long hi,
+                                                    float r, float total, bool div) {
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (ctps_at(a, mid, total, div) <= r) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// The count of entries of s[0, p) that are <= r where the envelope
+// straddles r: every block but the straddled ones is settled by pm and sm,
+// which are counted one by one.  Out of line: it runs only where a step of
+// the CTPS lies beside r, and keeps its registers out of the callers'.
+__device__ __noinline__ int count_straddled(const float* s, const float* pm, const float* sm,
+                                            long long p, float r, float total, bool div) {
+  const long long nb = (p + kScanBlock - 1) / kScanBlock;
+  const long long a = upper_bound_at(pm, 0, nb, r, total, div);  // blocks [0, a): all <= r
+  const long long b = upper_bound_at(sm, 0, nb, r, total, div);  // blocks [b, nb): all > r
+  long long c = min(a * kScanBlock, p);
+  for (long long x = a; x < b; ++x) {
+    const long long lo = x * kScanBlock;
+    c += upper_bound_at(s, lo, min(lo + kScanBlock, p), r, total, div) - lo;
+  }
+  return (int)c;
+}
+
+// The count of entries of s[0, p) that are <= r, from u, the upper bound a
+// binary search found: the search tested s[u - 1] <= r < s[u], and each
+// block is nondecreasing, so u is the count when the blocks before u - 1's
+// are all <= r and those after u's all > r (two reads of the envelope).
+__device__ __forceinline__ int exact_count(int u, const float* s, const float* pm,
+                                           const float* sm, int p, float r, float total,
+                                           bool div) {
+  const int nb = (p + kScanBlock - 1) / kScanBlock;
+  const int ba = (u - 1) / kScanBlock, bb = u / kScanBlock;
+  if ((u == 0 || ba == 0 || ctps_at(pm, ba - 1, total, div) <= r) &&
+      (u == p || bb + 1 >= nb || ctps_at(sm, bb + 1, total, div) > r))
+    return u;
+  return count_straddled(s, pm, sm, p, r, total, div);
+}
+
+// The envelope of one row (see exact_count), by a warp, in place: pm[b]
+// and sm[b] hold block b's last and first prefix (scan_row), and become the
+// running maximum from block 0 and the running minimum from block nb - 1,
+// divided by total when the prefixes are.  Lane l takes blocks l + 32m.
+template <int NM>
+__device__ __forceinline__ void warp_envelope(float* pm, float* sm, int nb, int lane, float total,
+                                              bool divide) {
+  float hi = -INFINITY, lo = INFINITY;
+#pragma unroll
+  for (int m = 0; m < NM; ++m) {
+    const int b = lane + 32 * m;
+    float x = b < nb ? pm[b] : -INFINITY;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float y = __shfl_up_sync(kFull, x, d);
+      if (lane >= d) x = fmaxf(x, y);
+    }
+    x = fmaxf(x, hi);
+    hi = __shfl_sync(kFull, x, 31);
+    if (b < nb) pm[b] = divide ? __fdiv_rn(x, total) : x;
+  }
+#pragma unroll
+  for (int m = NM - 1; m >= 0; --m) {
+    const int b = lane + 32 * m;
+    float x = b < nb ? sm[b] : INFINITY;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float y = __shfl_down_sync(kFull, x, d);
+      if (lane + d < 32) x = fminf(x, y);
+    }
+    x = fminf(x, lo);
+    lo = __shfl_sync(kFull, x, 0);
+    if (b < nb) sm[b] = divide ? __fdiv_rn(x, total) : x;
+  }
 }
 
 __device__ __forceinline__ bool positive(const unsigned short* pos, int q) {
@@ -759,7 +869,13 @@ __device__ __forceinline__ bool positive(const unsigned short* pos, int q) {
 //   the prefixes back in order for the searches, and keeps the positive
 //   entries as a bit each, so the "has mass" test of a candidate is one
 //   shared-memory read.
-// - K = 1 (the engine's only use): one search per round, run by the whole
+// - Every search is a binary search, which is the count of entries <= r
+//   on a row whose CTPS never steps down.  scan_row tells such rows apart
+//   (rows of at most 256 entries always are); on the others the row's
+//   block envelope (warp_envelope, from the blocks' first and last prefixes
+//   that scan_row stores) makes each search exact (exact_count: two
+//   shared-memory reads when no step lies beside r).
+// - K = 1 (the walks' use): one search per round, run by the whole
 //   warp (coop_upper_bound), dividing only the entries it tests, and no map
 //   (nothing can be taken before the only draw wins).
 // - K > 1: each lane searches for its own draw (upper_bound); the prefixes
@@ -777,7 +893,8 @@ __device__ __forceinline__ bool positive(const unsigned short* pos, int q) {
 //   the shift r2 + delta, then the clip to [0, f32(1 - 1e-12)] = [0, 1].
 // - (iters, searches) per instance are counted as the reference counts them.
 template <int NM>
-__global__ void its_select_kernel(const float* __restrict__ biases,
+__global__ void __launch_bounds__(kSelectWarps * 32, NM <= 2 ? 2 : 1)
+    its_select_kernel(const float* __restrict__ biases,
                                   const float* __restrict__ rands,
                                   int* __restrict__ out, int* __restrict__ stats,
                                   int n, int p, int iters, int k, int stride, int vec) {
@@ -793,6 +910,8 @@ __global__ void its_select_kernel(const float* __restrict__ biases,
   float* ring = reinterpret_cast<float*>(mine);
   unsigned short* pos = reinterpret_cast<unsigned short*>(mine + (size_t)kRing * slot_floats * 4);
   unsigned char* taken = mine + (size_t)kRing * slot_floats * 4 + (ppad / 8 + 15) / 16 * 16;
+  float* pm = reinterpret_cast<float*>(taken + (k > 1 ? ppad : 0));
+  float* sm = pm + ppad / kScanBlock;
 
   for (int s = 0; s < kRing - 1; ++s) {
     const long long i = first + (long long)s * nwarps;
@@ -816,13 +935,19 @@ __global__ void its_select_kernel(const float* __restrict__ biases,
     float total;
     int res = -1, rounds = 0, searches = 0;
     if (k == 1) {
-      const int navail = scan_row<NM, false>(sums, pos, p, lane, total);
+      bool steps;
+      const int navail = scan_row<NM, false>(sums, pos, p, lane, total, pm, sm, steps);
       __syncwarp();
+      if (steps) {
+        warp_envelope<NM>(pm, sm, ppad / kScanBlock, lane, total, false);
+        __syncwarp();
+      }
       if (navail > 0) {
         for (int t = 0; t < iters; ++t) {
           ++rounds;  // one pending draw, one search, nothing taken
           const float r1 = t == 0 ? r0[0] : __ldg(rands + i * iters + t);
-          const int idx = min(coop_upper_bound(sums, p, r1, total, lane), p - 1);
+          const int u = coop_upper_bound(sums, p, r1, total, lane);
+          const int idx = min(steps ? exact_count(u, sums, pm, sm, p, r1, total, true) : u, p - 1);
           if (positive(pos, idx)) {
             res = idx;
             break;
@@ -831,10 +956,15 @@ __global__ void its_select_kernel(const float* __restrict__ biases,
       }
       searches = rounds;
     } else {
-      const int navail = scan_row<NM, true>(sums, pos, p, lane, total);
+      bool steps;
+      const int navail = scan_row<NM, true>(sums, pos, p, lane, total, pm, sm, steps);
       for (int x = lane; x < ppad / 16; x += 32)
         reinterpret_cast<uint4*>(taken)[x] = make_uint4(0, 0, 0, 0);
       __syncwarp();
+      if (steps) {
+        warp_envelope<NM>(pm, sm, ppad / kScanBlock, lane, total, true);
+        __syncwarp();
+      }
       const int want = min(navail, k);
       bool done = lane >= want;  // lanes >= k are never pending
       float r1 = lane < k ? r0[lane] : 0.0f;
@@ -847,7 +977,9 @@ __global__ void its_select_kernel(const float* __restrict__ biases,
         int cand = 0;
         bool hit1 = false, ok = false;
         if (!done) {
-          const int idx1 = min(upper_bound(sums, p, r1), p - 1);
+          const int u1 = upper_bound(sums, p, r1);
+          const int idx1 =
+              min(steps ? exact_count(u1, sums, pm, sm, p, r1, 1.0f, false) : u1, p - 1);
           hit1 = taken[idx1] != 0;
           cand = idx1;
           bool blocked = false;
@@ -857,7 +989,8 @@ __global__ void its_select_kernel(const float* __restrict__ biases,
             float r2 = __fmul_rn(r1, __fsub_rn(1.0f, delta));
             r2 = r2 < lo ? r2 : __fadd_rn(r2, delta);
             r2 = fminf(fmaxf(r2, 0.0f), 1.0f);
-            cand = min(upper_bound(sums, p, r2), p - 1);
+            const int u2 = upper_bound(sums, p, r2);
+            cand = min(steps ? exact_count(u2, sums, pm, sm, p, r2, 1.0f, false) : u2, p - 1);
             blocked = taken[cand] != 0;
           }
           ok = !blocked && positive(pos, cand);
@@ -888,12 +1021,14 @@ template <int NM>
 cudaError_t its_select_run(const float* biases, const float* rands, int* out, int* stats, int n,
                            int p, int iters, int k, cudaStream_t stream) {
   // per warp: kRing slots of round16(P) floats and 32 uniforms, the bits of
-  // the positive entries, and for K > 1 the byte map of taken candidates; as
+  // the positive entries, for K > 1 the byte map of taken candidates, and
+  // the row's block envelope (two floats a 16-block, exact_count); as
   // many warps a block (up to kSelectWarps) as fit two blocks' slots in an
   // SM's shared memory.  The grid is as many blocks as the occupancy query
   // (which counts registers as well) lets stay resident.
   const int ppad = (p + kScanBlock - 1) / kScanBlock * kScanBlock;
-  const int stride = kRing * (ppad + 32) * 4 + (ppad / 8 + 15) / 16 * 16 + (k > 1 ? ppad : 0);
+  const int stride = kRing * (ppad + 32) * 4 + (ppad / 8 + 15) / 16 * 16 + (k > 1 ? ppad : 0) +
+                     (2 * (ppad / kScanBlock) * 4 + 15) / 16 * 16;  // 16-byte aligned slots
   const int warps = std::max(1, std::min(kSelectWarps, (100 * 1024) / stride));
   const int smem = stride * warps;
   cudaError_t e = cudaFuncSetAttribute(its_select_kernel<NM>,
@@ -912,6 +1047,274 @@ cudaError_t its_select_run(const float* biases, const float* rands, int* out, in
   its_select_kernel<NM><<<blocks, 32 * warps, smem, stream>>>(biases, rands, out, stats, n, p,
                                                              iters, k, stride, vec);
   return cudaGetLastError();
+}
+
+// -- its_select, wide rows ------------------------------------------------------
+
+constexpr int kWideThreads = 512;
+constexpr int kMaxLevels = 9;           // block-total levels of the scan: 16^8 > 2^31
+constexpr int kFree = 0x7fffffff;      // owner map: no claim
+constexpr int kTaken = -1;             // owner map: selected in an earlier round
+
+// The levels of the blocked scan of a P-wide row (kernels/ref.py::
+// padded_cumsum): level 0 is the row itself; level l + 1 holds the totals
+// of level l's 16-blocks, ceil(w_l / 16) of them, until a level is at most
+// 16 wide, which is scanned sequentially.  Levels 1.. live one after the
+// other in a per-block scratch: off[l] is level l's offset there.
+struct ScanLevels {
+  int n;          // levels above the row
+  long long len;  // words of levels 1..n in the scratch
+  long long w[kMaxLevels + 1], off[kMaxLevels + 1];
+};
+
+__host__ __device__ inline ScanLevels scan_levels(long long p) {
+  ScanLevels L;
+  L.n = 0;
+  L.len = 0;
+  L.w[0] = p;
+  L.off[0] = 0;
+  while (L.w[L.n] > kScanBlock) {
+    const long long w = (L.w[L.n] + kScanBlock - 1) / kScanBlock;
+    ++L.n;
+    L.w[L.n] = w;
+    L.off[L.n] = L.len;
+    L.len += w;
+  }
+  return L;
+}
+
+// Scratch words a block needs for rows of P candidates and K draws: the
+// CTPS (P floats), the owner map (P ints), the scan levels, the block
+// envelope (two floats a 16-block, exact_count) and the candidate of each
+// draw in a round (K ints).
+__host__ __device__ inline long long wide_scratch_words(long long p, long long k) {
+  return 2 * p + scan_levels(p).len + 2 * ((p + kScanBlock - 1) / kScanBlock) + k;
+}
+
+// The envelope of one row (see exact_count), by a block, in place: pm[b]
+// holds block b's last entry and sm[b] its first on entry, the running
+// maximum from block 0 and the running minimum from block nb - 1 on exit.
+// Each thread takes a run of consecutive blocks: it reduces its run (loads
+// independent of each other), the runs' extremes are scanned across the
+// block (shuffles within a warp, sh, 64 floats of shared memory, across
+// warps), and each thread rewrites its run.
+__device__ void block_envelope(long long nb, float* __restrict__ pm, float* __restrict__ sm,
+                               float* sh) {
+  const int tid = threadIdx.x, bd = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const long long run = (nb + bd - 1) / bd;
+  const long long b0 = min(tid * run, nb), b1 = min(b0 + run, nb);
+  float hi = -INFINITY, lo = INFINITY;
+  for (long long b = b0; b < b1; ++b) {
+    hi = fmaxf(hi, pm[b]);
+    lo = fminf(lo, sm[b]);
+  }
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float h = __shfl_up_sync(kFull, hi, d), l = __shfl_down_sync(kFull, lo, d);
+    if (lane >= d) hi = fmaxf(hi, h);
+    if (lane + d < 32) lo = fminf(lo, l);
+  }
+  if (lane == 31) sh[warp] = hi;
+  if (lane == 0) sh[32 + warp] = lo;
+  __syncthreads();
+  float before = __shfl_up_sync(kFull, hi, 1), after = __shfl_down_sync(kFull, lo, 1);
+  if (lane == 0) before = -INFINITY;
+  if (lane == 31) after = INFINITY;
+  for (int w = 0; w < warp; ++w) before = fmaxf(before, sh[w]);
+  for (int w = warp + 1; w < bd / 32; ++w) after = fminf(after, sh[32 + w]);
+  for (long long b = b0; b < b1; ++b) {
+    before = fmaxf(before, pm[b]);
+    pm[b] = before;
+  }
+  for (long long b = b1 - 1; b >= b0; --b) {
+    after = fminf(after, sm[b]);
+    sm[b] = after;
+  }
+  __syncthreads();
+}
+
+// Replaces its_select_pallas (src/repro/kernels/its_select.py:113) for the
+// shapes its_select_kernel does not take: K > 32 draws or rows of P > 4096
+// candidates (traversal sampling's per-vertex pools of max_degree
+// candidates, and layer sampling's and MDRW's pooled rows of
+// frontier_size x max_degree).  The same function, bit for bit: CTPS
+// cumsum(max(b, 0)) / max(total, 1e-12) with XLA's association, ITERS
+// rounds of K uniforms, a bipartite region search on a collision, the
+// lowest draw index winning a candidate, and the (iters, searches)
+// counters.
+// Bound by bytes: each row is read once and its CTPS written once, and a
+// row of layer sampling (P = 821,376) is 3.3 MB, far past what a warp's
+// ring slot in shared memory holds.  The design is simple, not tuned:
+// - One block per row, persistent over rows; its CTPS, the scan's upper
+//   levels, an owner map of the candidates and the round's candidates live
+//   in the block's slice of a device-memory scratch the wrapper allocates
+//   (wide_scratch_words), which L2 keeps close while the block works on it.
+// - The scan follows ref.py::padded_cumsum level by level: the 16-blocks of
+//   each level are summed in order by one thread each (writing their
+//   in-block sums in place and their totals to the next level), the top
+//   level (at most 16 wide) by one thread, then each level from the top
+//   down adds the scanned total of the block before (the prefix of level
+//   l + 1 at index q/16 - 1) to its in-block sums: the right-nested
+//   association s1 + (s2 + (s3 + ...)) of XLA's recursive scan.  The row
+//   level adds and divides by the total in one pass (__fdiv_rn).
+// - Draws are spread over the block's threads (draw j on thread j mod 512),
+//   each searching the CTPS in device memory by binary search, made the
+//   count of entries <= r by the row's block envelope (exact_count), which
+//   the block writes after the scan.  A collision within a round goes to the lowest draw
+//   index: every draw with an admissible candidate claims it with
+//   atomicMin of its index in the owner map, and after a barrier the draw
+//   whose index stands there wins and marks the candidate taken (-1, below
+//   any index, so no later claim undoes it).  A minimum does not depend on
+//   the order the atomics land in, so the result is deterministic; the
+//   owner map is read through volatile loads, past L1.
+// - The owner map is set free once per block and the winners' entries are
+//   freed again after each row, so a row costs K writes there, not P.
+__global__ void __launch_bounds__(kWideThreads, 2) its_select_wide_kernel(
+    const float* __restrict__ biases, const float* __restrict__ rands, int* __restrict__ out,
+    int* __restrict__ stats, float* __restrict__ scratch, int n, int p, int iters, int k) {
+  __shared__ int s_count;
+  __shared__ float s_env[64];
+  const ScanLevels L = scan_levels(p);
+  const long long words = wide_scratch_words(p, k);
+  float* ctps = scratch + (long long)blockIdx.x * words;
+  int* owner_base = reinterpret_cast<int*>(ctps + p);
+  volatile int* owner = owner_base;
+  float* lv = ctps + 2LL * p;
+  float* pm = lv + L.len;
+  float* sm = pm + (p + kScanBlock - 1) / kScanBlock;
+  int* cand_of = reinterpret_cast<int*>(sm + (p + kScanBlock - 1) / kScanBlock);
+  const int tid = threadIdx.x, bd = blockDim.x;
+  for (long long q = tid; q < p; q += bd) owner[q] = kFree;
+
+  for (long long i = blockIdx.x; i < n; i += gridDim.x) {
+    const float* row = biases + i * p;
+    if (tid == 0) s_count = 0;
+    __syncthreads();
+    // level 0: the row's 16-blocks, in-block sums into ctps, totals up
+    int npos = 0;
+    const long long nb0 = (p + (long long)kScanBlock - 1) / kScanBlock;
+    for (long long b = tid; b < nb0; b += bd) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int x = 0; x < kScanBlock; ++x) {
+        const long long q = b * kScanBlock + x;
+        const float v = q < p ? fmaxf(__ldg(row + q), 0.0f) : 0.0f;
+        npos += v > 0.0f;
+        acc = x == 0 ? v : __fadd_rn(acc, v);
+        if (q < p) ctps[q] = acc;
+      }
+      if (L.n > 0) lv[L.off[1] + b] = acc;
+    }
+    atomicAdd(&s_count, npos);
+    __syncthreads();
+    // levels 1 .. n-1 the same way; the top level sequentially
+    for (int l = 1; l < L.n; ++l) {
+      const long long w = L.w[l], nb = (w + kScanBlock - 1) / kScanBlock;
+      float* lev = lv + L.off[l];
+      for (long long b = tid; b < nb; b += bd) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int x = 0; x < kScanBlock; ++x) {
+          const long long q = b * kScanBlock + x;
+          const float v = q < w ? lev[q] : 0.0f;
+          acc = x == 0 ? v : __fadd_rn(acc, v);
+          if (q < w) lev[q] = acc;
+        }
+        lv[L.off[l + 1] + b] = acc;
+      }
+      __syncthreads();
+    }
+    if (tid == 0 && L.n > 0) {  // (a row of at most 16 is one block: scanned above)
+      float* top = lv + L.off[L.n];
+      for (long long q = 1; q < L.w[L.n]; ++q) top[q] = __fadd_rn(top[q - 1], top[q]);
+    }
+    __syncthreads();
+    // down: level l's in-block sums plus level l + 1's prefix before the block
+    for (int l = L.n - 1; l >= 1; --l) {
+      float* lev = lv + L.off[l];
+      const float* up = lv + L.off[l + 1];
+      for (long long q = tid; q < L.w[l]; q += bd) {
+        const long long jb = q / kScanBlock;
+        if (jb > 0) lev[q] = __fadd_rn(lev[q], up[jb - 1]);
+      }
+      __syncthreads();
+    }
+    const long long lb = (p - 1) / kScanBlock;
+    float last = ctps[p - 1];
+    if (L.n > 0 && lb > 0) last = __fadd_rn(last, lv[L.off[1] + lb - 1]);
+    const float total = fmaxf(last, 1e-12f);
+    __syncthreads();  // every thread has read ctps[p - 1] before it is divided
+    for (long long q = tid; q < p; q += bd) {
+      const long long jb = q / kScanBlock;
+      float v = ctps[q];
+      if (L.n > 0 && jb > 0) v = __fadd_rn(v, lv[L.off[1] + jb - 1]);
+      v = __fdiv_rn(v, total);
+      ctps[q] = v;
+      if (q % kScanBlock == 0) sm[jb] = v;  // the envelope's inputs
+      if (q % kScanBlock == kScanBlock - 1 || q == p - 1) pm[jb] = v;
+    }
+    const int want = min(s_count, k);
+    for (int j = tid; j < k; j += bd) out[i * k + j] = -1;
+    __syncthreads();
+    block_envelope((p + kScanBlock - 1) / kScanBlock, pm, sm, s_env);
+    if (tid == 0) s_count = 0;  // now the searches
+
+    // the rounds
+    int rounds = 0, searches = 0;
+    for (int t = 0; t < iters; ++t) {
+      bool pending = false;
+      for (int j = tid; j < want; j += bd) pending = pending || out[i * k + j] < 0;
+      if (!__syncthreads_or(pending)) break;
+      ++rounds;
+      for (int j = tid; j < want; j += bd) {
+        int claim = -1;
+        if (out[i * k + j] < 0) {
+          const float r1 = __ldg(rands + (i * iters + t) * k + j);
+          const int idx1 =
+              min(exact_count(upper_bound(ctps, p, r1), ctps, pm, sm, p, r1, 1.0f, false), p - 1);
+          const bool hit1 = owner[idx1] == kTaken;
+          searches += 1 + hit1;
+          int cand = idx1;
+          bool blocked = false;
+          if (hit1) {  // region search past the taken region
+            const float lo = idx1 > 0 ? ctps[idx1 - 1] : 0.0f;
+            const float delta = __fsub_rn(ctps[idx1], lo);
+            float r2 = __fmul_rn(r1, __fsub_rn(1.0f, delta));
+            r2 = r2 < lo ? r2 : __fadd_rn(r2, delta);
+            r2 = fminf(fmaxf(r2, 0.0f), 1.0f);
+            cand = min(exact_count(upper_bound(ctps, p, r2), ctps, pm, sm, p, r2, 1.0f, false),
+                       p - 1);
+            blocked = owner[cand] == kTaken;
+          }
+          if (!blocked && __ldg(row + cand) > 0.0f) {
+            atomicMin(owner_base + cand, j);
+            claim = cand;
+          }
+        }
+        cand_of[j] = claim;
+      }
+      __syncthreads();  // every claim of the round has landed
+      for (int j = tid; j < want; j += bd) {
+        const int c = cand_of[j];
+        if (c >= 0 && owner[c] == j) {  // the lowest claiming draw
+          out[i * k + j] = c;
+          owner[c] = kTaken;
+        }
+      }
+      __syncthreads();  // the winners are taken before the next round's tests
+    }
+    atomicAdd(&s_count, searches);
+    for (int j = tid; j < want; j += bd) {
+      const int c = out[i * k + j];
+      if (c >= 0) owner[c] = kFree;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      stats[2 * i] = rounds;
+      stats[2 * i + 1] = s_count;
+    }
+    // the next row's first barrier orders these reads before s_count is reset
+  }
 }
 
 }  // namespace
@@ -987,6 +1390,23 @@ int its_select_launch(const void* biases, const void* rands, void* out, void* st
   // (its b < nb guards) serves every P up to 4096
   return (int)its_select_run<8>(b, r, (int*)out, (int*)stats, n, p, iters, k, st);
 }
+
+// Rows the warp-per-instance kernel does not take (K > 32 or P > 4096), or
+// any rows when the caller asks for this path: one block a row, at most
+// `blocks` blocks, over a scratch of blocks x its_select_wide_scratch_words
+// 32-bit words.
+int its_select_wide_launch(const void* biases, const void* rands, void* out, void* stats,
+                           void* scratch, int n, int p, int iters, int k, int blocks,
+                           void* stream) {
+  if (n > 0 && blocks > 0) {
+    its_select_wide_kernel<<<blocks, kWideThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)biases, (const float*)rands, (int*)out, (int*)stats, (float*)scratch, n, p,
+        iters, k);
+  }
+  return (int)cudaGetLastError();
+}
+
+long long its_select_wide_scratch_words(int p, int k) { return wide_scratch_words(p, k); }
 
 int hash_uniform_launch(const void* keys, const void* counters, void* out, int nkeys, int n,
                         void* stream) {

@@ -2,9 +2,14 @@
 (``its_select``), the paper's warp-centric SELECT.
 
 Dispatches on its operands' device like ``kernels.walk_step``: a CUDA
-tensor launches the kernel of ``csrc/walk_kernels.cu`` (or raises), a CPU
-tensor runs ``kernels.ref.its_select_ref``.  ``its_select.launches`` counts
-the kernel's launches.
+tensor launches a kernel of ``csrc/walk_kernels.cu`` (or raises), a CPU
+tensor runs ``kernels.ref.its_select_ref``.  Two kernels compute the same
+function, chosen by shape: ``its_select_kernel`` (a warp an instance, a
+lane a draw, the row staged in shared memory) for ``K <= 32`` and
+``P <= 4096``, and ``its_select_wide_kernel`` (a block a row, the CTPS in a
+device-memory scratch) for any other ``K`` and ``P``.
+``its_select.launches`` counts the launches of both,
+``its_select.wide_launches`` those of the wide kernel.
 """
 from __future__ import annotations
 
@@ -12,10 +17,13 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-#: one lane per draw: K draws share one warp
+#: the warp kernel: one lane per draw, K draws share one warp
 MAX_K = 32
-#: the kernel's register scan holds up to 8 16-blocks a lane: 8 * 32 * 16
+#: the warp kernel's register scan holds up to 8 16-blocks a lane: 8 * 32 * 16
 MAX_P = 4096
+#: resident blocks of the wide kernel per SM (512 threads each), as its
+#: ``__launch_bounds__`` holds them: the scratch is sized for this many
+WIDE_BLOCKS_PER_SM = 2
 
 
 def its_select(biases: torch.Tensor, rands: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -23,33 +31,60 @@ def its_select(biases: torch.Tensor, rands: torch.Tensor) -> tuple[torch.Tensor,
     with ``with_stats=True``).
 
     biases: (I, P) float32, ``<= 0`` unselectable; rands: (I, ITERS, K)
-    float32, the counted retry budget.  Returns ``(idx, stats)``: (I, K)
-    int32 indices, -1 unfilled, and (I, 2) int32 ``(iters, searches)`` per
-    instance.  On the card ``K <= 32`` and ``P <= 4096``.
+    float32, the counted retry budget; any ``K >= 1``, ``P >= 1`` and
+    ``ITERS >= 1``.  Returns ``(idx, stats)``: (I, K) int32 indices, -1
+    unfilled, and (I, 2) int32 ``(iters, searches)`` per instance.  On the
+    card the shape picks the kernel: the warp kernel for ``K <= MAX_K`` and
+    ``P <= MAX_P``, the wide kernel otherwise.
     """
     if biases.ndim != 2 or rands.ndim != 3 or rands.shape[0] != biases.shape[0]:
         raise ValueError(f"its_select: biases (I, P) and rands (I, ITERS, K), got "
                          f"{tuple(biases.shape)} and {tuple(rands.shape)}")
+    p, iters, k = biases.shape[1], rands.shape[1], rands.shape[2]
+    if p < 1 or k < 1 or iters < 1:
+        raise ValueError(f"its_select takes P >= 1, K >= 1 and ITERS >= 1; got P={p}, "
+                         f"K={k}, ITERS={iters}")
     if biases.device.type == "cpu":
         return ref.its_select_ref(biases, rands)
+    return _launch(biases, rands, wide=not (k <= MAX_K and p <= MAX_P))
+
+
+def _launch(biases: torch.Tensor, rands: torch.Tensor, wide: bool):
+    """Launch one of the two kernels on operands :func:`its_select` has
+    checked; its tests and timings also run the wide kernel at the warp
+    kernel's shapes."""
     n, p = biases.shape
     iters, k = rands.shape[1], rands.shape[2]
-    if not (1 <= k <= MAX_K and 1 <= p <= MAX_P and iters >= 1):
-        raise ValueError(f"its_select kernel takes 1 <= K <= {MAX_K}, 1 <= P <= {MAX_P} "
-                         f"and ITERS >= 1; got K={k}, P={p}, ITERS={iters}")
+    if not wide and (k > MAX_K or p > MAX_P):
+        raise ValueError(f"its_select's warp kernel takes K <= {MAX_K} and P <= {MAX_P}; "
+                         f"got K={k}, P={p}")
     _build.require_cuda("its_select", ((biases, torch.float32), (rands, torch.float32)), ())
     idx = torch.empty((n, k), dtype=torch.int32, device=biases.device)
     stats = torch.empty((n, 2), dtype=torch.int32, device=biases.device)
     if n == 0:
         return idx, stats
     lib = _build.load()
-    code = lib.its_select_launch(
-        biases.data_ptr(), rands.data_ptr(), idx.data_ptr(), stats.data_ptr(),
-        n, p, iters, k, _build.stream_handle(biases),
-    )
-    _build.check(lib, code, "its_select")
+    stream = _build.stream_handle(biases)
+    if wide:
+        sms = torch.cuda.get_device_properties(biases.device).multi_processor_count
+        blocks = min(n, WIDE_BLOCKS_PER_SM * sms)
+        words = lib.its_select_wide_scratch_words(p, k)
+        scratch = torch.empty(blocks * words, dtype=torch.float32, device=biases.device)
+        code = lib.its_select_wide_launch(
+            biases.data_ptr(), rands.data_ptr(), idx.data_ptr(), stats.data_ptr(),
+            scratch.data_ptr(), n, p, iters, k, blocks, stream,
+        )
+        _build.check(lib, code, "its_select (wide)")
+        its_select.wide_launches += 1
+    else:
+        code = lib.its_select_launch(
+            biases.data_ptr(), rands.data_ptr(), idx.data_ptr(), stats.data_ptr(),
+            n, p, iters, k, stream,
+        )
+        _build.check(lib, code, "its_select")
     its_select.launches += 1
     return idx, stats
 
 
 its_select.launches = 0
+its_select.wide_launches = 0

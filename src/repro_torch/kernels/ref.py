@@ -465,9 +465,12 @@ def its_select_ref(biases: torch.Tensor, rands: torch.Tensor) -> tuple[torch.Ten
     rounds = torch.zeros(n, dtype=torch.int32, device=dev)
     searches = torch.zeros(n, dtype=torch.int32, device=dev)
 
+    # the count of entries <= r does not depend on their order; the CTPS
+    # itself can step down by a few ulps at a 16-block (the kernels' exact_count)
+    bounds = torch.sort(ctps, dim=-1).values
+
     def search(r):
-        # the CTPS is nondecreasing: the upper bound of r is the count <= r
-        return torch.clamp(torch.searchsorted(ctps, r.contiguous(), right=True), max=p - 1)
+        return torch.clamp(torch.searchsorted(bounds, r.contiguous(), right=True), max=p - 1)
 
     for it in range(iters):
         pending = ~done

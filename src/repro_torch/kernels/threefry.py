@@ -70,18 +70,35 @@ def bits_at(key: np.ndarray, counters: torch.Tensor) -> torch.Tensor:
     return a ^ b
 
 
-def random_bits(key: np.ndarray, shape, device="cpu") -> torch.Tensor:
-    """32 random bits per element (in int64), as ``jax.random.bits``."""
+def random_bits(key: np.ndarray, shape, device="cpu", offset: int = 0) -> torch.Tensor:
+    """32 random bits per element (in int64), as ``jax.random.bits``.
+
+    ``offset`` shifts the counters: the result is the elements ``offset``
+    onward of a larger draw of the same key (the layout is partitionable),
+    so a block of rows of a batch draws exactly its share of the batch's
+    bits."""
     shape = tuple(int(d) for d in shape) if isinstance(shape, (tuple, list)) else (int(shape),)
-    i = torch.arange(int(np.prod(shape)), dtype=torch.int64, device=device)
+    n = int(np.prod(shape))
+    i = torch.arange(int(offset), int(offset) + n, dtype=torch.int64, device=device)
     return bits_at(key, i).reshape(shape)
 
 
-def uniform(key: np.ndarray, shape, device="cpu") -> torch.Tensor:
+def uniform(key: np.ndarray, shape, device="cpu", offset: int = 0) -> torch.Tensor:
     """f32 uniforms in ``[0, 1)`` with ``jax.random.uniform(key, shape)``'s
     bits, for any shape (element ``i`` of the row-major order hashes
-    counter ``i``)."""
-    return bits_to_unit_float(random_bits(key, shape, device))
+    counter ``i``; ``offset`` as in :func:`random_bits`)."""
+    return bits_to_unit_float(random_bits(key, shape, device, offset))
+
+
+def uniform_range(key: np.ndarray, shape, minval: float, maxval: float,
+                  device="cpu", offset: int = 0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=minval, maxval=maxval)``:
+    ``max(minval, u * (maxval - minval) + minval)`` in f32, the bounds
+    rounded to f32 first as JAX converts them, and the multiply-add fused
+    as XLA-CPU fuses it (:func:`_fma`)."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    u = uniform(key, shape, device, offset)
+    return torch.clamp(_fma(u, float(hi - lo), float(lo)), min=float(lo))
 
 
 def uniform_at(key: np.ndarray, counters: torch.Tensor) -> torch.Tensor:
@@ -90,16 +107,81 @@ def uniform_at(key: np.ndarray, counters: torch.Tensor) -> torch.Tensor:
     return bits_to_unit_float(bits_at(key, counters.to(torch.int64)))
 
 
-def uniform_many(keys: np.ndarray, n: int, device="cpu") -> torch.Tensor:
-    """``(K, n)`` f32 uniforms: row ``k`` equals ``uniform(keys[k], (n,))``.
+def uniform_many(keys: np.ndarray, n: int, device="cpu", offset: int = 0) -> torch.Tensor:
+    """``(K, n)`` f32 uniforms: row ``k`` equals ``uniform(keys[k], (n,))``
+    (``offset`` as in :func:`random_bits`).
 
     One hash over all K rows at once (the keys broadcast against the
     counters), so K draws cost one pass of tensor operations, not K."""
     keys = np.asarray(keys, dtype=np.uint32).reshape(-1, 2)
     k = torch.as_tensor(keys.astype(np.int64), device=device)
-    i = torch.arange(int(n), dtype=torch.int64, device=device)
+    i = torch.arange(int(offset), int(offset) + int(n), dtype=torch.int64, device=device)
     a, b = threefry2x32(k[:, 0:1], k[:, 1:2], i >> 32, i & _MASK)
     return bits_to_unit_float(a ^ b)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 ``a * b + c`` rounded once, as a fused multiply-add: the product
+    of two f32 values is exact in f64, so only the f64 sum rounds before
+    the f32 result (a second rounding that can differ from one fused
+    rounding only when the f64 sum falls exactly on an f32 tie)."""
+    b = b.double() if isinstance(b, torch.Tensor) else b
+    c = c.double() if isinstance(c, torch.Tensor) else c
+    return (a.double() * b + c).float()
+
+
+#: XLA-CPU's f32 log polynomial (Cephes ``logf``), coefficients in f32
+_LOG_P = tuple(float(np.float32(c)) for c in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1, 1.4249322787e-1,
+    -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1))
+_LOG_Q1, _LOG_Q2 = float(np.float32(-2.12194440e-4)), 0.693359375
+_SQRT_HALF = float(np.float32(0.707106781186547524))
+_MIN_NORMAL = float(np.finfo(np.float32).tiny)
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """Natural log of f32 ``x`` with XLA-CPU's bits (``jnp.log``), on any
+    device.
+
+    XLA-CPU evaluates Cephes' ``logf``: the mantissa ``m`` in
+    ``[sqrt(1/2), sqrt(2))`` shifted by -1, three interleaved Horner chains
+    over ``x, x^3``, the exponent added back in two parts, with every
+    multiply-add fused (LLVM contracts them).  ``torch.log`` is rounded
+    otherwise (1 ulp apart for about 7 % of inputs).  Written as separate
+    tensor operations with the fused ones through :func:`_fma`, so every
+    device rounds alike.
+    """
+    x = x.to(torch.float32)
+    xc = torch.clamp(x, min=_MIN_NORMAL)
+    bits = xc.view(torch.int32)
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)  # in [0.5, 1)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    low = m < _SQRT_HALF
+    e = e - low.to(torch.float32)
+    t = (m - 1.0) + torch.where(low, m, 0.0)
+    z = t * t
+    t3 = z * t
+    p = _LOG_P
+    a = _fma(_fma(t, p[0], p[1]), t, p[2])
+    b = _fma(_fma(t, p[3], p[4]), t, p[5])
+    c = _fma(_fma(t, p[6], p[7]), t, p[8])
+    y = _fma(_fma(a, t3, b), t3, c)
+    y = _fma(y, t3, _LOG_Q1 * e)
+    r = _fma(torch.full_like(z, -0.5), z, t) + y
+    r = _fma(torch.full_like(e, _LOG_Q2), e, r)
+    # XLA-CPU flushes subnormal inputs to zero, and its NaN has every bit set
+    r = torch.where(x < _MIN_NORMAL, float("-inf"), r)
+    r = torch.where(x == float("inf"), float("inf"), r)
+    nan = torch.tensor(-1, dtype=torch.int32, device=x.device).view(torch.float32)
+    return torch.where(x >= 0, r, nan)
+
+
+def gumbel(key: np.ndarray, shape, device="cpu", offset: int = 0) -> torch.Tensor:
+    """f32 Gumbel noise with ``jax.random.gumbel(key, shape)``'s bits:
+    ``-log(-log(u))`` for ``u`` uniform in ``[tiny, 1)``, by
+    :func:`xla_log` (``offset`` as in :func:`random_bits`)."""
+    u = uniform_range(key, shape, _MIN_NORMAL, 1.0, device, offset)
+    return -xla_log(-xla_log(u))
 
 
 def hash_uniform(keys: np.ndarray, counters: torch.Tensor) -> torch.Tensor:

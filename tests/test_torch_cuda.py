@@ -6,6 +6,7 @@ PyTorch: ``python -m pytest -m cuda tests/test_torch_cuda.py``.  Exact
 tolerance throughout (vertex ids).
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -16,12 +17,16 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.core import algorithms as alg  # noqa: E402
 from repro_torch.core import backend  # noqa: E402
 from repro_torch.core import select as sel  # noqa: E402
-from repro_torch.core.engine import random_walk  # noqa: E402
+from repro_torch.core.engine import random_walk, traversal_sample  # noqa: E402
 from repro_torch.core.methods import MethodTables  # noqa: E402
 from repro_torch.core.rng import PRNGKey, fold_in, uniform_at, uniform_many  # noqa: E402
 from repro_torch.graph import csr_from_edges  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.threefry import hash_uniform  # noqa: E402
+
+#: the module behind ``kernels.its_select``, whose private launcher runs
+#: either kernel at any shape
+its_module = importlib.import_module("repro_torch.kernels.its_select")
 
 
 @pytest.fixture
@@ -457,11 +462,156 @@ def test_its_select_kernel_on_edge_rows(cuda_device, k, iters, p):
 
 @pytest.mark.cuda
 def test_its_select_kernel_refuses_outside_its_limits(cuda_device):
+    """Every K >= 1 and P >= 1 runs (the wide kernel past the warp kernel's
+    shapes); the shape checks stay, and the warp kernel's launcher still
+    refuses what it cannot take."""
     b = torch.ones(4, 4097, device=cuda_device)
-    with pytest.raises(ValueError, match="P <= 4096"):
-        kernels.its_select(b, torch.zeros(4, 1, 1, device=cuda_device))
-    with pytest.raises(ValueError, match="K <= 32"):
-        kernels.its_select(b[:, :64], torch.zeros(4, 1, 33, device=cuda_device))
+    with pytest.raises(ValueError, match="K <= 32 and P <= 4096"):
+        its_module._launch(b, torch.zeros(4, 1, 1, device=cuda_device), wide=False)
+    with pytest.raises(ValueError, match="K >= 1"):
+        kernels.its_select(b, torch.zeros(4, 1, 0, device=cuda_device))
+    with pytest.raises(ValueError, match="ITERS >= 1"):
+        kernels.its_select(b, torch.zeros(4, 0, 2, device=cuda_device))
+    with pytest.raises(ValueError, match="biases"):
+        kernels.its_select(b, torch.zeros(3, 1, 2, device=cuda_device))
+
+
+def _sparse_pools(seed: int, n: int, p: int, k: int, iters: int):
+    """Rows with few positive entries, so draws collide often: rows with
+    fewer candidates than K, with one candidate (the last), with none,
+    with equal biases, with negative entries and with biases over forty
+    binary orders of magnitude."""
+    rng = np.random.default_rng(seed)
+    b = np.zeros((n, p), np.float32)
+    for i in range(n):
+        m = int(rng.integers(1, 4 * k + 2))
+        at = rng.choice(p, size=min(m, p), replace=False)
+        b[i, at] = (rng.random(at.size) * np.exp2(rng.uniform(-20, 20, at.size))).astype(np.float32)
+    b[0] = 0.0
+    b[1] = 0.0
+    b[1, p - 1] = 1.0
+    b[2, rng.choice(p, size=min(2 * k, p), replace=False)] = 1.0
+    b[3] = np.where(b[3] > 0, -b[3], -1.0)
+    r = rng.random((n, iters, k)).astype(np.float32)
+    return b, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 33, 64])
+@pytest.mark.parametrize("p", [4097, 102_784, 821_376])
+def test_its_select_wide_kernel_matches_plain_version(cuda_device, k, p):
+    n = {4097: 600, 102_784: 64, 821_376: 12}[p]
+    b, r = _sparse_pools(p + k, n, p, k, 32)
+    want_idx, want_stats = kernels.its_select(torch.from_numpy(b), torch.from_numpy(r))
+    kernels.reset_launch_counts()
+    got_idx, got_stats = kernels.its_select(torch.from_numpy(b).to(cuda_device),
+                                            torch.from_numpy(r).to(cuda_device))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got_idx.cpu().numpy(), want_idx.numpy())
+    np.testing.assert_array_equal(got_stats.cpu().numpy(), want_stats.numpy())
+    assert kernels.its_select.wide_launches == 1 and kernels.launch_counts()["its_select"] == 1
+    if k > 1:
+        assert (want_stats[:, 0] > 1).any()  # collisions: some instance took several rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 600])
+@pytest.mark.parametrize("p", [1, 17, 300, 4096])
+def test_its_select_wide_kernel_on_narrow_rows_and_many_draws(cuda_device, k, p):
+    """The wide kernel launched at any shape: rows of one candidate, rows
+    of one scan block and a bit more, and more draws than its 512 threads
+    (each thread serves several)."""
+    n = 64 if k > 32 else 300
+    b, r = _sparse_pools(10 * p + k, n, p, k, 16)
+    want = kernels.its_select(torch.from_numpy(b), torch.from_numpy(r))
+    got = its_module._launch(torch.from_numpy(b).to(cuda_device),
+                             torch.from_numpy(r).to(cuda_device), wide=True)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+def test_its_select_kernels_agree_at_the_warp_limit(cuda_device, dense):
+    """P = 4096, K = 32: the largest shape both kernels take."""
+    p, k = 4096, 32
+    if dense:
+        rng = np.random.default_rng(7)
+        b = (rng.random((900, p)) * (rng.random((900, p)) > 0.3)).astype(np.float32)
+        r = rng.random((900, 32, k)).astype(np.float32)
+    else:
+        b, r = _sparse_pools(11, 900, p, k, 32)
+    want = kernels.its_select(torch.from_numpy(b), torch.from_numpy(r))
+    bt, rt = torch.from_numpy(b).to(cuda_device), torch.from_numpy(r).to(cuda_device)
+    for wide in (False, True):
+        got = its_module._launch(bt, rt, wide=wide)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def _stepping_case(seed: int, n: int, p: int, k: int, iters: int):
+    """Rows whose 16-blocks start with zero biases, and a budget whose first
+    round draws sit on the entries where the CTPS steps down (and just
+    before them), where a binary search and the count of entries <= r part."""
+    rng = np.random.default_rng(seed)
+    b = (rng.random((n, p)) * np.exp2(rng.uniform(-8, 8, (n, p)))).astype(np.float32)
+    b[:, 16::16] = 0.0
+    b[: n // 4, p // 5: p // 2] = 0.0  # a long run of zeros
+    r = rng.random((n, iters, k)).astype(np.float32)
+    ctps = sel.build_ctps(torch.from_numpy(b)).numpy()
+    for i in range(n):
+        down = np.nonzero(ctps[i, 1:] < ctps[i, :-1])[0]
+        at = np.concatenate([ctps[i, down + 1], ctps[i, down]])
+        if at.size:
+            r[i, 0] = rng.choice(at, k)
+    return b, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 40])
+@pytest.mark.parametrize("p", [512, 4096, 4097, 102_784])
+def test_its_select_kernels_count_where_the_ctps_steps_down(cuda_device, k, p):
+    """Both kernels take the count of CTPS entries <= r, as the plain
+    version and the reference do, also at draws on the entries where the
+    scan's rounding makes the CTPS step down."""
+    b, r = _stepping_case(p + k, 64 if p <= 4097 else 16, p, k, 8)
+    want = kernels.its_select(torch.from_numpy(b), torch.from_numpy(r))
+    bt, rt = torch.from_numpy(b).to(cuda_device), torch.from_numpy(r).to(cuda_device)
+    for wide in (False, True) if k <= 32 and p <= 4096 else (True,):
+        got = its_module._launch(bt, rt, wide=wide)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=f"wide={wide}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["neighbor_unbiased", "neighbor_biased", "forest_fire", "layer",
+                                  "snowball", "mdrw"])
+def test_card_traversal_equals_cpu_traversal(cuda_device, name):
+    """Every traversal algorithm on a graph with a hub of degree 600: the
+    per-vertex rows take the warp kernel, layer sampling's pooled rows of
+    8 x 600 candidates the wide one."""
+    rng = np.random.default_rng(4)
+    leaves = np.arange(1, 601)
+    src = np.concatenate([np.zeros(600, np.int64), leaves, rng.integers(1, 601, 2000)])
+    dst = np.concatenate([leaves, np.roll(leaves, 1), rng.integers(1, 601, 2000)])
+    g = csr_from_edges(601, src, dst, weights=rng.random(src.size) + 0.1, symmetrize=True,
+                       device="cpu")
+    pools = rng.integers(0, 601, (48, 3)).astype(np.int32)
+    pools[:8, 0] = 0
+    pools[8:12, 1:] = -1
+    kw = dict(depth=3, spec=alg.ALGORITHMS[name](), max_degree=g.max_degree(),
+              pool_capacity=32, max_vertices=601)
+    cpu = traversal_sample(g, pools, PRNGKey(6), device="cpu", **kw)
+    kernels.reset_launch_counts()
+    gpu = traversal_sample(g, pools, PRNGKey(6), device=cuda_device, **kw)
+    for field, a, b in zip(cpu._fields, cpu, gpu):
+        np.testing.assert_array_equal(b.cpu().numpy(), a.numpy(), err_msg=field)
+    assert kernels.launch_counts()["its_select"] == 2 * 3
+    if name == "layer":
+        assert kernels.its_select.wide_launches == 3
 
 
 @pytest.mark.cuda

@@ -112,7 +112,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 _ISOLATION_CHILD = """
 import dataclasses, json, sys
 from repro_torch.core import algorithms as alg
-from repro_torch.core.engine import random_walk
+from repro_torch.core.engine import random_walk, traversal_sample
 from repro_torch.core.rng import PRNGKey
 from repro_torch.graph import powerlaw_graph
 g = powerlaw_graph(200, seed=3, weighted=True, device="cpu")
@@ -122,9 +122,12 @@ for spec in (alg.weighted_random_walk(), alg.node2vec(), alg.metropolis_hastings
     res = random_walk(g, list(range(16)), PRNGKey(1), depth=4, spec=spec,
                       max_degree=g.max_degree(), device="cpu")
     walked += int(res.sampled_edges > 0)
+sample = traversal_sample(g, [[0], [5]], PRNGKey(1), depth=2, spec=alg.layer_sampling(),
+                          max_degree=g.max_degree(), pool_capacity=16, max_vertices=200,
+                          device="cpu")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(json.dumps({"bad": bad, "walked": walked}))
+print(json.dumps({"bad": bad, "walked": walked, "sampled": int(sample.num_edges.sum())}))
 """
 
 
@@ -136,3 +139,4 @@ def test_port_imports_neither_jax_nor_repro():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     assert res["walked"] == 4  # every mode walked
+    assert res["sampled"] > 0  # and traversal sampled

@@ -121,3 +121,53 @@ def test_hash_uniform_on_cpu_equals_uniform_many():
     np.testing.assert_array_equal(_bits(got.numpy()),
                                   _bits(rng.uniform_many(keys, 301, device="cpu").numpy()))
     assert hash_uniform.launches == 0
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+@pytest.mark.parametrize("lo,hi", [(-3.0, 7.5), (0.1, 0.2), (-1e3, 1e-3), (float(np.finfo(np.float32).tiny), 1.0)])
+def test_uniform_range_bits(seed, lo, hi):
+    """``jax.random.uniform`` with ``minval``/``maxval``: XLA fuses the
+    scale and shift into one multiply-add, which the port rounds once."""
+    key = jax.random.PRNGKey(seed)
+    ref = jax.random.uniform(key, (333, 17), minval=lo, maxval=hi)
+    got = rng.uniform_range(np.asarray(jax.random.key_data(key)), (333, 17), lo, hi)
+    np.testing.assert_array_equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.parametrize("shape", [(7,), (16, 100), (3, 8, 37), (600, 513)])
+def test_gumbel_bits(shape):
+    key = jax.random.PRNGKey(sum(shape))
+    ref = jax.random.gumbel(key, shape, dtype=jnp.float32)
+    got = rng.gumbel(np.asarray(jax.random.key_data(key)), shape)
+    np.testing.assert_array_equal(_bits(got), _bits(ref))
+
+
+def test_xla_log_bits():
+    """XLA-CPU's f32 ``log`` (where ``torch.log`` rounds otherwise for
+    about 7 % of inputs), on [0, 4), on powers of two down to the smallest
+    normal, on large values and on the special values."""
+    r = np.random.default_rng(0)
+    x = np.concatenate([
+        r.random(400_000) * 4, 2.0 ** -r.uniform(0, 126, 100_000), r.random(100_000) * 1e30,
+        [0.0, -0.0, 1.0, np.inf, -1.0, 1e-40, np.finfo(np.float32).tiny, np.nan, 3e38],
+    ]).astype(np.float32)
+    ref = np.asarray(jnp.log(jnp.asarray(x)))
+    got = rng.xla_log(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(ref))
+    assert (_bits(torch.log(torch.from_numpy(x)).numpy()) != _bits(ref)).sum() > 1000
+
+
+@pytest.mark.parametrize("fn", ["uniform", "gumbel", "many"])
+def test_offset_draws_are_the_batch_draws(fn):
+    """A draw at ``offset`` is the slice of the larger draw: a block of rows
+    of a batch draws exactly its share of the batch's bits."""
+    key = rng.PRNGKey(9)
+    if fn == "many":
+        keys = np.stack([rng.fold_in(key, t) for t in range(3)])
+        whole, part = rng.uniform_many(keys, 500), rng.uniform_many(keys, 120, offset=300)
+        np.testing.assert_array_equal(_bits(part), _bits(whole[:, 300:420]))
+        return
+    draw = rng.uniform if fn == "uniform" else rng.gumbel
+    whole = draw(key, (40, 25))
+    part = draw(key, (6, 25), offset=17 * 25)
+    np.testing.assert_array_equal(_bits(part), _bits(whole[17:23]))
