@@ -68,11 +68,35 @@ comes out.  One walk per vertex, depth 40 (DeepWalk's walk length):
    selects under ``traversal`` in the ``its_select`` entry, the neighbor
    rows in ``its_select_wide`` (times per launch), with rows of P = 4,097
    at K = 33.  The wide kernel is also timed on the warp kernel's operands
-   (``wide_ms``: the frontier selects, and the opaque path's rows).
+   (``wide_ms``: the frontier selects, and the opaque path's rows);
+11. segments — ``random_walk_segments``, R requests in one batch, each row
+   under its own key: ``segments`` (R-MAT 21, ``deepwalk``, 64 rows of
+   32,768 walkers, ``arange(V)`` reshaped, depth 40: one ``derive_keys``
+   and one ``reject_step`` launch a step; rows 0, 31 and 63 equal
+   standalone card walks under their keys, the first 4,096 walkers of row
+   0 a CPU rerun), ``segments its`` and ``segments alias`` (the power-law
+   graph, 64 rows of 15,625); each step kernel with its key table against
+   its plain version at the call's first step (``<kernel>_rows`` entries)
+   and ``derive_keys`` against ``threefry.fold_in``; the serving shape of
+   ``benchmarks/bench_serve.py`` (64 requests of 9-16 seeds padded to 16,
+   depth 16: one fused call against 64 standalone calls); node2vec
+   (R-MAT) and the opaque hook (power-law) at 4 rows of 4,096, depth 4,
+   against the CPU;
+12. oom — ``oom_random_walk`` at ``benchmarks/fig13_oom.py``'s settings on
+   the R-MAT graph (8 vertex-range partitions, ``biased_random_walk``,
+   2,000 instances, depth 16, two partitions resident, two streams, chunks
+   of 1,024): the four Fig. 13 configurations (base, +BA, +BA+WS,
+   +BA+WS+BAL), then node2vec at 256 instances and depth 4, after a
+   one-instance warm-up that builds the partitions' host plan and alias
+   tables (``plan_s``).  Each reports
+   seconds, SEPS, the ``OOMStats`` counters and the drain's ms a chunk;
+   every hop must be an edge; the first 256 instances, traced on the card
+   (idle share, from a trace of the card's events alone) and rerun on the
+   CPU, must give equal walks and stats.
 
 Each path runs with the kernels' launch counts set to 0 just before and read
 just after; a kernel its path never launched fails the run, and a flat
-path must launch each of its methods' kernels once a step.
+path (segments too) must launch each of its methods' kernels once a step.
 
 Each path also records its counted-RNG time per step (flat paths: the host's
 key derivation and the draws the step still makes outside a kernel; CUDA
@@ -125,7 +149,7 @@ RMAT_SCALE = 21
 POWERLAW_VERTICES = 1_000_000
 SEED = 7
 DEPTH = 40
-NODE2VEC_DEPTH = 10  # cut from 40: keeps the run inside half its time limit
+NODE2VEC_DEPTH = 5  # cut from 40 (10 until the segment and OOM paths came)
 EPILOGUE_DEPTH = 40
 CHECK_WALKERS = 4096
 TELEPORT_PROB = 0.15
@@ -142,8 +166,26 @@ TRAVERSAL_CHECK = 16
 SELECT_BUDGET = 32
 MDRW_SEEDS, MDRW_CAPACITY, MDRW_DEPTH = 8, 16, 16
 POOL_CAPACITY = 64
+#: the segment walk (many requests in one batch): R rows of W walkers
+#: (``arange(V)`` reshaped, one walker a vertex), the serving shape of
+#: ``benchmarks/bench_serve.py`` (R rows of 16 walkers, each request 9-16
+#: seeds, depth 16), and the small window and opaque checks against the CPU
+SEGMENT_ROWS = 64
+SERVE_WIDTH, SERVE_DEPTH = 16, 16
+SEGMENT_CHECK_ROWS, SEGMENT_CHECK_WIDTH, SEGMENT_CHECK_DEPTH = 4, 4096, 4
+#: the out-of-memory walk at ``benchmarks/fig13_oom.py``'s settings, and the
+#: instances rerun on the CPU
+OOM_PARTITIONS, OOM_INSTANCES, OOM_DEPTH = 8, 2000, 16
+OOM_CHECK, OOM_WINDOW_DEPTH = 256, 4
+OOM_CONFIGS = {
+    "base": dict(batched=False, workload_aware=False, balance=False),
+    "+BA": dict(batched=True, workload_aware=False, balance=False),
+    "+BA+WS": dict(batched=True, workload_aware=True, balance=False),
+    "+BA+WS+BAL": dict(batched=True, workload_aware=True, balance=True),
+}
 KERNELS = ("reject_step", "alias_step", "walk_step", "walk_step_window", "its_select",
-           "its_select_wide")
+           "its_select_wide", "reject_step_rows", "alias_step_rows", "walk_step_rows",
+           "derive_keys")
 
 
 def _fail(msg: str) -> int:
@@ -151,8 +193,11 @@ def _fail(msg: str) -> int:
     return 2
 
 
+_T0 = time.perf_counter()
+
+
 def _log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
+    print(f"{time.perf_counter() - _T0:7.1f}s {msg}", file=sys.stderr, flush=True)
 
 
 def _require(ok, msg: str) -> None:
@@ -165,13 +210,14 @@ class Smoke:
         import torch
 
         from repro_torch import kernels
-        from repro_torch.core import algorithms, backend, engine, methods, rng, select, transition
-        from repro_torch.graph import generators
+        from repro_torch.core import (
+            algorithms, backend, engine, methods, oom, rng, select, transition)
+        from repro_torch.graph import generators, partition
         from repro_torch.kernels import _build, ref, threefry
 
         self.torch, self.kernels, self.alg = torch, kernels, algorithms
         self.bk, self.eng, self.mt, self.rng, self.tp = backend, engine, methods, rng, transition
-        self.sel = select
+        self.sel, self.oom, self.partition = select, oom, partition
         self.its_mod = importlib.import_module("repro_torch.kernels.its_select")
         self.gen, self.build, self.ref, self.threefry = generators, _build, ref, threefry
         self.dev = torch.device("cuda")
@@ -446,14 +492,16 @@ class Smoke:
         integer operations at their peak rates."""
         return nops / F32_OPS_PER_S + nint / self.int32_ops_per_s
 
-    def measure_flat(self, path, g, spec, methods, tables, buckets, kernel_name, cur, step):
+    def measure_flat(self, path, g, spec, methods, tables, buckets, kernel_name, cur, step,
+                     key=None):
         """Step ``step`` of the path for walkers at ``cur``, as
         ``walk_step_adaptive`` runs it: one launch of ``kernel_name`` for
-        all the cohorts of its method."""
+        all the cohorts of its method.  ``key`` (the segment walk's
+        ``RowKeys``) launches the kernel with a table of each row's keys."""
         torch, rng, ref, K = self.torch, self.rng, self.ref, self.kernels
         bias = self.tp.lower(spec).bias.fn(g)
         w = cur.shape[0]
-        kf = rng.fold_in(rng.fold_in(self.key, step), 1)
+        kf = rng.fold_in(rng.fold_in(self.key if key is None else key, step), 1)
         plan = dict(buckets=buckets, use_chunked=True, methods=methods)
         _, _, deg = ref.walker_rows(g.indptr, cur)
         cohort = ref.walker_cohorts(deg, buckets, True)
@@ -476,7 +524,7 @@ class Smoke:
         work = lambda want: self.work(kernel_name, g, cur, want, bias, tables, kf, plan)  # noqa: E731
         entry = self.compare(path, kernel_name, f"step={step}", launch, plain_fn, work, walkers=w,
                              live=int((deg > 0).sum()), walkers_by_cohort=by_cohort)
-        if kernel_name == "walk_step":
+        if kernel_name == "walk_step" and key is None:
             # the same step from a bias 4 bytes off 16-byte alignment: the
             # kernel's word-by-word loads, which must pick as the 16-byte ones
             shifted = torch.empty(bias.shape[0] + 1, dtype=bias.dtype, device=self.dev)[1:]
@@ -675,6 +723,12 @@ class Smoke:
             "walk_step_window": "src/repro/kernels/walk_step.py:211",
             "its_select": "src/repro/kernels/its_select.py:113",
             "its_select_wide": "src/repro/kernels/its_select.py:113",
+            "reject_step_rows": "src/repro/kernels/walk_step.py:267",
+            "alias_step_rows": "src/repro/kernels/alias_select.py:66",
+            "walk_step_rows": "src/repro/kernels/walk_step.py:158",
+            # no TPU kernel: the per-row key derivation of jax.vmap in
+            # random_walk_segments
+            "derive_keys": "src/repro/core/engine.py:535",
         }
         self.kernel_rows[kernel_name] = dict(
             name=kernel_name, route="cuda", source="src/repro_torch/kernels/csrc/walk_kernels.cu",
@@ -881,6 +935,280 @@ class Smoke:
             self.chunked(lambda s: self.ref.its_select_ref(biases[s], rands[s]), n),
             lambda want: self.select_work(n, p, k, want[1]), rows=n, width=p, k=k)
 
+    # -- the segment walk (R requests in one batch) ----------------------------
+
+    def row_keys(self, rows, width, device=None):
+        """The keys ``fold_in(PRNGKey(SEED), r)`` of ``rows`` rows of
+        ``width`` walkers: ``(RowKeys on the device, (rows, 2) words)``."""
+        words = np.stack([self.rng.fold_in(self.key, r) for r in range(rows)])
+        base = self.torch.from_numpy(words.view(np.int32).copy()).to(device or self.dev)
+        return self.rng.RowKeys(base, width), words
+
+    def run_segments(self, name, g, spec, kernel_name, *, expect_plan, depth=DEPTH,
+                     check_rows=(0, SEGMENT_ROWS // 2 - 1, SEGMENT_ROWS - 1)):
+        """``random_walk_segments`` over SEGMENT_ROWS rows of ``V // R``
+        walkers (``arange`` reshaped, one walker a vertex), each row under
+        its own key: SEPS, ms a step, launches a step (one per method and
+        one ``derive_keys`` for each), peak memory, idle share; rows
+        ``check_rows`` must equal standalone card walks under their keys and
+        the first CHECK_WALKERS walkers of row 0 a CPU rerun.  Then the
+        step kernel with the key table at the call's first step against its
+        plain version (the ``<kernel>_rows`` entry)."""
+        torch, bk = self.torch, self.bk
+        program = self.tp.lower(spec)
+        md = g.max_degree()
+        methods, tables = self.eng.flat_method_plan(g, program, md)
+        buckets, use_chunked = bk.walk_bucket_plan(md)
+        _require(methods == expect_plan, f"{name}: planned {methods}, expected {expect_plan}")
+        rows = SEGMENT_ROWS
+        width = g.num_vertices // rows
+        seeds = torch.arange(rows * width, dtype=torch.int32, device=self.dev).reshape(rows, width)
+        rk, words = self.row_keys(rows, width)
+        walk = dict(depth=depth, spec=spec, max_degree=md, device=self.dev)
+        _log(f"[{name}] rows={rows} width={width} depth={depth} plan={methods}")
+        self.eng.random_walk_segments(g, seeds, words, **dict(walk, depth=1))  # warm-up
+        self.sync()
+        torch.cuda.reset_peak_memory_stats()
+        self.kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = self.eng.random_walk_segments(g, seeds, words, **walk)
+        self.sync()
+        seconds = time.perf_counter() - t0
+        launches = self.kernels.launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        per_method = {"rejection": "reject_step", "alias": "alias_step"}
+        want = {per_method[m] for m in methods if m in per_method}
+        want |= {"walk_step"} if "its" in methods[:len(buckets)] else set()
+        for k in want:
+            _require(launches[k] == depth, f"{name}: {launches[k]} {k} launches in {depth} steps")
+        _require(launches["derive_keys"] >= depth * len(want),
+                 f"{name}: {launches['derive_keys']} key derivations in {depth} steps")
+        flat = self.eng.WalkResult(res.walks.reshape(-1, depth + 1), res.lengths.reshape(-1),
+                                   res.sampled_edges.sum())
+        edges, off_edge = self.check_walks(g, flat, seeds.reshape(-1), depth, None)
+        t0 = time.perf_counter()
+        for r in check_rows:
+            solo = self.eng.random_walk(g, seeds[r], words[r], **walk)
+            _require(torch.equal(solo.walks, res.walks[r]),
+                     f"{name}: row {r} differs from its standalone walk")
+        n = min(CHECK_WALKERS, width)
+        cpu = self.eng.random_walk(self.cpu_graph(g), seeds[0, :n].cpu(), words[0],
+                                   **dict(walk, device="cpu"))
+        _require(torch.equal(cpu.walks, res.walks[0, :n].cpu()),
+                 f"{name}: row 0's first {n} walkers differ from the CPU walks")
+        row = dict(
+            path=name, spec=spec.name, mode=program.mode, method=program.method, rows=rows,
+            width=width, walkers=rows * width, depth=depth, plan=list(methods), launches=launches,
+            launches_per_step={k: v / depth for k, v in launches.items() if v},
+            sampled_edges=edges, off_edge_hops=off_edge, seconds=seconds, seps=edges / seconds,
+            ms_per_step=1e3 * seconds / depth, peak_gib=peak_gib,
+            standalone_rows_checked=list(check_rows), cpu_check_walkers=n,
+            check_s=time.perf_counter() - t0,
+        )
+        _log(f"[{name}] {json.dumps(row)}")
+        self.paths.append(row)
+        del res, flat, cpu
+        entries = self.measure_flat(name, g, spec, methods, tables, buckets, kernel_name,
+                                    seeds.reshape(-1), 0, key=rk)
+        self.kernel_row(f"{kernel_name}_rows", name, entries, launches=launches[kernel_name])
+        self.kernel_rows[f"{kernel_name}_rows"].update(rows=rows, width=width)
+        if kernel_name == "reject_step":
+            self.derive_row(name, rk, launches["derive_keys"])
+        row.update(self.profile(name, lambda: self.eng.random_walk_segments(
+            g, seeds, words, **dict(walk, depth=2))))
+        return row
+
+    def derive_row(self, path, rk, launches):
+        """``derive_keys`` on the main segment walk's first rejection step
+        (its 16 round keys a row), against its plain version and against
+        ``threefry.fold_in`` along each path on the host."""
+        torch, th = self.torch, self.threefry
+        kf = self.rng.fold_in(self.rng.fold_in(rk, 0), 1)
+        paths = [kf.path + (2, t) for t in range(2 * self.ref.REJECT_ITERS)]
+        got = th.derive_keys(rk.base, paths)
+        words = rk.base.cpu().numpy().view(np.uint32)
+        got = got.cpu().numpy().view(np.uint32)
+        for r in range(rk.rows):
+            for p, fold in enumerate(paths):
+                k = words[r]
+                for d in fold:
+                    k = th.fold_in(k, d)
+                _require(np.array_equal(got[r, p], k),
+                         f"derive_keys: row {r} path {p} differs from fold_in")
+        n_keys = rk.rows * len(paths)
+        work = lambda want: (8 * rk.rows + 8 * n_keys, 0,  # noqa: E731
+                             HASH_INT_OPS * n_keys * len(paths[0]))
+        entry = self.compare(path, "derive_keys", f"rows={rk.rows} keys={len(paths)}",
+                             lambda: th.derive_keys(rk.base, paths),
+                             lambda: th.derive_keys_ref(rk.base, paths), work,
+                             rows=rk.rows, keys=len(paths), depth=len(paths[0]))
+        self.kernel_row("derive_keys", path, [entry], launches=launches)
+
+    def serve_shape(self, g, spec):
+        """``bench_serve.py``'s shape: SEGMENT_ROWS requests of 9-16 seeds
+        (vertices with an edge), padded to SERVE_WIDTH, depth SERVE_DEPTH:
+        one fused call against one standalone call a request; every row
+        equal."""
+        torch = self.torch
+        rng = np.random.default_rng(SEED)
+        deg = (g.indptr[1:] - g.indptr[:-1]).cpu().numpy()
+        live = np.nonzero(deg > 0)[0]
+        fill = rng.integers(9, SERVE_WIDTH + 1, SEGMENT_ROWS)
+        seeds_np = np.full((SEGMENT_ROWS, SERVE_WIDTH), -1, np.int32)
+        for r, k in enumerate(fill):
+            seeds_np[r, :k] = rng.choice(live, k)
+        seeds = torch.from_numpy(seeds_np).to(self.dev)
+        _, words = self.row_keys(SEGMENT_ROWS, SERVE_WIDTH)
+        walk = dict(depth=SERVE_DEPTH, spec=spec, max_degree=g.max_degree(), device=self.dev)
+        fused = lambda: self.eng.random_walk_segments(g, seeds, words, **walk)  # noqa: E731
+        solo = lambda: [self.eng.random_walk(g, seeds[r], words[r], **walk)  # noqa: E731
+                        for r in range(SEGMENT_ROWS)]
+        fused(), solo()  # warm-up
+        self.sync()
+        t0 = time.perf_counter()
+        res = fused()
+        self.sync()
+        fused_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        alone = solo()
+        self.sync()
+        solo_s = time.perf_counter() - t0
+        for r, one in enumerate(alone):
+            _require(torch.equal(one.walks, res.walks[r]), f"serve shape: row {r} differs")
+        row = dict(rows=SEGMENT_ROWS, width=SERVE_WIDTH, depth=SERVE_DEPTH,
+                   seeds=int(fill.sum()), fused_ms=1e3 * fused_s, standalone_ms=1e3 * solo_s,
+                   standalone_over_fused=solo_s / fused_s)
+        _log(f"[serve_shape] {json.dumps(row)}")
+        return row
+
+    def segments_vs_cpu(self, name, g, spec, kernel_name):
+        """A small segment walk (SEGMENT_CHECK_ROWS rows of
+        SEGMENT_CHECK_WIDTH walkers, depth SEGMENT_CHECK_DEPTH) on the card
+        and on the CPU: every row equal, and ``kernel_name`` launched under
+        the row axis."""
+        torch = self.torch
+        rows, width, depth = SEGMENT_CHECK_ROWS, SEGMENT_CHECK_WIDTH, SEGMENT_CHECK_DEPTH
+        seeds = torch.arange(rows * width, dtype=torch.int32).reshape(rows, width)
+        _, words = self.row_keys(rows, width)
+        walk = dict(depth=depth, spec=spec, max_degree=g.max_degree())
+        self.kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = self.eng.random_walk_segments(g, seeds.to(self.dev), words, device=self.dev,
+                                             **walk)
+        self.sync()
+        card_s = time.perf_counter() - t0
+        launches = self.kernels.launch_counts()
+        _require(launches[kernel_name] > 0, f"{name}: {kernel_name} never launched: {launches}")
+        t0 = time.perf_counter()
+        cpu = self.eng.random_walk_segments(self.cpu_graph(g), seeds, words, device="cpu", **walk)
+        cpu_s = time.perf_counter() - t0
+        _require(torch.equal(cpu.walks, card.walks.cpu()), f"{name}: card rows differ from CPU")
+        row = dict(path=name, spec=spec.name, rows=rows, width=width, depth=depth,
+                   seconds=card_s, ms_per_step=1e3 * card_s / depth, cpu_check_s=cpu_s,
+                   launches=launches, sampled_edges=int(card.sampled_edges.sum()))
+        _log(f"[{name}] {json.dumps(row)}")
+        return row
+
+    # -- the out-of-memory walk ----------------------------------------------
+
+    def oom_paths(self, g):
+        """``oom_random_walk`` at ``benchmarks/fig13_oom.py``'s settings on
+        the R-MAT graph: 8 vertex-range partitions, ``biased_random_walk``,
+        2,000 instances, depth 16, two partitions resident, two streams,
+        chunks of 1,024; the four Fig. 13 configurations, then node2vec."""
+        t0 = time.perf_counter()
+        parts = self.partition.partition_by_vertex_range(g, OOM_PARTITIONS)
+        part_s = time.perf_counter() - t0
+        rng = np.random.default_rng(SEED)
+        seeds = rng.integers(0, g.num_vertices, OOM_INSTANCES)
+        kw = dict(depth=OOM_DEPTH, spec=self.alg.biased_random_walk(),
+                  max_degree=min(g.max_degree(), 512), memory_capacity=2, num_streams=2,
+                  chunk=1024)
+        # warm-up: one instance, one step, which reads the partitions' local
+        # biases back and builds their alias tables (cached across calls)
+        t0 = time.perf_counter()
+        self.oom.oom_random_walk(parts, g.num_vertices, seeds[:1], self.key, device=self.dev,
+                                 **dict(kw, depth=1))
+        plan_s = time.perf_counter() - t0
+        rows = {}
+        for cname, flags in OOM_CONFIGS.items():
+            rows[cname] = self.run_oom(f"oom {cname}", g, parts, seeds, dict(kw, **flags))
+        rows["node2vec"] = self.run_oom("oom node2vec", g, parts, seeds[:OOM_CHECK],
+                                        dict(kw, spec=self.alg.node2vec(), depth=OOM_WINDOW_DEPTH))
+        base = rows["base"]["seconds"]
+        for cname in OOM_CONFIGS:
+            rows[cname]["speedup_vs_base"] = base / rows[cname]["seconds"]
+        self.paths.append(dict(path="oom", partitions=OOM_PARTITIONS, partition_s=part_s,
+                               plan_s=plan_s, configs=rows))
+
+    def run_oom(self, name, g, parts, seeds, kw):
+        """One out-of-memory walk on the card, timed whole (transfers and
+        table builds included), its drain calls counted; every hop must be
+        an edge and nothing dropped; then the first OOM_CHECK instances
+        again on the card, traced (idle share), and on the CPU: walks and
+        every ``OOMStats`` field equal."""
+        torch, oom = self.torch, self.oom
+        drain, calls = oom._drain, []
+
+        def counted(*args, **dkw):
+            t0 = time.perf_counter()
+            out = drain(*args, **dkw)
+            calls.append((dkw["n_chunks"], time.perf_counter() - t0))
+            return out
+
+        run = lambda sd, dev: oom.oom_random_walk(  # noqa: E731
+            parts, g.num_vertices, sd, self.key, device=dev, **kw)
+        self.kernels.reset_launch_counts()
+        oom._drain = counted
+        try:
+            t0 = time.perf_counter()
+            walks, stats = run(seeds, self.dev)
+            seconds = time.perf_counter() - t0
+        finally:
+            oom._drain = drain
+        launches = self.kernels.launch_counts()
+        _require(sum(launches.values()) > 0, f"{name}: no kernel launched")
+        _require(stats.frontier_dropped == 0, f"{name}: {stats.frontier_dropped} entries dropped")
+        w = torch.from_numpy(walks).to(self.dev).long()
+        a, b = w[:, :-1].reshape(-1), w[:, 1:].reshape(-1)
+        hop = b >= 0
+        _require(bool((a[hop] >= 0).all()), f"{name}: a walker came back to life")
+        bad = int((~self.is_edge(g, a[hop], b[hop])).sum())
+        _require(bad == 0, f"{name}: {bad} hops are not edges")
+        _require(int(hop.sum()) == stats.sampled_edges, f"{name}: sampled_edges")
+        chunks = sum(c for c, _ in calls)
+        row = dict(
+            path=name, spec=kw["spec"].name, instances=len(seeds), depth=kw["depth"],
+            flags={k: kw[k] for k in ("batched", "workload_aware", "balance") if k in kw},
+            seconds=seconds, seps=stats.sampled_edges / seconds,
+            sampled_edges=stats.sampled_edges, kernel_launches=stats.kernel_launches,
+            partition_transfers=stats.partition_transfers,
+            bytes_transferred=stats.bytes_transferred,
+            kernel_time_std=stats.kernel_time_std(), frontier_dropped=stats.frontier_dropped,
+            drain_calls=len(calls), drain_chunks=chunks,
+            drain_ms_per_chunk=1e3 * seconds / chunks,
+            drain_host_ms_per_chunk=1e3 * sum(t for _, t in calls) / chunks,
+            launches=launches,
+        )
+        del w, a, b, hop
+        # the check: the first instances again, traced on the card (the run
+        # above, when it had no more), and on the CPU
+        check = seeds[:OOM_CHECK]
+        got = [(walks, stats)]
+        if len(seeds) > len(check):
+            got = []
+            row.update(self.profile(name, lambda: got.append(run(check, self.dev)),
+                                    host_events=False))
+        t0 = time.perf_counter()
+        cpu_walks, cpu_stats = run(check, "cpu")
+        row["cpu_check_s"] = time.perf_counter() - t0
+        row["cpu_check_instances"] = len(check)
+        _require(np.array_equal(got[0][0], cpu_walks), f"{name}: card walks differ from the CPU's")
+        _require(dataclasses.asdict(got[0][1]) == dataclasses.asdict(cpu_stats),
+                 f"{name}: card OOMStats differ from the CPU's")
+        _log(f"[{name}] {json.dumps(row)}")
+        return row
+
     # -- the device hash ------------------------------------------------------
 
     def hash_check(self, w):
@@ -909,16 +1237,20 @@ class Smoke:
 
     # -- profile ------------------------------------------------------------
 
-    def profile(self, name, call) -> dict:
+    def profile(self, name, call, host_events=True) -> dict:
         """Trace ``call`` (a path's run at depth 2), again until the trace
         spans ``PROFILE_MIN_S`` (a fast path's two steps alone take a
-        fraction of a millisecond); device time from the card's own events."""
+        fraction of a millisecond); device time from the card's own events.
+        ``host_events=False`` traces the card alone: a long host-bound call
+        (the OOM drain's thousands of chunks) then costs seconds, not
+        minutes, to summarize."""
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
         self.sync()
         walks = 0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        activities = [ProfilerActivity.CPU] if host_events else []
+        with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             while not walks or time.perf_counter() - t0 < PROFILE_MIN_S:
                 call()
@@ -973,6 +1305,12 @@ class Smoke:
             self.run_path(name, g, spec, "reject_step", gen_s, expect_plan=rejection,
                           depth=EPILOGUE_DEPTH, hop_rule=rule)
         self.traversal_paths(g, gen_s)
+        seg = self.run_segments("segments", g, alg.deepwalk(), "reject_step",
+                                expect_plan=rejection)
+        seg["serve_shape"] = self.serve_shape(g, alg.deepwalk())
+        seg["node2vec_rows"] = self.segments_vs_cpu("segments node2vec", g, alg.node2vec(),
+                                                    "walk_step_window")
+        self.oom_paths(g)
         del g
         self._cpu_graphs.clear()
         self.mt.clear_plan_cache()
@@ -988,6 +1326,11 @@ class Smoke:
         opaque = dataclasses.replace(alg.weighted_random_walk(), transition=None,
                                      flat_edge_bias=None)
         self.run_path("opaque", g, opaque, "its_select", gen_s)
+        self.run_segments("segments its", g, its, "walk_step", expect_plan=("its",) * 3,
+                          check_rows=(0,))
+        seg = self.run_segments("segments alias", g, alg.weighted_random_walk(), "alias_step",
+                                expect_plan=("alias",) * 3, check_rows=(0,))
+        seg["opaque_rows"] = self.segments_vs_cpu("segments opaque", g, opaque, "its_select")
 
         for k in KERNELS:
             row = self.kernel_rows[k]

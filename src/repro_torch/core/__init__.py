@@ -1,7 +1,8 @@
 """C-SAW core: the spec API, transition programs, counted RNG, selection,
-the adaptive method planner, the degree-bucketed scheduler, and the walk
-and traversal engines."""
-from repro_torch.core import algorithms, backend, methods, rng, select, transition
+the adaptive method planner, the degree-bucketed scheduler, the walk and
+traversal engines, the multi-request segment walk, and the out-of-memory
+engine with its frontier queues."""
+from repro_torch.core import algorithms, backend, frontier, methods, oom, rng, select, transition
 from repro_torch.core.api import (
     EdgeCtx,
     SamplingSpec,
@@ -25,8 +26,10 @@ from repro_torch.core.engine import (
     WalkResult,
     flat_method_plan,
     random_walk,
+    random_walk_segments,
     traversal_sample,
 )
+from repro_torch.core.oom import OOMStats, oom_random_walk
 from repro_torch.core.transition import (
     FlatBias,
     IdentityEpilogue,
@@ -57,10 +60,15 @@ __all__ = [
     "WalkResult",
     "flat_method_plan",
     "random_walk",
+    "random_walk_segments",
     "traversal_sample",
+    "OOMStats",
+    "oom_random_walk",
     "algorithms",
     "backend",
+    "frontier",
     "methods",
+    "oom",
     "rng",
     "select",
     "transition",

@@ -19,6 +19,12 @@ bucket take a tail (the workload-aware scheduling of the paper, as
 
 The device of the tensors decides what runs: on the card every cohort
 launches its CUDA kernel, on the CPU the kernels' plain versions run.
+
+Every key here may also be ``rng.RowKeys`` (``random_walk_segments``: R
+rows of W walkers in one batch): the step kernels then read each row's
+keys from a device table, and the draws made in tensor code (the window
+uniform, the tails' uniforms) hash each walker's counter within its row
+under its row's key, in one pass over the batch.
 """
 from __future__ import annotations
 

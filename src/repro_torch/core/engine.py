@@ -15,6 +15,11 @@ lowered to its transition program and each step dispatches on its mode, as
   ``edge_bias`` hook, and the ITS draw by the ``its_select`` kernel.
 
 Then the lowered epilogue (identity, MH, teleport, or the ``update`` hook).
+``random_walk_segments`` runs R requests of W walkers as one batch, each
+row under its own key (``RowKeys``), one launch a step per method for all
+rows.  The three transitions (:func:`walk_flat_transition`,
+:func:`walk_window_transition`, :func:`walk_gather_transition`) also serve
+the out-of-memory drain (``core.oom``) over a partition's local CSR.
 
 ``traversal_sample`` runs the frontier-pool algorithms (neighbor, forest
 fire, snowball, layer, MDRW): each step selects a frontier from every
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import backend as bk
@@ -35,7 +41,7 @@ from repro_torch.core import methods as mt
 from repro_torch.core import select as sel
 from repro_torch.core import transition as tp
 from repro_torch.core.api import EdgeCtx, SamplingSpec, VertexCtx
-from repro_torch.core.rng import fold_in, key_from_array, uniform
+from repro_torch.core.rng import RowKeys, fold_in, key_from_array, uniform
 from repro_torch.graph.csr import CSRGraph, neighbors_padded, resolve_device
 
 #: walkers per block of the opaque path's dense context: (block, max_degree)
@@ -44,9 +50,9 @@ GATHER_BLOCK = 1 << 18
 
 
 class WalkResult(NamedTuple):
-    walks: torch.Tensor  # (I, depth+1) int32, -1 after termination
+    walks: torch.Tensor  # (I, depth+1) int32, -1 after termination ((R, W, depth+1) by rows)
     lengths: torch.Tensor  # (I,) realized lengths (# vertices)
-    sampled_edges: torch.Tensor  # () total sampled edges (for SEPS)
+    sampled_edges: torch.Tensor  # () total sampled edges (for SEPS; (R,) by rows)
 
 
 def _degree(graph: CSRGraph, v: torch.Tensor) -> torch.Tensor:
@@ -54,56 +60,108 @@ def _degree(graph: CSRGraph, v: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 0, graph.indptr[safe + 1] - graph.indptr[safe], 0)
 
 
-def _edge_ctx(graph: CSRGraph, v, prev, depth, max_degree, needs_prev_neighbors):
+def _edge_ctx(graph: CSRGraph, v, prev, depth, max_degree, needs_prev_neighbors, *,
+              partition=None):
     """The dense EDGEBIAS context of a batch of vertices ``v`` of any shape
     (walkers ``(W,)``, traversal frontiers ``(I, fs)``): ``v.shape +
     (max_degree,)`` neighbor ids, weights and degrees, and — when asked —
     membership of each candidate in N(prev) by an O(D²) compare.  Built over
     the flattened batch and reshaped back.  Returns ``(ctx, mask)``.
+
+    With ``partition`` (a ``graph.partition.DevicePartition``), ``graph`` is
+    its local CSR with the phantom row: rows are looked up at localized ids,
+    the context holds global ids (``partition.indices_global``), and
+    neighbors outside the partition read degree 0 off the phantom row, as
+    the reference's out-of-memory drain reads them.
     """
     shape = tuple(v.shape) + (max_degree,)
     vf, pf = v.reshape(-1), prev.reshape(-1)
-    nbrs, wts, mask = neighbors_padded(graph, torch.clamp(vf, min=0), max_degree)
+    local = partition is not None
+    if local:
+        vq, pq = partition.localize(vf), partition.localize(pf)
+    else:
+        vq, pq = torch.clamp(vf, min=0), torch.clamp(pf, min=0)
+    nbrs, wts, mask = neighbors_padded(graph, vq, max_degree)
+    nbrs_row = nbrs  # row-lookup ids (local in partition mode)
+    if local:
+        nbrs = _global_ids(graph, partition, vq, mask, max_degree, -1)
     nbrs = torch.where((vf >= 0)[:, None] & mask, nbrs, -1)
     mask = nbrs >= 0
     ipn = None
     if needs_prev_neighbors:
-        pnbrs, _, pmask = neighbors_padded(graph, torch.clamp(pf, min=0), max_degree)
+        if local:
+            _, _, pmask = neighbors_padded(graph, pq, max_degree)
+            pnbrs = _global_ids(graph, partition, pq, pmask, max_degree, -2)
+        else:
+            pnbrs, _, pmask = neighbors_padded(graph, pq, max_degree)
         pnbrs = torch.where((pf >= 0)[:, None] & pmask & (pnbrs >= 0), pnbrs, -2)
         ipn = ((nbrs[:, :, None] == pnbrs[:, None, :]).any(dim=-1) & mask).reshape(shape)
+    deg_u = _degree(graph, nbrs_row if local else nbrs)
     ctx = EdgeCtx(
-        v=v, u=nbrs.reshape(shape), weight=wts.reshape(shape), deg_v=_degree(graph, v),
-        deg_u=torch.where(mask, _degree(graph, nbrs), 0).reshape(shape), prev=prev,
+        v=v, u=nbrs.reshape(shape), weight=wts.reshape(shape),
+        deg_v=_degree(graph, vq if local else vf).reshape(v.shape),
+        deg_u=torch.where(mask, deg_u, 0).reshape(shape), prev=prev,
         is_prev_neighbor=ipn, depth=depth,
     )
     return ctx, mask.reshape(shape)
 
 
-def _select_epilogue(key, graph, program, spec, v, prev, depth, u, home):
+def _global_ids(graph, partition, rows, mask, max_degree, fill):
+    """The global ids of the padded neighbor lists of local ``rows``."""
+    eidx = graph.indptr[rows.long()].long()[:, None] + torch.arange(max_degree, device=rows.device)
+    return torch.where(mask, partition.indices_global[torch.where(mask, eidx, 0)], fill)
+
+
+def _select_epilogue(key, graph, program, spec, v, prev, depth, u, home, row_of=None):
     """The post-select step of every mode: the minimal D = 1 EdgeCtx of the
     selected edge (unit ``weight`` placeholder, as the reference's fast
-    paths) and the lowered epilogue under ``fold_in(key, 2)``."""
+    paths) and the lowered epilogue under ``fold_in(key, 2)``.  ``row_of``
+    maps global ids to ``graph``'s rows (a partition's ``localize``)."""
     if isinstance(program.epilogue, tp.IdentityEpilogue):
         return u  # the selected neighbor, -1 for dead walkers
+    vq = v if row_of is None else row_of(v)
+    uq = u if row_of is None else row_of(u)
     ctx = EdgeCtx(
         v=v, u=u[:, None], weight=torch.ones(u.shape + (1,), device=u.device),
-        deg_v=_degree(graph, v), deg_u=_degree(graph, u)[:, None], prev=prev,
+        deg_v=_degree(graph, vq), deg_u=_degree(graph, uq)[:, None], prev=prev,
         is_prev_neighbor=None, depth=depth,
     )
     nxt = tp.apply_epilogue(fold_in(key, 2), program, spec, ctx, u, home)
     return torch.where(u >= 0, nxt, -1)
 
 
-def _is_prev_neighbor_window(indptr, ids_sorted, prev, u, mask, *, steps: int):
+def walk_flat_transition(key, graph: CSRGraph, indices_out, flat_bias, v, prev, depth,
+                         spec: SamplingSpec, program: tp.TransitionProgram, *, buckets: tuple,
+                         use_chunked: bool, methods: tuple, tables, row_of=None,
+                         home=None) -> torch.Tensor:
+    """SELECT + epilogue of one flat-bias step, shared by the in-memory
+    walks and the out-of-memory drain (``core.oom``).
+
+    ``core.backend.walk_step_adaptive`` under ``fold_in(key, 1)`` over
+    ``graph``'s rows and ``flat_bias``, emitting ``indices_out`` (the
+    graph's ids in memory; a partition's ``indices_global`` in the drain,
+    with ``row_of`` its ``localize``: the kernels read the local ``indptr``
+    at localized vertices), then the epilogue.
+    """
+    vq = v if row_of is None else row_of(v)
+    u = bk.walk_step_adaptive(
+        fold_in(key, 1), graph.indptr, indices_out, flat_bias, vq, buckets=buckets,
+        use_chunked=use_chunked, methods=methods, tables=tables,
+    )
+    return _select_epilogue(key, graph, program, spec, v, prev, depth, u, home, row_of)
+
+
+def _is_prev_neighbor_window(indptr, ids_sorted, prow, prev, u, mask, *, steps: int):
     """Membership of window candidates in N(prev): a lower-bound binary
     search of each candidate over prev's sorted CSR row, ``steps`` halvings
     (sized from the caller's max-degree bound; an understated bound can
     only give false negatives, exactly as in the reference).
 
-    prev: (n,) walker state; u: (n, D) candidate ids; returns (n, D) bool.
+    prow: (n,) row-lookup ids of prev (localized in partition mode); prev:
+    (n,) walker state; u: (n, D) candidate global ids; returns (n, D) bool.
     """
     e = ids_sorted.shape[0]
-    prow = torch.clamp(prev, min=0).long()
+    prow = prow.long()
     hi_row = indptr[prow + 1][:, None]
     lo = indptr[prow][:, None].expand(u.shape).contiguous()
     hi = hi_row.expand(u.shape).contiguous()
@@ -118,27 +176,34 @@ def _is_prev_neighbor_window(indptr, ids_sorted, prev, u, mask, *, steps: int):
 
 
 def _window_bias_fn(graph: CSRGraph, program: tp.TransitionProgram, v, prev, depth,
-                    max_degree: int):
+                    max_degree: int, row_of=None, ids_sorted=None):
     """Close the program's window hook over the walker state.
 
     The returned ``bias_of(rows, u, w, mask)`` builds the EdgeCtx of
     walkers ``rows`` over a gathered window — candidate ids and weights,
-    degrees by row lookup, prev-membership by binary search — and runs
-    ``WindowBias.fn`` on it.
+    degrees by row lookup, prev-membership by binary search over
+    ``ids_sorted`` (the ids the walk emits, ``graph.indices`` by default) —
+    and runs ``WindowBias.fn`` on it.  ``row_of`` maps global ids to
+    ``graph``'s rows (a partition's ``localize``: non-resident neighbors
+    read degree 0 off the phantom row).
     """
     wb = program.bias
-    deg_v = _degree(graph, v)
+    vq = v if row_of is None else row_of(v)
+    pq = torch.clamp(prev, min=0) if row_of is None else row_of(prev)
+    ids = graph.indices if ids_sorted is None else ids_sorted
+    deg_v = _degree(graph, vq)
     bs_steps = min(32, max(1, max(max_degree, 1).bit_length()))
 
     def bias_of(rows, u, w, mask):
         vr, pr = v[rows], prev[rows]
         if wb.needs_deg_u:
-            deg_u = torch.where(mask, _degree(graph, u), 0)
+            uq = u if row_of is None else row_of(u)
+            deg_u = torch.where(mask, _degree(graph, uq), 0)
         else:  # declared unused: reads as zeros
             deg_u = torch.zeros(u.shape, dtype=torch.int32, device=u.device)
         ipn = None
         if wb.needs_prev_neighbors:
-            ipn = _is_prev_neighbor_window(graph.indptr, graph.indices, pr, u, mask,
+            ipn = _is_prev_neighbor_window(graph.indptr, ids, pq[rows], pr, u, mask,
                                            steps=bs_steps)
         ctx = EdgeCtx(v=vr, u=u, weight=w, deg_v=deg_v[rows], deg_u=deg_u, prev=pr,
                       is_prev_neighbor=ipn, depth=depth)
@@ -147,21 +212,25 @@ def _window_bias_fn(graph: CSRGraph, program: tp.TransitionProgram, v, prev, dep
     return bias_of
 
 
-def walk_window_transition(key, graph: CSRGraph, v, prev, depth, spec: SamplingSpec,
-                           program: tp.TransitionProgram, *, buckets: tuple,
-                           use_chunked: bool, max_degree: int, home=None) -> torch.Tensor:
-    """SELECT + epilogue of one window-bias step (node2vec-class specs)."""
-    bias_of = _window_bias_fn(graph, program, v, prev, depth, max_degree)
+def walk_window_transition(key, graph: CSRGraph, indices_out, v, prev, depth,
+                           spec: SamplingSpec, program: tp.TransitionProgram, *,
+                           buckets: tuple, use_chunked: bool, max_degree: int, row_of=None,
+                           home=None) -> torch.Tensor:
+    """SELECT + epilogue of one window-bias step (node2vec-class specs),
+    shared by the in-memory walks and the out-of-memory drain
+    (``indices_out`` and ``row_of`` as in :func:`walk_flat_transition`)."""
+    vq = v if row_of is None else row_of(v)
+    bias_of = _window_bias_fn(graph, program, v, prev, depth, max_degree, row_of, indices_out)
     u = bk.walk_step_bucketed_window(
-        fold_in(key, 1), graph.indptr, graph.indices, graph.weights, v, bias_of,
+        fold_in(key, 1), graph.indptr, indices_out, graph.weights, vq, bias_of,
         buckets=buckets, use_chunked=use_chunked,
     )
-    return _select_epilogue(key, graph, program, spec, v, prev, depth, u, home)
+    return _select_epilogue(key, graph, program, spec, v, prev, depth, u, home, row_of)
 
 
 def walk_gather_transition(key, graph: CSRGraph, v, prev, depth, spec: SamplingSpec,
                            program: tp.TransitionProgram, *, max_degree: int,
-                           home=None) -> torch.Tensor:
+                           home=None, partition=None) -> torch.Tensor:
     """SELECT + epilogue of one dense-gather step, for opaque programs.
 
     The ``(W, max_degree)`` context and the ITS draw run in blocks of
@@ -169,6 +238,8 @@ def walk_gather_transition(key, graph: CSRGraph, v, prev, depth, spec: SamplingS
     ``uniform(fold_in(key, 1), (W, 1, 1))``, so no walker's pick changes.
     An opaque epilogue (``spec.update``) sees the whole batch's dense
     context, as the reference's hook does, so that step runs as one block.
+    ``partition`` builds the context over a partition's local CSR
+    (:func:`_edge_ctx`).
     """
     w = v.shape[0]
     if w == 0:
@@ -179,7 +250,7 @@ def walk_gather_transition(key, graph: CSRGraph, v, prev, depth, spec: SamplingS
     us = []
     for s in range(0, w, block):
         ctx, mask = _edge_ctx(graph, v[s:s + block], prev[s:s + block], depth, max_degree,
-                              spec.needs_prev_neighbors)
+                              spec.needs_prev_neighbors, partition=partition)
         biases = torch.where(mask, spec.edge_bias(ctx), 0.0)
         idx = bk.select_with_replacement(None, biases, mask, 1, rand=r[s:s + block])
         u = torch.gather(ctx.u, 1, idx.long())[:, 0]
@@ -255,7 +326,18 @@ def random_walk(
     dev = resolve_device(device)
     graph = graph.to(dev)
     seeds = torch.as_tensor(seeds).to(device=dev, dtype=torch.int32)
-    key = key_from_array(key)
+    walks = _walk(graph, seeds, key_from_array(key), depth=depth, spec=spec,
+                  max_degree=max_degree)
+    lengths = (walks >= 0).sum(dim=-1, dtype=torch.int32)
+    return WalkResult(walks, lengths, torch.clamp(lengths - 1, min=0).sum())
+
+
+def _walk(graph: CSRGraph, seeds: torch.Tensor, key, *, depth: int, spec: SamplingSpec,
+          max_degree: int) -> torch.Tensor:
+    """The walk loop of :func:`random_walk` and :func:`random_walk_segments`
+    over flat seeds ``(N,)`` on the graph's device, under one key or
+    ``RowKeys`` (one a row of the flattened batch).  Returns the walks
+    ``(N, depth + 1)``."""
     program = tp.lower(spec)
     mode = program.mode
     if mode == "flat":
@@ -272,14 +354,14 @@ def random_walk(
     for it in range(depth):
         kstep = fold_in(key, it)
         if mode == "flat":
-            u = bk.walk_step_adaptive(
-                fold_in(kstep, 1), graph.indptr, graph.indices, flat_bias, cur,
+            nxt = walk_flat_transition(
+                kstep, graph, graph.indices, flat_bias, cur, prev, it, spec, program,
                 buckets=buckets, use_chunked=use_chunked, methods=methods, tables=tables,
+                home=home,
             )
-            nxt = _select_epilogue(kstep, graph, program, spec, cur, prev, it, u, home)
         elif mode == "window":
             nxt = walk_window_transition(
-                kstep, graph, cur, prev, it, spec, program, buckets=buckets,
+                kstep, graph, graph.indices, cur, prev, it, spec, program, buckets=buckets,
                 use_chunked=use_chunked, max_degree=max_degree, home=home,
             )
         else:
@@ -287,9 +369,65 @@ def random_walk(
                                          max_degree=max_degree, home=home)
         cur, prev = nxt, cur
         path.append(cur)
-    walks = torch.stack(path, dim=1)
+    return torch.stack(path, dim=1)
+
+
+def random_walk_segments(
+    graph: CSRGraph,
+    seeds,
+    keys,
+    *,
+    depth: int,
+    spec: SamplingSpec,
+    max_degree: int,
+    device="cuda",
+) -> WalkResult:
+    """R independent requests in one batch: the multi-request segment path
+    of ``repro.core.engine.random_walk_segments``.
+
+    ``seeds`` is ``(R, W)``, one row a request, padded with -1; ``keys`` is
+    ``(R, 2)``, a key a row (``jax.random.key_data`` words).  Row ``r`` of
+    the result equals ``random_walk(graph, seeds[r], keys[r], ...)`` bit for
+    bit: walker ``i`` of row ``r`` draws under row ``r``'s keys at counter
+    ``i``, as ``jax.vmap`` over the rows draws.  The rows share one
+    selection plan and one set of tables, and each step makes one launch
+    per method for all R rows: the step kernels read each row's keys from a
+    device table that one ``derive_keys`` launch fills (``RowKeys``), and
+    the draws made in tensor code hash every ``(row key, counter)`` pair in
+    one pass.
+
+    Returns a ``WalkResult`` with a leading row axis: ``walks`` ``(R, W,
+    depth + 1)``, ``lengths`` ``(R, W)``, ``sampled_edges`` ``(R,)``.  Runs
+    on ``device`` — ``cuda`` unless the caller passes ``"cpu"``.
+
+    >>> import numpy as np
+    >>> from repro_torch.core import algorithms as alg
+    >>> from repro_torch.core.rng import PRNGKey, fold_in
+    >>> from repro_torch.graph import csr_from_edges
+    >>> g = csr_from_edges(4, [0, 1, 2, 3], [1, 2, 3, 0], symmetrize=True, device="cpu")
+    >>> seeds = [[0, 1, -1, -1], [2, 3, 1, 0]]
+    >>> keys = np.stack([fold_in(PRNGKey(7), r) for r in range(2)])
+    >>> fused = random_walk_segments(g, seeds, keys, depth=3, spec=alg.deepwalk(),
+    ...                              max_degree=2, device="cpu")
+    >>> solo = random_walk(g, seeds[1], keys[1], depth=3, spec=alg.deepwalk(),
+    ...                    max_degree=2, device="cpu")
+    >>> bool((fused.walks[1] == solo.walks).all()), tuple(fused.sampled_edges.tolist())
+    (True, (6, 12))
+    """
+    dev = resolve_device(device)
+    graph = graph.to(dev)
+    seeds = torch.as_tensor(seeds).to(device=dev, dtype=torch.int32)
+    if seeds.dim() != 2:
+        raise ValueError(f"random_walk_segments: seeds must be (R, W), got {tuple(seeds.shape)}")
+    r, w = seeds.shape
+    if isinstance(keys, torch.Tensor):
+        keys = keys.cpu().numpy()
+    words = np.asarray(keys, dtype=np.uint32).reshape(r, 2)
+    base = torch.from_numpy(words.view(np.int32).copy()).to(dev)
+    walks = _walk(graph, seeds.reshape(-1), RowKeys(base, w), depth=depth, spec=spec,
+                  max_degree=max_degree).reshape(r, w, depth + 1)
     lengths = (walks >= 0).sum(dim=-1, dtype=torch.int32)
-    return WalkResult(walks, lengths, torch.clamp(lengths - 1, min=0).sum())
+    return WalkResult(walks, lengths, torch.clamp(lengths - 1, min=0).sum(dim=-1))
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,9 @@ bit for bit, so a port walk equals the reference walk for the same key.
 - A key is a ``uint32[2]`` numpy array, the layout of ``jax.random.key_data``.
   Key derivation (:func:`PRNGKey`, :func:`fold_in`) runs on the host on
   Python ints; only the per-element hashing of :func:`uniform` runs on the
-  tensor's device.
+  tensor's device.  A batch of rows with a key each carries
+  :class:`RowKeys` (its keys derived on the device); every draw here
+  takes it.
 - The hash itself (threefry2x32, the counter layout, the bits-to-float
   step) lives in ``kernels.threefry``, beside the walk-step kernels that run
   it per walker; this module re-exports it, with the draws built on it:
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.threefry import (  # noqa: F401 — the counted RNG's public names
+    RowKeys,
     fold_in,
     gumbel,
     random_bits,
@@ -49,12 +52,15 @@ def key_from_array(key) -> np.ndarray:
     return key.copy()
 
 
-def split(key: np.ndarray, num: int = 2) -> np.ndarray:
-    """``(num, 2)`` keys, as ``jax.random.split(key, num)``'s raw words."""
+def split(key, num: int = 2):
+    """``(num, 2)`` keys, as ``jax.random.split(key, num)``'s raw words
+    (for :class:`RowKeys`, a list of ``num`` of them)."""
+    if isinstance(key, RowKeys):
+        return [key.fold_in(i) for i in range(int(num))]
     return np.stack([fold_in(key, i) for i in range(int(num))])
 
 
-def randint(key: np.ndarray, shape, minval: int, maxval: int, device="cpu") -> torch.Tensor:
+def randint(key, shape, minval: int, maxval: int, device="cpu") -> torch.Tensor:
     """int32 integers in ``[minval, maxval)``, as ``jax.random.randint``.
 
     Two 32-bit draws per element (keys ``split(key)``), combined modulo

@@ -1,4 +1,4 @@
-"""Graph substrate: CSR storage and generators."""
+"""Graph substrate: CSR storage, generators and vertex-range partitions."""
 from repro_torch.graph.csr import (
     CSRGraph,
     csr_from_arrays,
@@ -7,6 +7,13 @@ from repro_torch.graph.csr import (
     resolve_device,
 )
 from repro_torch.graph.generators import erdos_renyi_graph, powerlaw_graph, rmat_graph
+from repro_torch.graph.partition import (
+    DevicePartition,
+    PartitionMap,
+    RangePartition,
+    partition_by_vertex_range,
+    partition_of,
+)
 
 __all__ = [
     "CSRGraph",
@@ -17,4 +24,9 @@ __all__ = [
     "rmat_graph",
     "erdos_renyi_graph",
     "powerlaw_graph",
+    "DevicePartition",
+    "PartitionMap",
+    "RangePartition",
+    "partition_by_vertex_range",
+    "partition_of",
 ]

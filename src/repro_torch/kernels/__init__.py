@@ -13,16 +13,18 @@ PyTorch version.
   kernel for any other K and P
 - ``ref``              — the plain versions, and the scan rule
 - ``threefry``         — the counted-RNG hash the step kernels run per
-  walker, in PyTorch, and ``hash_uniform``, the device hash alone
+  walker, in PyTorch; ``hash_uniform``, the device hash alone; and
+  ``derive_keys``, the per-row keys of a batch of rows (``RowKeys``)
 
 The CUDA sources live in ``csrc/`` and are built at first use
 (``_build``); importing this package builds nothing.
 """
 from repro_torch.kernels.alias_select import alias_step
 from repro_torch.kernels.its_select import its_select
+from repro_torch.kernels.threefry import derive_keys
 from repro_torch.kernels.walk_step import reject_step, walk_step, walk_step_window
 
-KERNEL_WRAPPERS = (walk_step, reject_step, alias_step, walk_step_window, its_select)
+KERNEL_WRAPPERS = (walk_step, reject_step, alias_step, walk_step_window, its_select, derive_keys)
 
 
 def launch_counts() -> dict:
@@ -38,6 +40,7 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "alias_step",
+    "derive_keys",
     "its_select",
     "reject_step",
     "walk_step",

@@ -58,11 +58,34 @@ struct Key {
   uint32_t k0, k1;
 };
 
-// The keys of the rejection rounds: round t's slot uniform under k[2t], its
-// accept uniform under k[2t + 1] (fold_in(fold_in(step key, 2), j), derived
-// on the host).
-struct RoundKeys {
-  Key k[2 * kRejectIters];
+// The keys a step kernel hashes under, key j of walker i: one set for every
+// walker of the launch (a single walk: ValueKeys, by value, derived on the
+// host), or one set a row of a batch of R rows of `width` walkers
+// (TableKeys: a device table of R x N keys from derive_keys_kernel, as
+// jax.vmap over the rows gives them).  Walker i of a row hashes at its index
+// within the row, i - row * width, under its row's keys.  The rejection
+// rounds are N = 2 * kRejectIters keys: round t's slot uniform under key 2t,
+// its accept uniform under key 2t + 1 (fold_in(fold_in(step key, 2), j)).
+template <int N>
+struct ValueKeys {
+  Key k[N];
+  __device__ __forceinline__ int row(int) const { return 0; }
+  __device__ __forceinline__ unsigned long long counter(int i, int) const { return i; }
+  __device__ __forceinline__ Key key(int j, int) const { return k[j]; }
+};
+
+template <int N>
+struct TableKeys {
+  const uint2* tab;  // (R, N) keys, (k0, k1) words
+  int width;
+  __device__ __forceinline__ int row(int i) const { return i / width; }
+  __device__ __forceinline__ unsigned long long counter(int i, int r) const {
+    return (unsigned long long)(i - r * width);
+  }
+  __device__ __forceinline__ Key key(int j, int r) const {
+    const uint2 w = __ldg(tab + (size_t)r * N + j);
+    return Key{w.x, w.y};
+  }
 };
 
 // One step's degree ladder (repro_torch/kernels/walk_step.py::_ladder):
@@ -92,16 +115,17 @@ __device__ __forceinline__ void threefry_rounds(uint32_t& x0, uint32_t& x1) {
   x0 += x1; x1 = __funnelshift_l(x1, x1, R3); x1 ^= x0;
 }
 
-// jax.random.uniform's f32 at counter i under key: threefry2x32 (20 rounds,
-// the key schedule k0, k1, k0 ^ k1 ^ 0x1BD11BDA with the round count added
-// to the second word) of the counter words (i >> 32, i & 0xffffffff), the
-// two output words XORed, 23 of the bits as a mantissa in [1, 2), minus 1.
-// The plain version is repro_torch/kernels/threefry.py (uniform_at).  About
-// 75 integer operations: 2 + 20 x 3 + 5 x 2 adds, rotations and XORs, and
-// the XOR, shift and OR of the bits.
-__device__ __forceinline__ float counted_uniform(Key key, unsigned long long i) {
+// threefry2x32 (20 rounds, the key schedule k0, k1, k0 ^ k1 ^ 0x1BD11BDA
+// with the round count added to the second word) of the counter words
+// (c0, c1).  counted_uniform below is jax.random.uniform's f32 at counter i
+// under key: the hash of (i >> 32, i & 0xffffffff), the two output words
+// XORed, 23 of the bits as a mantissa in [1, 2), minus 1.  The plain
+// version is repro_torch/kernels/threefry.py (uniform_at).  About 75
+// integer operations: 2 + 20 x 3 + 5 x 2 adds, rotations and XORs, and the
+// XOR, shift and OR of the bits.
+__device__ __forceinline__ uint2 threefry2x32(Key key, uint32_t c0, uint32_t c1) {
   const uint32_t k0 = key.k0, k1 = key.k1, k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = (uint32_t)(i >> 32) + k0, x1 = (uint32_t)i + k1;
+  uint32_t x0 = c0 + k0, x1 = c1 + k1;
   threefry_rounds<13, 15, 26, 6>(x0, x1);
   x0 += k1; x1 += k2 + 1u;
   threefry_rounds<17, 29, 16, 24>(x0, x1);
@@ -112,8 +136,19 @@ __device__ __forceinline__ float counted_uniform(Key key, unsigned long long i) 
   x0 += k1; x1 += k2 + 4u;
   threefry_rounds<13, 15, 26, 6>(x0, x1);
   x0 += k2; x1 += k0 + 5u;
-  const uint32_t bits = x0 ^ x1;
+  return make_uint2(x0, x1);
+}
+
+__device__ __forceinline__ float counted_uniform(Key key, unsigned long long i) {
+  const uint2 x = threefry2x32(key, (uint32_t)(i >> 32), (uint32_t)i);
+  const uint32_t bits = x.x ^ x.y;
   return __fsub_rn(__int_as_float((int)((bits >> 9) | 0x3f800000u)), 1.0f);
+}
+
+// jax.random.fold_in(key, data): the hash of the counter (0, data).
+__device__ __forceinline__ Key fold_in(Key key, uint32_t data) {
+  const uint2 x = threefry2x32(key, 0u, data);
+  return Key{x.x, x.y};
 }
 
 // The walker's cohort on the ladder (repro_torch/kernels/ref.py::
@@ -151,15 +186,19 @@ __device__ __forceinline__ int cohort_of(const Ladder& L, int deg, int& cap) {
 // the accept uniform while that gather is in flight; the first acceptance
 // ends the loop, so a near-uniform row costs about one round and two
 // hashes, where the tensor budget hashed all 16.  Counter: the walker's
-// index i in the step's batch.  Writes only the walkers it serves.
+// index i in the step's batch, or in its row under a key table (Keys).
+// Writes only the walkers it serves.
+template <class Keys>
 __global__ void reject_step_kernel(const int* __restrict__ cur,
                                    const int* __restrict__ indptr,
                                    const int* __restrict__ indices,
                                    const float* __restrict__ bias,
                                    const float* __restrict__ row_max,
-                                   int* __restrict__ out, int w, Ladder L, RoundKeys keys) {
+                                   int* __restrict__ out, int w, Ladder L, Keys keys) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= w) return;
+  const int row = keys.row(i);
+  const unsigned long long ctr = keys.counter(i, row);
   const int c = cur[i];
   if (c < 0) return;
   const int start = indptr[c];
@@ -181,9 +220,9 @@ __global__ void reject_step_kernel(const int* __restrict__ cur,
   float last_b = 0.0f;
 #pragma unroll
   for (int t = 0; t < kRejectIters; ++t) {
-    const int slot = min((int)__fmul_rn(counted_uniform(keys.k[2 * t], i), degf), hi);
+    const int slot = min((int)__fmul_rn(counted_uniform(keys.key(2 * t, row), ctr), degf), hi);
     const float b = __ldg(bias + start + slot);
-    if (__fmul_rn(counted_uniform(keys.k[2 * t + 1], i), rm) < b) {
+    if (__fmul_rn(counted_uniform(keys.key(2 * t + 1, row), ctr), rm) < b) {
       chosen = slot;
       break;
     }
@@ -199,10 +238,11 @@ __global__ void reject_step_kernel(const int* __restrict__ cur,
 // walk_step_adaptive: the O(1) alias step, one launch a step for every
 // cohort planned as alias (the tail included).  One thread per walker over
 // the whole batch: it reads its vertex and row offsets, hashes its bucket
-// uniform (counter i under bucket_key) while that gather is in flight, finds
-// its cohort, and draws: slot and coin from one uniform, the prob and alias
-// words at start + slot, one id.  A tail walker (the row uncapped) hashes
-// again under tail_key; they are a few thousand of a million walkers.
+// uniform (key 0 of Keys, at the walker's counter) while that gather is in
+// flight, finds its cohort, and draws: slot and coin from one uniform, the
+// prob and alias words at start + slot, one id.  A tail walker (the row
+// uncapped) hashes again under key 1; they are a few thousand of a million
+// walkers.
 // Bound by bytes: the walker's vertex, two row offsets, two table words and
 // the id, with the hash's 75 integer operations beside them.  Once walkers
 // sit at scattered vertices each read is its own 32-byte sector, four a
@@ -213,24 +253,27 @@ __global__ void reject_step_kernel(const int* __restrict__ cur,
 // first, where neighbouring walkers read neighbouring rows, and it had to
 // save 15 % at both to pay for its memory and second path.  Writes only
 // the walkers it serves: -1 for a zero-total row (alias < 0).
+template <class Keys>
 __global__ void alias_step_kernel(const int* __restrict__ cur, const int* __restrict__ indptr,
                                   const int* __restrict__ indices,
                                   const float* __restrict__ prob,
                                   const int* __restrict__ alias, int* __restrict__ out, int w,
-                                  Ladder L, Key bucket_key, Key tail_key) {
+                                  Ladder L, Keys keys) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= w) return;
   const int c = cur[i];
   if (c < 0) return;
   const int start = __ldg(indptr + c);
   const int end = __ldg(indptr + c + 1);
-  float r = counted_uniform(bucket_key, i);  // depends on i only: overlaps the gather
+  const int row = keys.row(i);
+  const unsigned long long ctr = keys.counter(i, row);
+  float r = counted_uniform(keys.key(0, row), ctr);  // depends on i only: overlaps the gather
   const int deg = end - start;
   if (deg <= 0) return;  // no cohort
   int cap;
   const int k = cohort_of(L, deg, cap);
   if (!((L.serve >> k) & 1)) return;
-  if (k == L.nseg) r = counted_uniform(tail_key, i);  // the tail: cap is INT_MAX
+  if (k == L.nseg) r = counted_uniform(keys.key(1, row), ctr);  // the tail: cap is INT_MAX
   const int deg_eff = min(deg, cap);
   const int hi = deg_eff - 1;
   const float u = __fmul_rn(r, (float)deg_eff);
@@ -404,13 +447,13 @@ constexpr int kMaxRowBlocks = 512 / kScanBlock + 1;
 // row: each warp then holds rows of about one length.  The window origin
 // start - local is a multiple of seg, so with a 16-byte aligned bias (kVec)
 // each window block is four 16-byte loads.  The uniform is hashed at the
-// walker's own counter i, only for a row with mass.  Bound by bytes (the
+// walker's own counter (Keys), only for a row with mass.  Bound by bytes (the
 // row once, the id, the walker's vertex and row offsets) and the hash.
-template <bool kVec>
+template <bool kVec, class Keys>
 __global__ void __launch_bounds__(kThreads) walk_step_kernel(
     const int* __restrict__ cur, const int* __restrict__ indptr,
     const int* __restrict__ indices, const float* __restrict__ bias, int* __restrict__ out,
-    int w, int n_bias, Ladder L, Key key) {
+    int w, int n_bias, Ladder L, Keys keys) {
   constexpr int kBins = kMaxRowBlocks + 1;  // 0 blocks: a walker not served here
   __shared__ int s_bin[kBins];
   __shared__ int s_order[kThreads], s_start[kThreads], s_deg[kThreads], s_seg[kThreads];
@@ -471,8 +514,9 @@ __global__ void __launch_bounds__(kThreads) walk_step_kernel(
     out[ri] = -1;
     return;
   }
-  window_pass<true, kVec>(row, rd, rlocal, nb, __fmul_rn(counted_uniform(key, ri), total), cnt,
-                          room);
+  const int krow = keys.row(ri);
+  const float r = counted_uniform(keys.key(0, krow), keys.counter(ri, krow));
+  window_pass<true, kVec>(row, rd, rlocal, nb, __fmul_rn(r, total), cnt, room);
   out[ri] = indices[rstart + min(cnt, rd - 1)];
 }
 
@@ -488,6 +532,37 @@ __global__ void hash_uniform_kernel(const uint32_t* __restrict__ keys,
     out[j] = counted_uniform(Key{keys[2 * k], keys[2 * k + 1]},
                              (unsigned long long)counters[j % n]);
   }
+}
+
+// The paths of the keys derive_keys_kernel derives: n paths of fold_in data,
+// path p of depth[p] words (repro_torch/kernels/threefry.py: MAX_KEY_PATHS,
+// MAX_KEY_DEPTH).
+constexpr int kMaxKeyPaths = 16;
+constexpr int kMaxKeyDepth = 8;
+struct KeyPaths {
+  int n;
+  int depth[kMaxKeyPaths];
+  uint32_t data[kMaxKeyPaths][kMaxKeyDepth];
+};
+
+// The per-row keys of a batch of R rows, for the step kernels' key tables
+// and the draws made in tensor code: out[r][p] = the fold_ins of path p
+// applied to row r's key in turn (jax.random.fold_in, the hash of the
+// counter (0, data)).  No TPU kernel computes this: it replaces the key
+// derivation that jax.vmap runs per row of random_walk_segments
+// (src/repro/core/engine.py:501) outside any Pallas kernel.  One thread a
+// (row, path); a step derives at most 16 keys of at most 8 fold_ins a row,
+// so a launch is R x 16 threads and a few hundred integer operations each:
+// bound by the launch, not by bytes or operations.
+__global__ void derive_keys_kernel(const uint2* __restrict__ base, uint2* __restrict__ out,
+                                   int rows, KeyPaths paths) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows * paths.n) return;
+  const int r = i / paths.n, p = i - r * paths.n;
+  const uint2 b = base[r];
+  Key k{b.x, b.y};
+  for (int d = 0; d < paths.depth[p]; ++d) k = fold_in(k, paths.data[p][d]);
+  out[i] = make_uint2(k.k0, k.k1);
 }
 
 // -- its_select ---------------------------------------------------------------
@@ -1317,50 +1392,89 @@ __global__ void __launch_bounds__(kWideThreads, 2) its_select_wide_kernel(
   }
 }
 
+// The step kernels' key source: the host's words by value (key_table null),
+// or a device table of nkeys keys a row for rows of `width` walkers.
+template <int N>
+ValueKeys<N> value_keys(const unsigned* words) {
+  ValueKeys<N> keys;
+  for (int j = 0; j < N; ++j) keys.k[j] = Key{words[2 * j], words[2 * j + 1]};
+  return keys;
+}
+
+template <class Keys>
+void walk_step_run(const void* cur, const void* indptr, const void* indices, const void* bias,
+                   void* out, int w, int n_bias, const Ladder& L, Keys keys, cudaStream_t st) {
+  const int blocks = (w + kThreads - 1) / kThreads;
+  if ((uintptr_t)bias % 16 == 0) {
+    walk_step_kernel<true, Keys><<<blocks, kThreads, 0, st>>>(
+        (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)bias, (int*)out,
+        w, n_bias, L, keys);
+  } else {
+    walk_step_kernel<false, Keys><<<blocks, kThreads, 0, st>>>(
+        (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)bias, (int*)out,
+        w, n_bias, L, keys);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 int reject_step_launch(const void* cur, const void* indptr, const void* indices,
                        const void* bias, const void* row_max, void* out, int w,
-                       const int* ladder, const unsigned* key_words, void* stream) {
+                       const int* ladder, const unsigned* key_words, const void* key_table,
+                       int width, void* stream) {
   if (w > 0) {
-    RoundKeys keys;
-    for (int j = 0; j < 2 * kRejectIters; ++j) keys.k[j] = Key{key_words[2 * j], key_words[2 * j + 1]};
-    reject_step_kernel<<<(w + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)bias,
-        (const float*)row_max, (int*)out, w, make_ladder(ladder), keys);
+    constexpr int N = 2 * kRejectIters;
+    const int blocks = (w + kThreads - 1) / kThreads;
+    cudaStream_t st = (cudaStream_t)stream;
+    const Ladder L = make_ladder(ladder);
+    if (key_table) {
+      reject_step_kernel<TableKeys<N>><<<blocks, kThreads, 0, st>>>(
+          (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)bias,
+          (const float*)row_max, (int*)out, w, L, TableKeys<N>{(const uint2*)key_table, width});
+    } else {
+      reject_step_kernel<ValueKeys<N>><<<blocks, kThreads, 0, st>>>(
+          (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)bias,
+          (const float*)row_max, (int*)out, w, L, value_keys<N>(key_words));
+    }
   }
   return (int)cudaGetLastError();
 }
 
 int alias_step_launch(const void* cur, const void* indptr, const void* indices,
                       const void* prob, const void* alias, void* out, int w, const int* ladder,
-                      const unsigned* key_words, void* stream) {
+                      const unsigned* key_words, const void* key_table, int width,
+                      void* stream) {
   if (w > 0) {
-    alias_step_kernel<<<(w + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)prob,
-        (const int*)alias, (int*)out, w, make_ladder(ladder), Key{key_words[0], key_words[1]},
-        Key{key_words[2], key_words[3]});
+    const int blocks = (w + kThreads - 1) / kThreads;
+    cudaStream_t st = (cudaStream_t)stream;
+    const Ladder L = make_ladder(ladder);
+    if (key_table) {
+      alias_step_kernel<TableKeys<2>><<<blocks, kThreads, 0, st>>>(
+          (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)prob,
+          (const int*)alias, (int*)out, w, L, TableKeys<2>{(const uint2*)key_table, width});
+    } else {
+      alias_step_kernel<ValueKeys<2>><<<blocks, kThreads, 0, st>>>(
+          (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)prob,
+          (const int*)alias, (int*)out, w, L, value_keys<2>(key_words));
+    }
   }
   return (int)cudaGetLastError();
 }
 
 int walk_step_launch(const void* cur, const void* indptr, const void* indices,
                      const void* bias, void* out, int w, int n_bias, const int* ladder,
-                     const unsigned* key_words, void* stream) {
+                     const unsigned* key_words, const void* key_table, int width,
+                     void* stream) {
   if (w > 0) {
-    const int blocks = (w + kThreads - 1) / kThreads;
     const Ladder L = make_ladder(ladder);
-    const Key key{key_words[0], key_words[1]};
-    if ((uintptr_t)bias % 16 == 0) {
-      walk_step_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-          (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)bias,
-          (int*)out, w, n_bias, L, key);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (key_table) {
+      walk_step_run(cur, indptr, indices, bias, out, w, n_bias, L,
+                    TableKeys<1>{(const uint2*)key_table, width}, st);
     } else {
-      walk_step_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-          (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)bias,
-          (int*)out, w, n_bias, L, key);
+      walk_step_run(cur, indptr, indices, bias, out, w, n_bias, L, value_keys<1>(key_words), st);
     }
   }
   return (int)cudaGetLastError();
@@ -1415,6 +1529,25 @@ int hash_uniform_launch(const void* keys, const void* counters, void* out, int n
     const int blocks = (int)std::min<long long>((total + kThreads - 1) / kThreads, 1 << 16);
     hash_uniform_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)keys, (const long long*)counters, (float*)out, nkeys, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+int derive_keys_launch(const void* base, void* out, int rows, int n, const int* depth,
+                       const unsigned* data, void* stream) {
+  if (n < 1 || n > kMaxKeyPaths) return (int)cudaErrorInvalidValue;
+  if (rows > 0) {
+    KeyPaths paths;
+    paths.n = n;
+    for (int p = 0; p < kMaxKeyPaths; ++p) {
+      paths.depth[p] = p < n ? depth[p] : 0;
+      if (paths.depth[p] < 0 || paths.depth[p] > kMaxKeyDepth) return (int)cudaErrorInvalidValue;
+      for (int d = 0; d < kMaxKeyDepth; ++d)
+        paths.data[p][d] = p < n ? data[p * kMaxKeyDepth + d] : 0u;
+    }
+    const int total = rows * n;
+    derive_keys_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint2*)base, (uint2*)out, rows, paths);
   }
   return (int)cudaGetLastError();
 }

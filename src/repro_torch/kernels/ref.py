@@ -20,7 +20,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels.threefry import fold_in, uniform, uniform_at, uniform_many
+from repro_torch.kernels.threefry import (
+    RowKeys,
+    bits_to_unit_float,
+    fold_in,
+    threefry2x32,
+    uniform,
+    uniform_at,
+    uniform_many,
+)
 
 _EPS = 1e-12
 #: the BRS clip bound ``1 - 1e-12`` as JAX applies it to f32 (1.0)
@@ -288,10 +296,19 @@ def rejection_randoms(
     reference's counted-RNG contract.  All ``2·iters`` draws hash in one
     pass, laid out walker-major.  The ``reject_step`` kernel hashes only the
     rounds each walker reaches; this is what its plain version reads.
+    Under :class:`~repro_torch.kernels.threefry.RowKeys` walker ``b`` draws
+    its rounds under its row's keys at its index in the row.
     """
     if iters < 1:
         raise ValueError(f"rejection budget needs at least one round, got iters={iters}")
     (n,) = tuple(batch_shape) if isinstance(batch_shape, (tuple, list)) else (batch_shape,)
+    if isinstance(key, RowKeys):  # each walker's rounds under its row's keys
+        rounds = key.table(*((t,) for t in range(2 * iters))).to(torch.int64) & 0xFFFFFFFF
+        b = torch.arange(n, dtype=torch.int64, device=key.device)
+        row = torch.div(b, key.width, rounding_mode="floor")
+        ctr = (b - row * key.width)[:, None]
+        x0, x1 = threefry2x32(rounds[row, :, 0], rounds[row, :, 1], ctr >> 32, ctr & 0xFFFFFFFF)
+        return bits_to_unit_float(x0 ^ x1).reshape(n, iters, 2).contiguous()
     keys = np.stack([fold_in(key, t) for t in range(2 * iters)])
     rs = uniform_many(keys, n, device=device)  # (2*iters, W)
     return rs.t().reshape(n, iters, 2).contiguous()

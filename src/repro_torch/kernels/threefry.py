@@ -12,6 +12,13 @@ without a cycle.
 - A key is a ``uint32[2]`` numpy array, the layout of ``jax.random.key_data``.
   Key derivation (:func:`fold_in`) runs on the host on Python ints; only
   the per-element hashing runs on the tensor's device.
+- A batch of R rows with a key each (``random_walk_segments``: R requests
+  in one launch) carries :class:`RowKeys` instead: ``fold_in`` extends its
+  path on the host, and the rows' keys are derived on the device
+  (:func:`derive_keys`) when a draw needs them.  Every draw here takes
+  either kind of key; under :class:`RowKeys` walker ``b`` of the flattened
+  ``(R·width,)`` batch draws under row ``b // width``'s key at its index in
+  the row, as ``jax.vmap`` over the rows draws.
 - Element ``i`` of a draw hashes the counter ``(i >> 32, i & 0xffffffff)``;
   the two output words are XORed into 32 random bits, and the float is
   ``(bits >> 9 | 0x3f800000) - 1`` (23 mantissa bits in ``[0, 1)``).
@@ -23,6 +30,8 @@ without a cycle.
 hold it against :func:`uniform_many` bit for bit.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -51,8 +60,56 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def fold_in(key: np.ndarray, data: int) -> np.ndarray:
-    """New key from ``key`` and an integer, as ``jax.random.fold_in``."""
+#: the most keys and fold_ins a row that one :func:`derive_keys` launch derives
+#: (``kMaxKeyPaths``, ``kMaxKeyDepth`` in ``csrc/walk_kernels.cu``)
+MAX_KEY_PATHS, MAX_KEY_DEPTH = 16, 8
+
+
+class RowKeys:
+    """The keys of a batch of R rows of ``width`` walkers, one key a row,
+    as ``jax.vmap`` over the rows of a walk holds them.
+
+    ``base`` is the rows' keys as an ``(R, 2)`` int32 tensor (the uint32
+    words' bits) on the batch's device, and ``path`` the ``fold_in`` data
+    applied to every row since.  :meth:`fold_in` extends the path on the
+    host and derives nothing; :meth:`table` derives the keys of the path and
+    its suffixes on the device in one :func:`derive_keys` launch.  Walker
+    ``b`` of the flattened ``(R·width,)`` batch belongs to row ``b // width``
+    and draws at counter ``b % width``.
+    """
+
+    def __init__(self, base: torch.Tensor, width: int, path: tuple = ()):
+        self.base = base
+        self.width = int(width)
+        self.path = tuple(int(d) & _MASK for d in path)
+
+    @property
+    def rows(self) -> int:
+        return self.base.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.base.device
+
+    def fold_in(self, data: int) -> "RowKeys":
+        return RowKeys(self.base, self.width, self.path + (data,))
+
+    def table(self, *suffixes) -> torch.Tensor:
+        """``(R, n, 2)`` int32: each row's key at ``path + suffix`` for each
+        of the n suffixes (tuples of ``fold_in`` data)."""
+        return derive_keys(self.base, [self.path + tuple(s) for s in suffixes])
+
+    def words(self) -> torch.Tensor:
+        """``(R, 2)`` int64: each row's key at ``path``, as unsigned words."""
+        keys = self.table(())[:, 0] if self.path else self.base
+        return keys.to(torch.int64) & _MASK
+
+
+def fold_in(key, data: int):
+    """New key from ``key`` and an integer, as ``jax.random.fold_in``
+    (for :class:`RowKeys`, every row's key, derived when it is used)."""
+    if isinstance(key, RowKeys):
+        return key.fold_in(data)
     k0, k1 = (int(k) for k in key)
     a, b = threefry2x32(k0, k1, 0, int(data) & _MASK)
     return np.array([a, b], dtype=np.uint32)
@@ -70,27 +127,39 @@ def bits_at(key: np.ndarray, counters: torch.Tensor) -> torch.Tensor:
     return a ^ b
 
 
-def random_bits(key: np.ndarray, shape, device="cpu", offset: int = 0) -> torch.Tensor:
+def random_bits(key, shape, device="cpu", offset: int = 0) -> torch.Tensor:
     """32 random bits per element (in int64), as ``jax.random.bits``.
 
     ``offset`` shifts the counters: the result is the elements ``offset``
     onward of a larger draw of the same key (the layout is partitionable),
     so a block of rows of a batch draws exactly its share of the batch's
-    bits."""
+    bits.  Under :class:`RowKeys` the shape's leading axis is the flattened
+    batch ``R·width``: each row's slice is a draw of its own under its key
+    (one hash over every ``(row key, counter)`` pair; ``offset`` 0, the
+    keys' device)."""
     shape = tuple(int(d) for d in shape) if isinstance(shape, (tuple, list)) else (int(shape),)
     n = int(np.prod(shape))
+    if isinstance(key, RowKeys):
+        if offset or not shape or shape[0] != key.rows * key.width:
+            raise ValueError(f"a draw under the keys of {key.rows} rows of {key.width} walkers "
+                             f"needs a leading axis of {key.rows * key.width} and no offset, "
+                             f"got {shape}, offset {offset}")
+        words = key.words()
+        i = torch.arange(n // key.rows, dtype=torch.int64, device=key.device)
+        a, b = threefry2x32(words[:, :1], words[:, 1:], i >> 32, i & _MASK)
+        return (a ^ b).reshape(shape)
     i = torch.arange(int(offset), int(offset) + n, dtype=torch.int64, device=device)
     return bits_at(key, i).reshape(shape)
 
 
-def uniform(key: np.ndarray, shape, device="cpu", offset: int = 0) -> torch.Tensor:
+def uniform(key, shape, device="cpu", offset: int = 0) -> torch.Tensor:
     """f32 uniforms in ``[0, 1)`` with ``jax.random.uniform(key, shape)``'s
     bits, for any shape (element ``i`` of the row-major order hashes
     counter ``i``; ``offset`` as in :func:`random_bits`)."""
     return bits_to_unit_float(random_bits(key, shape, device, offset))
 
 
-def uniform_range(key: np.ndarray, shape, minval: float, maxval: float,
+def uniform_range(key, shape, minval: float, maxval: float,
                   device="cpu", offset: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, minval=minval, maxval=maxval)``:
     ``max(minval, u * (maxval - minval) + minval)`` in f32, the bounds
@@ -101,10 +170,19 @@ def uniform_range(key: np.ndarray, shape, minval: float, maxval: float,
     return torch.clamp(_fma(u, float(hi - lo), float(lo)), min=float(lo))
 
 
-def uniform_at(key: np.ndarray, counters: torch.Tensor) -> torch.Tensor:
+def uniform_at(key, counters: torch.Tensor) -> torch.Tensor:
     """The uniforms of the given counters only: ``uniform(key, (W,))[counters]``
-    for any ``W`` above them, at the cost of ``len(counters)`` hashes."""
-    return bits_to_unit_float(bits_at(key, counters.to(torch.int64)))
+    for any ``W`` above them, at the cost of ``len(counters)`` hashes.  Under
+    :class:`RowKeys` the counters index the flattened batch: walker ``b``
+    hashes ``b % width`` under row ``b // width``'s key."""
+    counters = counters.to(torch.int64)
+    if isinstance(key, RowKeys):
+        row = torch.div(counters, key.width, rounding_mode="floor")
+        ctr = counters - row * key.width
+        words = key.words()[row]
+        a, b = threefry2x32(words[:, 0], words[:, 1], ctr >> 32, ctr & _MASK)
+        return bits_to_unit_float(a ^ b)
+    return bits_to_unit_float(bits_at(key, counters))
 
 
 def uniform_many(keys: np.ndarray, n: int, device="cpu", offset: int = 0) -> torch.Tensor:
@@ -176,12 +254,67 @@ def xla_log(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, r, nan)
 
 
-def gumbel(key: np.ndarray, shape, device="cpu", offset: int = 0) -> torch.Tensor:
+def gumbel(key, shape, device="cpu", offset: int = 0) -> torch.Tensor:
     """f32 Gumbel noise with ``jax.random.gumbel(key, shape)``'s bits:
     ``-log(-log(u))`` for ``u`` uniform in ``[tiny, 1)``, by
     :func:`xla_log` (``offset`` as in :func:`random_bits`)."""
     u = uniform_range(key, shape, _MIN_NORMAL, 1.0, device, offset)
     return -xla_log(-xla_log(u))
+
+
+def _as_int32(words: torch.Tensor) -> torch.Tensor:
+    """Unsigned 32-bit values held in int64, as int32 tensors of the same bits."""
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def derive_keys_ref(base: torch.Tensor, paths) -> torch.Tensor:
+    """Plain version of :func:`derive_keys`: the fold_ins of each path over
+    every row at once, in int64 tensor arithmetic."""
+    k = base.to(torch.int64) & _MASK
+    out = []
+    for path in paths:
+        k0, k1 = k[:, 0], k[:, 1]
+        for d in path:
+            k0, k1 = threefry2x32(k0, k1, 0, int(d) & _MASK)
+        out.append(torch.stack([k0, k1], dim=-1))
+    return _as_int32(torch.stack(out, dim=1))
+
+
+def derive_keys(base: torch.Tensor, paths) -> torch.Tensor:
+    """The keys at the given paths of every row: ``(R, n, 2)`` int32, entry
+    ``[r, p]`` the key ``base[r]`` after ``fold_in`` of each word of
+    ``paths[p]`` in turn (``jax.random.fold_in``).  ``base`` is ``(R, 2)``
+    int32 (the words' bits); at most :data:`MAX_KEY_PATHS` paths of at most
+    :data:`MAX_KEY_DEPTH` words.  On a CUDA tensor one launch of
+    ``derive_keys_kernel`` derives them all; on a CPU tensor
+    :func:`derive_keys_ref` runs.  ``derive_keys.launches`` counts the
+    kernel's launches."""
+    paths = [tuple(int(d) & _MASK for d in p) for p in paths]
+    if not 1 <= len(paths) <= MAX_KEY_PATHS or any(len(p) > MAX_KEY_DEPTH for p in paths):
+        raise ValueError(f"derive_keys takes 1 to {MAX_KEY_PATHS} paths of at most "
+                         f"{MAX_KEY_DEPTH} words, got {[len(p) for p in paths]}")
+    if base.dim() != 2 or base.shape[1] != 2:
+        raise ValueError(f"derive_keys: base keys must be (R, 2), got {tuple(base.shape)}")
+    if base.device.type == "cpu":
+        return derive_keys_ref(base, paths)
+    _build.require_cuda("derive_keys", ((base, torch.int32),), ())
+    out = torch.empty((base.shape[0], len(paths), 2), dtype=torch.int32, device=base.device)
+    if base.shape[0] == 0:
+        return out
+    depth = (ctypes.c_int * MAX_KEY_PATHS)(*(len(p) for p in paths))
+    data = (ctypes.c_uint32 * (MAX_KEY_PATHS * MAX_KEY_DEPTH))()
+    for j, p in enumerate(paths):
+        for d, word in enumerate(p):
+            data[j * MAX_KEY_DEPTH + d] = word
+    lib = _build.load()
+    code = lib.derive_keys_launch(base.data_ptr(), out.data_ptr(), base.shape[0], len(paths),
+                                  depth, data, _build.stream_handle(base))
+    _build.check(lib, code, "derive_keys")
+    derive_keys.launches += 1
+    return out
+
+
+derive_keys.launches = 0
 
 
 def hash_uniform(keys: np.ndarray, counters: torch.Tensor) -> torch.Tensor:

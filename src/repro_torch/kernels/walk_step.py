@@ -11,7 +11,10 @@ Each wrapper counts its kernel launches in a plain integer attribute,
 ``walk_step`` and ``reject_step`` are whole steps: they take the step's key
 and the walkers' vertices, find each walker's degree cohort on the ladder
 themselves, serve every cohort planned for their method in one launch, and
-hash the counted uniforms their walkers consume inside the kernel.
+hash the counted uniforms their walkers consume inside the kernel.  Their
+key is one key for every walker, or :class:`~repro_torch.kernels.threefry.RowKeys`:
+one key a row of a batch of rows, read from a device table
+(``random_walk_segments``: every row in one launch).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.threefry import fold_in
+from repro_torch.kernels.threefry import RowKeys, fold_in
 
 #: the longest degree ladder the step kernels take
 MAX_LADDER = 4
@@ -61,6 +64,31 @@ def _key_words(*keys) -> ctypes.Array:
     return (ctypes.c_uint32 * words.shape[0])(*(int(x) for x in words))
 
 
+def _launch_keys(name: str, key, cur: torch.Tensor, *suffixes):
+    """A step kernel's keys: ``key`` after each suffix of ``fold_in`` data.
+    For one key, ``(words, None, 0)``: the words by value, derived on the
+    host.  For :class:`RowKeys` over ``cur``'s rows, ``(None, table,
+    width)``: a device table of each row's keys (one ``derive_keys``
+    launch), which the kernel reads at walker ``b``'s row ``b // width``."""
+    if isinstance(key, RowKeys):
+        if key.rows * key.width != cur.shape[0]:
+            raise ValueError(f"{name}: keys of {key.rows} rows of {key.width} walkers for "
+                             f"{cur.shape[0]} walkers")
+        return None, key.table(*suffixes), key.width
+    derived = {(): np.asarray(key, dtype=np.uint32)}
+
+    def at(path):
+        if path not in derived:
+            derived[path] = fold_in(at(path[:-1]), path[-1])
+        return derived[path]
+
+    return _key_words(*(at(tuple(s)) for s in suffixes)), None, 0
+
+
+def _table_ptr(table):
+    return None if table is None else table.data_ptr()
+
+
 def _step_operands(name, cur, out, indptr, tables, vertex=()):
     """Check a step kernel's operands: walkers (W,), CSR arrays (E,),
     indptr (V+1,) and per-vertex arrays (V,).  Returns the output, all -1
@@ -91,7 +119,9 @@ def walk_step(
     ``"its"``, in one launch.
 
     key: the step's key (the uniform is ``fold_in(key, 0)`` at the
-    walker's index in ``cur``); indptr (V+1,) int32, indices (E,) int32
+    walker's index in ``cur``), or :class:`~repro_torch.kernels.threefry.RowKeys`
+    for a batch of rows (each row's key, at the walker's index in its
+    row); indptr (V+1,) int32, indices (E,) int32
     and bias (E,) float32: the flat CSR; cur: (W,) int32 vertices, -1 for
     finished walkers; ``buckets``/``use_chunked``/``methods``: the step's
     ladder and plan (``core.backend.walk_bucket_plan``,
@@ -112,10 +142,11 @@ def walk_step(
     w = cur.shape[0]
     if w == 0 or ladder[2] == 0:
         return out
+    words, table, width = _launch_keys("walk_step", key, cur, (0,))
     lib = _build.load()
     code = lib.walk_step_launch(
         cur.data_ptr(), indptr.data_ptr(), indices.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        w, bias.shape[0], ladder, _key_words(fold_in(key, 0)), _build.stream_handle(cur),
+        w, bias.shape[0], ladder, words, _table_ptr(table), width, _build.stream_handle(cur),
     )
     _build.check(lib, code, "walk_step")
     walk_step.launches += 1
@@ -203,12 +234,13 @@ def reject_step(
     w = cur.shape[0]
     if w == 0 or ladder[2] == 0:
         return out
-    kb = fold_in(key, 2)
-    keys = _key_words(*(fold_in(kb, t) for t in range(2 * ref.REJECT_ITERS)))
+    words, table, width = _launch_keys("reject_step", key, cur,
+                                       *((2, t) for t in range(2 * ref.REJECT_ITERS)))
     lib = _build.load()
     code = lib.reject_step_launch(
         cur.data_ptr(), indptr.data_ptr(), indices.data_ptr(), bias.data_ptr(),
-        row_max.data_ptr(), out.data_ptr(), w, ladder, keys, _build.stream_handle(cur),
+        row_max.data_ptr(), out.data_ptr(), w, ladder, words, _table_ptr(table), width,
+        _build.stream_handle(cur),
     )
     _build.check(lib, code, "reject_step")
     reject_step.launches += 1

@@ -17,12 +17,13 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.core import algorithms as alg  # noqa: E402
 from repro_torch.core import backend  # noqa: E402
 from repro_torch.core import select as sel  # noqa: E402
-from repro_torch.core.engine import random_walk, traversal_sample  # noqa: E402
+from repro_torch.core.engine import random_walk, random_walk_segments, traversal_sample  # noqa: E402
 from repro_torch.core.methods import MethodTables  # noqa: E402
-from repro_torch.core.rng import PRNGKey, fold_in, uniform_at, uniform_many  # noqa: E402
-from repro_torch.graph import csr_from_edges  # noqa: E402
+from repro_torch.core.oom import oom_random_walk  # noqa: E402
+from repro_torch.core.rng import RowKeys, PRNGKey, fold_in, uniform_at, uniform_many  # noqa: E402
+from repro_torch.graph import csr_from_edges, partition_by_vertex_range, powerlaw_graph  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.kernels.threefry import hash_uniform  # noqa: E402
+from repro_torch.kernels.threefry import derive_keys, hash_uniform  # noqa: E402
 
 #: the module behind ``kernels.its_select``, whose private launcher runs
 #: either kernel at any shape
@@ -113,7 +114,8 @@ def test_kernels_match_plain_versions(cuda_device, seg):
                                 methods=("its",) * (len(ladder) + tail))
     np.testing.assert_array_equal(on_card.cpu().numpy(), want.numpy())
     assert kernels.launch_counts() == {"walk_step": 1, "reject_step": 1, "alias_step": 1,
-                                       "walk_step_window": 0, "its_select": 0}
+                                       "walk_step_window": 0, "its_select": 0,
+                                       "derive_keys": 0}
 
 
 @pytest.mark.cuda
@@ -260,7 +262,8 @@ def test_mixed_plans_one_launch_per_method(cuda_device, ladder, tail, methods):
     assert kernels.launch_counts() == {"walk_step": int(bucket_its),
                                        "reject_step": int("rejection" in methods),
                                        "alias_step": int("alias" in methods),
-                                       "walk_step_window": 0, "its_select": 0}
+                                       "walk_step_window": 0, "its_select": 0,
+                                       "derive_keys": 0}
 
 
 @pytest.mark.cuda
@@ -641,3 +644,141 @@ def test_card_walks_equal_cpu_walks_for_every_mode(cuda_device, name):
     launched = kernels.launch_counts()
     want = {"node2vec": "walk_step_window", "opaque": "its_select"}.get(name, "reject_step")
     assert launched[want] > 0, launched
+
+
+# -- per-row key tables (random_walk_segments) and the out-of-memory engine --
+
+
+def _row_keys(rows: int, width: int, device, seed: int = 3):
+    """``RowKeys`` of ``rows`` rows of ``width`` walkers, keys
+    ``fold_in(PRNGKey(seed), r)``, on ``device``."""
+    words = np.stack([fold_in(PRNGKey(seed), r) for r in range(rows)])
+    base = torch.from_numpy(words.view(np.int32).copy()).to(device)
+    return RowKeys(base, width)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width", [(1, 4099), (3, 1237), (64, 65), (64, 31)])
+@pytest.mark.parametrize("ladder,tail", [((128, 512), True), ((128,), False)])
+def test_key_table_kernels_match_plain_versions(cuda_device, rows, width, ladder, tail):
+    """The three step kernels under a key table of R rows (W not a multiple
+    of the block, a row all -1): one ``derive_keys`` and one step launch
+    each, every walker equal to the plain version under the same keys."""
+    w = rows * width
+    cpu = _case(rows + width, w=w)
+    cpu["cur"][width:2 * width] = -1  # a row of finished walkers (or padding)
+    gpu = {k: v.to(cuda_device) for k, v in cpu.items()}
+    kcpu = fold_in(_row_keys(rows, width, "cpu"), 1)
+    kgpu = fold_in(_row_keys(rows, width, cuda_device), 1)
+    for fn, method in STEP_KERNELS:
+        want = _step(fn, cpu, kcpu, ladder, tail, method)
+        kernels.reset_launch_counts()
+        got = _step(fn, gpu, kgpu, ladder, tail, method)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=fn.__name__)
+        counts = kernels.launch_counts()
+        assert counts[fn.__name__] == 1 and counts["derive_keys"] == 1
+        if rows > 1:
+            assert (want[width:2 * width] == -1).all()
+
+
+@pytest.mark.cuda
+def test_key_table_rows_equal_single_key_launches(cuda_device):
+    """Row ``r`` of a key-table launch equals the by-value launch of the
+    row alone under its own key, for each step kernel."""
+    rows, width = 5, 777
+    c = {k: v.to(cuda_device) for k, v in _case(11, w=rows * width).items()}
+    rk = _row_keys(rows, width, cuda_device)
+    words = np.stack([fold_in(PRNGKey(3), r) for r in range(rows)])
+    for fn, method in STEP_KERNELS:
+        batch = _step(fn, c, fold_in(rk, 2), (128, 512), True, method)
+        for r in range(rows):
+            sl = slice(r * width, (r + 1) * width)
+            row = {**c, "cur": c["cur"][sl].contiguous()}
+            solo = _step(fn, row, fold_in(words[r], 2), (128, 512), True, method)
+            assert torch.equal(batch[sl], solo), (fn.__name__, r)
+
+
+@pytest.mark.cuda
+def test_derive_keys_kernel_matches_fold_in(cuda_device):
+    rows = 70
+    words = np.stack([fold_in(PRNGKey(9), r) for r in range(rows)])
+    base = torch.from_numpy(words.view(np.int32).copy())
+    paths = [(), (1,), (4, 1, 2), (4, 1, 2, 15), tuple(range(8))] + [(t,) for t in range(11)]
+    kernels.reset_launch_counts()
+    got = derive_keys(base.to(cuda_device), paths)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["derive_keys"] == 1
+    assert torch.equal(got.cpu(), derive_keys(base, paths))
+    for r in (0, 33, rows - 1):
+        for p, path in enumerate(paths):
+            k = words[r]
+            for d in path:
+                k = fold_in(k, d)
+            np.testing.assert_array_equal(got[r, p].cpu().numpy().view(np.uint32), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["deepwalk", "alias", "its", "node2vec", "opaque", "mhrw",
+                                  "restart_home"])
+def test_card_segments_equal_cpu_segments(cuda_device, name):
+    rng = np.random.default_rng(4)
+    leaves = np.arange(1, 601)
+    src = np.concatenate([np.zeros(600, np.int64), leaves, rng.integers(1, 601, 900)])
+    dst = np.concatenate([leaves, np.roll(leaves, 1), rng.integers(1, 601, 900)])
+    g = csr_from_edges(601, src, dst, weights=rng.random(src.size) + 0.1, symmetrize=True,
+                       device="cpu")
+    seeds = rng.integers(0, 601, (6, 40)).astype(np.int32)
+    seeds[:, :4] = 0
+    seeds[2, 9:] = -1
+    seeds[4] = -1
+    spec = {
+        "deepwalk": alg.deepwalk(),
+        "alias": dataclasses.replace(alg.weighted_random_walk(), selection_method="alias"),
+        "its": dataclasses.replace(alg.weighted_random_walk(), selection_method="its"),
+        "node2vec": alg.node2vec(),
+        "opaque": dataclasses.replace(alg.weighted_random_walk(), transition=None,
+                                      flat_edge_bias=None),
+        "mhrw": alg.metropolis_hastings_walk(),
+        "restart_home": alg.random_walk_with_restart(0.3),
+    }[name]
+    keys = np.stack([fold_in(PRNGKey(8), r) for r in range(6)])
+    kw = dict(depth=5, spec=spec, max_degree=g.max_degree())
+    cpu = random_walk_segments(g, seeds, keys, device="cpu", **kw)
+    kernels.reset_launch_counts()
+    gpu = random_walk_segments(g, seeds, keys, device=cuda_device, **kw)
+    for a, b in zip(cpu, gpu):
+        assert torch.equal(a, b.cpu())
+    assert sum(kernels.launch_counts().values()) > 0
+    solo = random_walk(g, seeds[3], keys[3], device=cuda_device, **kw)
+    assert torch.equal(solo.walks, gpu.walks[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,flags", [
+    ("auto", dict(batched=False, workload_aware=False, balance=False)),
+    ("auto", dict()), ("its", dict()), ("node2vec", dict()), ("opaque", dict()),
+    ("jump", dict(num_streams=3)),
+])
+def test_card_oom_equals_cpu_oom(cuda_device, name, flags):
+    g = powerlaw_graph(600, seed=5, weighted=True, device="cpu")
+    parts = partition_by_vertex_range(g, 4)
+    seeds = np.random.default_rng(2).integers(-1, 600, 120)
+    spec = {
+        "auto": alg.biased_random_walk(),
+        "its": dataclasses.replace(alg.weighted_random_walk(), selection_method="its"),
+        "node2vec": alg.node2vec(),
+        "opaque": dataclasses.replace(alg.weighted_random_walk(), transition=None,
+                                      flat_edge_bias=None),
+        "jump": alg.random_walk_with_jump(0.2, 600),
+    }[name]
+    limits = np.random.default_rng(3).integers(0, 7, 120)
+    kw = dict(depth=6, spec=spec, max_degree=g.max_degree(), chunk=64, depth_limits=limits,
+              **flags)
+    walks_cpu, stats_cpu = oom_random_walk(parts, 600, seeds, PRNGKey(5), device="cpu", **kw)
+    kernels.reset_launch_counts()
+    walks_gpu, stats_gpu = oom_random_walk(parts, 600, seeds, PRNGKey(5), device=cuda_device,
+                                           **kw)
+    np.testing.assert_array_equal(walks_gpu, walks_cpu)
+    assert dataclasses.asdict(stats_gpu) == dataclasses.asdict(stats_cpu)
+    assert stats_gpu.partition_transfers > 0 and sum(kernels.launch_counts().values()) > 0

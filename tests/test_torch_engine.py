@@ -95,7 +95,8 @@ def test_cpu_walk_launches_no_kernel():
     _, tg, seeds = _graph("star")
     random_walk(tg, seeds, PRNGKey(0), depth=3, spec=talg.deepwalk(), max_degree=600, device="cpu")
     assert kernels.launch_counts() == {"walk_step": 0, "reject_step": 0, "alias_step": 0,
-                                       "walk_step_window": 0, "its_select": 0}
+                                       "walk_step_window": 0, "its_select": 0,
+                                       "derive_keys": 0}
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -125,9 +126,21 @@ for spec in (alg.weighted_random_walk(), alg.node2vec(), alg.metropolis_hastings
 sample = traversal_sample(g, [[0], [5]], PRNGKey(1), depth=2, spec=alg.layer_sampling(),
                           max_degree=g.max_degree(), pool_capacity=16, max_vertices=200,
                           device="cpu")
+from repro_torch.core.engine import random_walk_segments
+from repro_torch.core.oom import oom_random_walk
+from repro_torch.core.rng import fold_in
+from repro_torch.graph.partition import partition_by_vertex_range
+import numpy as np
+keys = np.stack([fold_in(PRNGKey(2), r) for r in range(3)])
+fused = random_walk_segments(g, [[0, 1], [2, -1], [3, 4]], keys, depth=3,
+                             spec=alg.deepwalk(), max_degree=g.max_degree(), device="cpu")
+walks, stats = oom_random_walk(partition_by_vertex_range(g, 4), 200, list(range(16)),
+                               PRNGKey(1), depth=3, spec=alg.biased_random_walk(),
+                               max_degree=g.max_degree(), device="cpu")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(json.dumps({"bad": bad, "walked": walked, "sampled": int(sample.num_edges.sum())}))
+print(json.dumps({"bad": bad, "walked": walked, "sampled": int(sample.num_edges.sum()),
+                  "fused": int(fused.sampled_edges.sum()), "oom": stats.sampled_edges}))
 """
 
 
@@ -140,3 +153,4 @@ def test_port_imports_neither_jax_nor_repro():
     assert res["bad"] == []
     assert res["walked"] == 4  # every mode walked
     assert res["sampled"] > 0  # and traversal sampled
+    assert res["fused"] > 0 and res["oom"] > 0  # and the segment and out-of-memory walks

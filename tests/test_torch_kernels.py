@@ -424,5 +424,7 @@ def test_cpu_wrappers_launch_nothing():
     kernels.walk_step_window(*args, torch.zeros(args[0].shape[0], 128), _t(c["rand"]),
                              max_seg=128)
     kernels.its_select(torch.ones(4, 100), torch.zeros(4, 2, 3))
+    kernels.derive_keys(torch.zeros((3, 2), dtype=torch.int32), [(1, 2)])
     assert kernels.launch_counts() == {"walk_step": 0, "reject_step": 0, "alias_step": 0,
-                                       "walk_step_window": 0, "its_select": 0}
+                                       "walk_step_window": 0, "its_select": 0,
+                                       "derive_keys": 0}
