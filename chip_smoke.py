@@ -173,6 +173,16 @@ POOL_CAPACITY = 64
 SEGMENT_ROWS = 64
 SERVE_WIDTH, SERVE_DEPTH = 16, 16
 SEGMENT_CHECK_ROWS, SEGMENT_CHECK_WIDTH, SEGMENT_CHECK_DEPTH = 4, 4096, 4
+#: serving at ``benchmarks/bench_serve.py``'s traffic: requests a mix, the
+#: skewed mix's depths and their odds, timed drains a service (the unfused
+#: one is slower), the OOM placement's depths, and the open-loop population
+#: of the streaming service (requests, depth, width bucket, largest cohort,
+#: batching window)
+SERVE_REQUESTS, SERVE_REPS, SERVE_SEQ_REPS = 64, 5, 2
+SKEWED_DEPTHS, SKEWED_P = (4, 8, 16, 32, 64), (0.35, 0.3, 0.2, 0.1, 0.05)
+OOM_SERVE_DEPTHS = (4, 8, 16)
+STREAM_REQUESTS, STREAM_DEPTH, STREAM_WIDTH = 150, 8, 16
+STREAM_MAX_COHORT, STREAM_WINDOW_MS = 16, 10.0
 #: the out-of-memory walk at ``benchmarks/fig13_oom.py``'s settings, and the
 #: instances rerun on the CPU
 OOM_PARTITIONS, OOM_INSTANCES, OOM_DEPTH = 8, 2000, 16
@@ -213,13 +223,17 @@ class Smoke:
         from repro_torch.core import (
             algorithms, backend, engine, methods, oom, rng, select, transition)
         from repro_torch.graph import generators, partition
+        from repro_torch import serve
         from repro_torch.kernels import _build, ref, threefry
+        from repro_torch.serve.stream import percentile
 
         self.torch, self.kernels, self.alg = torch, kernels, algorithms
         self.bk, self.eng, self.mt, self.rng, self.tp = backend, engine, methods, rng, transition
         self.sel, self.oom, self.partition = select, oom, partition
         self.its_mod = importlib.import_module("repro_torch.kernels.its_select")
         self.gen, self.build, self.ref, self.threefry = generators, _build, ref, threefry
+        self.serve, self.percentile = serve, percentile
+        self.card = _card_line()
         self.dev = torch.device("cuda")
         self.key = rng.PRNGKey(SEED)
         self.paths: list[dict] = []
@@ -358,10 +372,7 @@ class Smoke:
             steady_s = time.perf_counter() - t0
         _require(launches[kernel_name] > 0, f"{name}: {kernel_name} never launched: {launches}")
         if methods:  # one launch per method and step
-            per_method = {"rejection": "reject_step", "alias": "alias_step"}
-            want = {per_method[m] for m in methods if m in per_method}
-            want |= {"walk_step"} if "its" in methods[:len(buckets)] else set()
-            for k in want:
+            for k in _step_kernels(methods, len(buckets)):
                 _require(launches[k] == depth, f"{name}: {launches[k]} {k} launches in {depth} steps")
         edges, off_edge = self.check_walks(g, res, seeds, depth, hop_rule)
         row = dict(
@@ -976,9 +987,7 @@ class Smoke:
         seconds = time.perf_counter() - t0
         launches = self.kernels.launch_counts()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        per_method = {"rejection": "reject_step", "alias": "alias_step"}
-        want = {per_method[m] for m in methods if m in per_method}
-        want |= {"walk_step"} if "its" in methods[:len(buckets)] else set()
+        want = _step_kernels(methods, len(buckets))
         for k in want:
             _require(launches[k] == depth, f"{name}: {launches[k]} {k} launches in {depth} steps")
         _require(launches["derive_keys"] >= depth * len(want),
@@ -1140,6 +1149,7 @@ class Smoke:
             rows[cname]["speedup_vs_base"] = base / rows[cname]["seconds"]
         self.paths.append(dict(path="oom", partitions=OOM_PARTITIONS, partition_s=part_s,
                                plan_s=plan_s, configs=rows))
+        return parts
 
     def run_oom(self, name, g, parts, seeds, kw):
         """One out-of-memory walk on the card, timed whole (transfers and
@@ -1207,6 +1217,347 @@ class Smoke:
         _require(dataclasses.asdict(got[0][1]) == dataclasses.asdict(cpu_stats),
                  f"{name}: card OOMStats differ from the CPU's")
         _log(f"[{name}] {json.dumps(row)}")
+        return row
+
+    # -- serving ----------------------------------------------------------------
+
+    def live_vertices(self, g):
+        """The vertices with an edge, on the host (serving draws its seeds
+        there)."""
+        deg = (g.indptr[1:] - g.indptr[:-1]).cpu().numpy()
+        return np.nonzero(deg > 0)[0]
+
+    def kernels_of(self, g, spec, md):
+        """The kernels a walk of ``spec`` launches every step, from its plan."""
+        program = self.tp.lower(spec)
+        if program.mode == "window":
+            return {"walk_step_window"}
+        if program.mode == "opaque":
+            return {"its_select"}
+        methods, _ = self.eng.flat_method_plan(g, program, md)
+        return _step_kernels(methods, len(self.bk.walk_bucket_plan(md)[0]))
+
+    def serve_mixes(self, path, g, mixes):
+        """``serve`` / ``serve_mixed``: each mix of ``(spec, seeds, depth)``
+        requests through ``SamplingService(fuse=True)`` and ``fuse=False``,
+        each after one warm drain, every request under the key
+        ``fold_in(PRNGKey(7), i)``: cohorts, launches, padding, fused and
+        sequential ms, the service's own cost over direct
+        ``random_walk_segments`` calls on its packed cohorts, and the
+        checks (fused = unfused for every request, hops are edges, the
+        first request of each program = a CPU rerun)."""
+        S = self.serve
+        md = g.max_degree()
+        rows = {}
+        for mix, requests in mixes.items():
+            keys = [self.rng.fold_in(self.rng.PRNGKey(SEED), i) for i in range(len(requests))]
+
+            def submit(svc):
+                return [svc.submit(seeds, depth=d, spec=spec, key=k)
+                        for (spec, seeds, d), k in zip(requests, keys)]
+
+            def serve_once(svc):
+                ids = submit(svc)
+                return ids, svc.drain()
+
+            fused = S.SamplingService(g, device=self.dev, max_degree=md)
+            seq = S.SamplingService(g, device=self.dev, max_degree=md,
+                                    config=S.ServiceConfig(fuse=False))
+            serve_once(fused), serve_once(seq)  # warm drains
+            before = dataclasses.replace(fused.stats)
+            self.kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            ids, got = serve_once(fused)
+            fused_times = [time.perf_counter() - t0]
+            launches = self.kernels.launch_counts()
+            cohorts = fused.stats.launches - before.launches
+            padded = fused.stats.padded_walker_slots - before.padded_walker_slots
+            for _ in range(SERVE_REPS - 1):
+                t0 = time.perf_counter()
+                serve_once(fused)
+                fused_times.append(time.perf_counter() - t0)
+            want_kernels = set().union(*(self.kernels_of(g, s, md) for s, _, _ in requests))
+            for k in want_kernels | {"derive_keys"}:
+                _require(launches[k] > 0, f"{path} {mix}: {k} never launched: {launches}")
+            before_seq = seq.stats.launches
+            seq_times = []
+            for _ in range(SERVE_SEQ_REPS):
+                t0 = time.perf_counter()
+                seq_ids, seq_got = serve_once(seq)
+                seq_times.append(time.perf_counter() - t0)
+            seq_launches = (seq.stats.launches - before_seq) // SERVE_SEQ_REPS
+            _require(len(got) == len(requests) == len(seq_got), f"{path} {mix}: results missing")
+            for rid, sid in zip(ids, seq_ids):
+                _require(np.array_equal(got[rid].walks, seq_got[sid].walks)
+                         and got[rid].sampled_edges == seq_got[sid].sampled_edges,
+                         f"{path} {mix}: request {rid} differs between fused and unfused")
+            hops = bad = 0
+            for rid in ids:
+                w = self.torch.from_numpy(got[rid].walks).to(self.dev).long()
+                a, b = w[:, :-1].reshape(-1), w[:, 1:].reshape(-1)
+                hop = b >= 0
+                hops += int(hop.sum())
+                bad += int((~self.is_edge(g, a[hop], b[hop])).sum())
+            _require(bad == 0, f"{path} {mix}: {bad} hops are not edges")
+            # the service's own cost: the same cohorts packed as the service
+            # packs them, run as direct random_walk_segments calls
+            probe = S.SamplingService(g, device=self.dev, max_degree=md)
+            submit(probe)
+            packed = [(c, *probe._pack(c)) for c in probe._queue.take_cohorts()]
+            _require(len(packed) == cohorts, f"{path} {mix}: {len(packed)} != {cohorts} cohorts")
+
+            def direct():
+                for c, seeds, kw, _ in packed:
+                    self.eng.random_walk_segments(g, seeds, kw, depth=c.depth,
+                                                  spec=c.requests[0].spec, max_degree=md,
+                                                  device=self.dev)
+                self.sync()
+
+            direct()
+            direct_times = []
+            for _ in range(SERVE_REPS):
+                t0 = time.perf_counter()
+                direct()
+                direct_times.append(time.perf_counter() - t0)
+            # the first request of each program, rerun by a CPU service
+            firsts, seen = [], set()
+            for i, (spec, _, _) in enumerate(requests):
+                if S.cohort_key(spec) not in seen:
+                    seen.add(S.cohort_key(spec))
+                    firsts.append(i)
+            t0 = time.perf_counter()
+            cpu = S.SamplingService(self.cpu_graph(g), device="cpu", max_degree=md)
+            cpu_ids = [cpu.submit(requests[i][1], depth=requests[i][2], spec=requests[i][0],
+                                  key=keys[i]) for i in firsts]
+            cpu_got = cpu.drain()
+            for i, cid in zip(firsts, cpu_ids):
+                _require(np.array_equal(cpu_got[cid].walks, got[ids[i]].walks),
+                         f"{path} {mix}: request {ids[i]} differs from its CPU rerun")
+            cpu_s = time.perf_counter() - t0
+            fused_ms = 1e3 * float(np.median(fused_times))
+            seq_ms = 1e3 * float(np.median(seq_times))
+            direct_ms = 1e3 * float(np.median(direct_times))
+            walker_steps = sum(len(s) * d for _, s, d in requests)
+            row = dict(
+                path=path, mix=mix, requests=len(requests),
+                walkers=sum(len(s) for _, s, _ in requests), walker_steps=walker_steps,
+                specs=sorted({s.name for s, _, _ in requests}), cohorts=cohorts,
+                fused_launches=cohorts, sequential_launches=seq_launches,
+                padded_walker_slots=padded, launches=launches, fused_ms=fused_ms,
+                fused_ms_reps=[1e3 * t for t in fused_times], sequential_ms=seq_ms,
+                sequential_ms_reps=[1e3 * t for t in seq_times],
+                sequential_over_fused=seq_ms / fused_ms, requests_per_s=len(requests) / (
+                    fused_ms / 1e3), walker_steps_per_s=walker_steps / (fused_ms / 1e3),
+                direct_segments_ms=direct_ms, service_overhead_ms=fused_ms - direct_ms,
+                hops=hops, cpu_checked_requests=[ids[i] for i in firsts], cpu_check_s=cpu_s,
+                card=self.card,
+            )
+            row.update(self.profile(f"{path} {mix}", lambda: serve_once(fused)))
+            row["profile_drains"] = row.pop("profile_steps") // 2  # a call is a drain here
+            _log(f"[{path} {mix}] {json.dumps(row)}")
+            rows[mix] = row
+        self.paths.append(dict(path=path, vertices=g.num_vertices, csr_entries=g.num_edges,
+                               mixes=rows, card=self.card))
+        return rows
+
+    def serve_path(self, g):
+        """``serve``: bench_serve.py's ``uniform`` (64 requests of 16 seeds,
+        depth 16, deepwalk) and ``skewed_lengths`` (depths 4-64, p = .35 /
+        .3 / .2 / .1 / .05) mixes on the R-MAT graph, in memory."""
+        rng = np.random.default_rng(SEED)
+        live = self.live_vertices(g)
+        dw = self.alg.deepwalk()
+        uniform = [(dw, rng.choice(live, SERVE_WIDTH), SERVE_DEPTH)
+                   for _ in range(SERVE_REQUESTS)]
+        depths = rng.choice(SKEWED_DEPTHS, size=SERVE_REQUESTS, p=SKEWED_P)
+        skewed = [(dw, rng.choice(live, SERVE_WIDTH), int(d)) for d in depths]
+        return self.serve_mixes("serve", g, {"uniform": uniform, "skewed_lengths": skewed})
+
+    def serve_mixed_path(self, g):
+        """``serve_mixed``: bench_serve.py's ``mixed_specs`` mix on the
+        power-law graph (deepwalk, node2vec, weighted, deepwalk in turn,
+        node2vec from one factory call; 9-16 seeds; depth 8 or 16)."""
+        rng = np.random.default_rng(SEED)
+        live = self.live_vertices(g)
+        specs = [self.alg.deepwalk(), self.alg.node2vec(), self.alg.weighted_random_walk(),
+                 self.alg.deepwalk()]
+        mixed = [(specs[i % 4], rng.choice(live, int(rng.integers(9, SERVE_WIDTH + 1))),
+                  int(rng.choice([8, 16]))) for i in range(SERVE_REQUESTS)]
+        return self.serve_mixes("serve_mixed", g, {"mixed_specs": mixed})
+
+    def serve_oom_path(self, g, parts):
+        """``serve_oom``: the OOM placement on ``oom_paths``' partitions.
+        Prewarm ``biased_random_walk()`` at depth 16, width 16, 64 requests;
+        then 64 requests of 16 seeds at depths from {4, 8, 16}: one cohort,
+        one ``oom_random_walk`` call of 1,024 instances, each request equal
+        to its slice of a direct call under the same launch key and depth
+        limits."""
+        S, rng_mod = self.serve, self.rng
+        spec = self.alg.biased_random_walk()
+        svc = S.SamplingService(partitions=parts, total_vertices=g.num_vertices, device=self.dev,
+                                key=self.key, oom_chunk=1024)
+        t0 = time.perf_counter()
+        svc.prewarm(spec, depth=SERVE_DEPTH, width=SERVE_WIDTH, requests=SERVE_REQUESTS)
+        prewarm_s = time.perf_counter() - t0
+        _require(svc.stats.oom_launches == 0, "serve_oom: the prewarm launch was counted")
+        rng = np.random.default_rng(SEED)
+        live = self.live_vertices(g)
+        reqs = [(rng.choice(live, SERVE_WIDTH), int(rng.choice(OOM_SERVE_DEPTHS)))
+                for _ in range(SERVE_REQUESTS)]
+        self.kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ids = [svc.submit(s, depth=d, spec=spec) for s, d in reqs]
+        got = svc.drain()
+        seconds = time.perf_counter() - t0
+        launches = self.kernels.launch_counts()
+        _require(svc.stats.oom_launches == 1, f"serve_oom: {svc.stats.oom_launches} OOM launches")
+        _require(launches["alias_step"] > 0, f"serve_oom: alias_step never launched: {launches}")
+        seeds = np.concatenate([s for s, _ in reqs]).astype(np.int32)
+        limits = np.concatenate([np.full(len(s), d, np.int32) for s, d in reqs])
+        _require(len(seeds) >= 128 and len(seeds) & (len(seeds) - 1) == 0,
+                 f"serve_oom: {len(seeds)} instances are padded (the direct call takes them bare)")
+        launch_key = rng_mod.fold_in(rng_mod.split(self.key)[1], 1)
+        t0 = time.perf_counter()
+        walks, stats = self.oom.oom_random_walk(
+            parts, g.num_vertices, seeds, launch_key, depth=max(OOM_SERVE_DEPTHS), spec=spec,
+            max_degree=svc.max_degree, depth_limits=limits, memory_capacity=2, num_streams=2,
+            chunk=1024, device=self.dev)
+        direct_s = time.perf_counter() - t0
+        at = 0
+        for rid, (s, d) in zip(ids, reqs):
+            _require(np.array_equal(got[rid].walks, walks[at:at + len(s), :d + 1]),
+                     f"serve_oom: request {rid} differs from its slice of the direct call")
+            at += len(s)
+        sampled = sum(got[rid].sampled_edges for rid in ids)
+        _require(sampled == stats.sampled_edges, "serve_oom: sampled edges disagree")
+        _require(stats.frontier_dropped == 0, "serve_oom: entries dropped")
+        row = dict(
+            path="serve_oom", spec=spec.name, partitions=len(parts), requests=len(reqs),
+            instances=len(seeds), depths=list(OOM_SERVE_DEPTHS), prewarm_s=prewarm_s,
+            seconds=seconds, seps=sampled / seconds, sampled_edges=sampled,
+            direct_s=direct_s, service_overhead_s=seconds - direct_s,
+            oom_launches=svc.stats.oom_launches, padded_walker_slots=svc.stats.padded_walker_slots,
+            oom_stats={k: v for k, v in dataclasses.asdict(stats).items()
+                       if k != "entries_per_kernel"} | {"kernel_time_std": stats.kernel_time_std()},
+            launches=launches, card=self.card,
+        )
+        _log(f"[serve_oom] {json.dumps(row)}")
+        self.paths.append(row)
+        return row
+
+    def stream_path(self, g):
+        """``stream``: the streaming service in thread mode on the power-law
+        graph under bench_serve.py's open-loop population (150 requests,
+        deepwalk and weighted in turn, 9-16 seeds, depth 8, width bucket 16,
+        at most 16 requests a cohort, a 10 ms window; tiers interactive (50
+        ms) / standard / bulk (500 ms); keys ``fold_in(PRNGKey(23), i)``),
+        Poisson arrivals at the capacity proxy (1e3 over the ms of one
+        single-request launch at that geometry), batching on and off over
+        the same schedule; every streamed result must equal the unfused
+        service's."""
+        S, pct = self.serve, self.percentile
+        rng = np.random.default_rng(29)
+        live = self.live_vertices(g)
+        md = g.max_degree()
+        specs = [self.alg.deepwalk(), self.alg.weighted_random_walk()]
+        tiers = {0: (S.Priority.INTERACTIVE, 50.0), 2: (S.Priority.BULK, 500.0)}
+        pop = []
+        for i in range(STREAM_REQUESTS):
+            tier, deadline = tiers.get(i % 4, (S.Priority.STANDARD, None))
+            pop.append((specs[i % 2], rng.choice(live, int(rng.integers(9, STREAM_WIDTH + 1))),
+                        tier, deadline, self.rng.fold_in(self.rng.PRNGKey(23), i)))
+        cfg = S.ServiceConfig(max_pending_requests=1 << 15, max_pending_walkers=1 << 22,
+                              max_requests_per_launch=STREAM_MAX_COHORT)
+        # the capacity proxy: one single-request launch at the serving geometry
+        seeds = np.full((1, STREAM_WIDTH), -1, np.int32)
+        seeds[0, :12] = live[:12]
+        keys = np.stack([self.rng.PRNGKey(0)])
+        single = lambda: self.eng.random_walk_segments(  # noqa: E731
+            g, seeds, keys, depth=STREAM_DEPTH, spec=specs[0], max_degree=md,
+            device=self.dev).walks.cpu()
+        single()
+        times = []
+        for _ in range(SERVE_REPS):
+            t0 = time.perf_counter()
+            single()
+            times.append(time.perf_counter() - t0)
+        single_ms = 1e3 * float(np.median(times))
+        rate = 1e3 / single_ms
+        arrivals = np.cumsum(np.random.default_rng(100).exponential(1.0 / rate, len(pop)))
+        legs, served = {}, {}
+        for batching in (True, False):
+            mode = "batching" if batching else "per_request"
+            svc = S.SamplingService(g, device=self.dev, max_degree=md,
+                                    key=self.rng.PRNGKey(3), config=cfg)
+            t0 = time.perf_counter()
+            for spec in specs:
+                r = 1
+                while r <= STREAM_MAX_COHORT:
+                    svc.prewarm(spec, depth=STREAM_DEPTH, width=STREAM_WIDTH, requests=r)
+                    r *= 2
+            prewarm_s = time.perf_counter() - t0
+            self.kernels.reset_launch_counts()
+            futs, rejected = [], 0
+            stream_cfg = S.StreamConfig(max_batch_window_ms=STREAM_WINDOW_MS, batching=batching)
+            with S.StreamingSamplingService(svc, stream_cfg) as stream:
+                t0 = time.perf_counter()
+                for (spec, sd, tier, deadline, key), at in zip(pop, arrivals):
+                    delay = t0 + at - time.perf_counter()
+                    if delay > 0:
+                        time.sleep(delay)
+                    try:
+                        futs.append(stream.submit(sd, depth=STREAM_DEPTH, spec=spec, key=key,
+                                                  deadline_ms=deadline, priority=tier))
+                    except S.AdmissionError:
+                        rejected += 1
+                failed = [f.request_id for f in futs if f.exception(timeout=600) is not None]
+                t1 = time.perf_counter()
+            launches = self.kernels.launch_counts()
+            _require(rejected == 0, f"stream {mode}: {rejected} admission rejections")
+            _require(not failed and svc.stats.stream_failed_requests == 0,
+                     f"stream {mode}: futures failed: {failed}")
+            want = set().union(*(self.kernels_of(g, s, md) for s in specs))
+            for k in want:
+                _require(launches[k] > 0, f"stream {mode}: {k} never launched: {launches}")
+            lats = [f.latency for f in futs]
+            per_tier = {}
+            for tier, tname in ((0, "interactive"), (1, "standard"), (2, "bulk")):
+                tl = [lat.total_ms for lat in lats if lat.tier == tier]
+                per_tier[tname] = dict(
+                    n=len(tl), p50_ms=pct(tl, 50),
+                    p99_ms=pct(tl, 99),
+                    deadline_misses=sum(lat.deadline_met is False for lat in lats
+                                        if lat.tier == tier))
+            reasons = {}
+            for lat in lats:
+                reasons[lat.reason] = reasons.get(lat.reason, 0) + 1
+            legs[mode] = dict(
+                mode=mode, requests=len(futs), rejected=rejected, failed=len(failed),
+                offered_rps=rate, sustained_rps=len(futs) / (t1 - t0),
+                stream_launches=svc.stats.stream_launches, cohort_launches=svc.stats.launches,
+                requests_by_reason=reasons, deadline_misses=svc.stats.stream_deadline_misses,
+                p50_ms=pct([lat.total_ms for lat in lats], 50),
+                p99_ms=pct([lat.total_ms for lat in lats], 99),
+                mean_launch_ms=float(np.mean([lat.launch_ms for lat in lats])),
+                tiers=per_tier, prewarm_s=prewarm_s, launches=launches,
+            )
+            _log(f"[stream {mode}] {json.dumps(legs[mode])}")
+            served[mode] = [f.result() for f in futs]
+        base = S.SamplingService(g, device=self.dev, max_degree=md,
+                                 config=dataclasses.replace(cfg, fuse=False))
+        ids = [base.submit(sd, depth=STREAM_DEPTH, spec=spec, key=key)
+               for spec, sd, _, _, key in pop]
+        want = base.drain()
+        for mode, results in served.items():
+            for res, rid in zip(results, ids):
+                _require(np.array_equal(res.walks, want[rid].walks),
+                         f"stream {mode}: request {res.request_id} differs from the unfused"
+                         " service")
+        row = dict(path="stream", requests=len(pop), depth=STREAM_DEPTH, width=STREAM_WIDTH,
+                   max_cohort=STREAM_MAX_COHORT, window_ms=STREAM_WINDOW_MS,
+                   single_launch_ms=single_ms, capacity_proxy_rps=rate, legs=legs,
+                   card=self.card)
+        self.paths.append(row)
         return row
 
     # -- the device hash ------------------------------------------------------
@@ -1310,8 +1661,10 @@ class Smoke:
         seg["serve_shape"] = self.serve_shape(g, alg.deepwalk())
         seg["node2vec_rows"] = self.segments_vs_cpu("segments node2vec", g, alg.node2vec(),
                                                     "walk_step_window")
-        self.oom_paths(g)
-        del g
+        self.serve_path(g)
+        parts = self.oom_paths(g)
+        self.serve_oom_path(g, parts)
+        del g, parts
         self._cpu_graphs.clear()
         self.mt.clear_plan_cache()
         torch.cuda.empty_cache()
@@ -1323,6 +1676,7 @@ class Smoke:
         self.run_path("its", g, its, "walk_step", gen_s, expect_plan=("its",) * 3)
         self.run_path("alias", g, alg.weighted_random_walk(), "alias_step", gen_s,
                       expect_plan=("alias",) * 3)
+        self.serve_mixed_path(g)
         opaque = dataclasses.replace(alg.weighted_random_walk(), transition=None,
                                      flat_edge_bias=None)
         self.run_path("opaque", g, opaque, "its_select", gen_s)
@@ -1331,10 +1685,20 @@ class Smoke:
         seg = self.run_segments("segments alias", g, alg.weighted_random_walk(), "alias_step",
                                 expect_plan=("alias",) * 3, check_rows=(0,))
         seg["opaque_rows"] = self.segments_vs_cpu("segments opaque", g, opaque, "its_select")
+        self.stream_path(g)
 
         for k in KERNELS:
             row = self.kernel_rows[k]
             _require(row["launches"] > 0 and row["mismatches"] == 0, f"kernel row {row}")
+
+
+def _step_kernels(methods: tuple, n_buckets: int) -> set:
+    """The step kernels a flat plan launches once a step: one per method
+    (the rejection and alias tails ride their cohorts' launch; ITS launches
+    only for its bucketed cohorts)."""
+    per_method = {"rejection": "reject_step", "alias": "alias_step"}
+    want = {per_method[m] for m in methods if m in per_method}
+    return want | ({"walk_step"} if "its" in methods[:n_buckets] else set())
 
 
 def _max_sm_clock_mhz() -> float:

@@ -284,19 +284,7 @@ def oom_random_walk(
     pm = PartitionMap.create(total_vertices, num_parts)
     program = tp.lower(spec)
     mode = program.mode
-    # the bucketed paths plan from the true max row degree: an understated
-    # max_degree would leave hubs in no cohort
-    flat_md = 1
-    if mode != "opaque":
-        for p in partitions:
-            if p.num_vertices:
-                flat_md = max(flat_md, int(np.diff(p.indptr).max()))
-    if mode == "flat":
-        buckets, use_chunked = bk.walk_bucket_plan(flat_md, exact=True)
-    elif mode == "window":
-        buckets, use_chunked = bk.walk_bucket_plan_window(flat_md)
-    else:
-        buckets, use_chunked = (), False
+    flat_md, buckets, use_chunked = _bucket_plan(partitions, mode)
 
     seeds32 = torch.as_tensor(seeds_np.astype(np.int32)).to(dev)
     cols = depth + 1
@@ -330,9 +318,7 @@ def oom_random_walk(
         (seeds32 >= 0) & (limits > 0),
     )
 
-    # every partition padded to one shape, as the reference's shared trace
-    pad_v = pm.range_size
-    pad_e = max(p.num_edges for p in partitions)
+    pad_v, pad_e = _padded_shape(partitions, total_vertices)
     methods = _plan_methods(partitions, program, buckets, use_chunked, pad_v, pad_e, dev)
     n_cohorts = len(buckets) + (1 if use_chunked else 0)
     run_methods = methods or ("its",) * n_cohorts
@@ -498,6 +484,49 @@ def _plan_methods(partitions, program, buckets, use_chunked, pad_v, pad_e, dev) 
         stats = tuple(np.concatenate(c) for c in zip(*(p.stats for p in plans)))
         methods = mt.plan_methods(deg_all, stats, buckets=buckets, use_chunked=use_chunked)
     return () if mt.is_trivial(methods) else methods
+
+
+def _bucket_plan(partitions: List[RangePartition], mode: str) -> tuple:
+    """``(flat_md, buckets, use_chunked)`` of a walk over ``partitions``:
+    the bucketed paths plan from the true max row degree ``flat_md`` (an
+    understated ``max_degree`` would leave hubs in no cohort)."""
+    flat_md = 1
+    if mode != "opaque":
+        for p in partitions:
+            if p.num_vertices:
+                flat_md = max(flat_md, int(np.diff(p.indptr).max()))
+    if mode == "flat":
+        return (flat_md, *bk.walk_bucket_plan(flat_md, exact=True))
+    if mode == "window":
+        return (flat_md, *bk.walk_bucket_plan_window(flat_md))
+    return flat_md, (), False
+
+
+def _padded_shape(partitions: List[RangePartition], total_vertices: int) -> tuple:
+    """``(pad_v, pad_e)``: every partition padded to one shape, as the
+    reference's shared trace."""
+    return (PartitionMap.create(total_vertices, len(partitions)).range_size,
+            max(p.num_edges for p in partitions))
+
+
+def prewarm_plans(partitions: List[RangePartition], total_vertices: int, spec: SamplingSpec,
+                  *, device="cuda") -> tuple:
+    """Build now what :func:`oom_random_walk` builds at each partition's
+    first residency under a flat ``spec``: every partition's host plan state
+    and the host tables of the plan's methods, cached across calls
+    (:data:`_PLAN_CACHE`), so a later walk pays none of it.  What any walk
+    samples is unchanged.  Returns the plan's methods (empty when there is
+    nothing to build: an all-ITS plan, a window or opaque spec)."""
+    program = tp.lower(spec)
+    if program.mode != "flat":
+        return ()
+    dev = resolve_device(device)
+    _, buckets, use_chunked = _bucket_plan(partitions, "flat")
+    pad_v, pad_e = _padded_shape(partitions, total_vertices)
+    methods = _plan_methods(partitions, program, buckets, use_chunked, pad_v, pad_e, dev)
+    for part in partitions if methods else ():
+        _partition_plan(part, program, pad_v, pad_e, dev).tables(methods)
+    return methods
 
 
 def _to_device(a: np.ndarray, dev) -> torch.Tensor:

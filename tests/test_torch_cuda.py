@@ -782,3 +782,85 @@ def test_card_oom_equals_cpu_oom(cuda_device, name, flags):
     np.testing.assert_array_equal(walks_gpu, walks_cpu)
     assert dataclasses.asdict(stats_gpu) == dataclasses.asdict(stats_cpu)
     assert stats_gpu.partition_transfers > 0 and sum(kernels.launch_counts().values()) > 0
+
+
+def _serve_burst(svc, n_vertices, seed=6):
+    """A mixed burst (deepwalk, weighted, node2vec from one factory call,
+    biased; 9-16 seeds, depths 3-12, explicit keys) submitted to ``svc``;
+    returns the request ids."""
+    rng = np.random.default_rng(seed)
+    specs = [alg.deepwalk(), alg.weighted_random_walk(), alg.node2vec(), alg.biased_random_walk()]
+    return [svc.submit(rng.integers(0, n_vertices, int(rng.integers(9, 17))),
+                       depth=int(rng.integers(3, 13)), spec=specs[i % 4],
+                       key=fold_in(PRNGKey(31), i))
+            for i in range(16)]
+
+
+@pytest.mark.cuda
+def test_card_service_fused_equals_unfused_and_cpu(cuda_device):
+    from repro_torch.serve import SamplingService, ServiceConfig
+
+    g = powerlaw_graph(3000, seed=5, weighted=True, device="cpu")
+    runs = {}
+    for name, dev, fuse in [("fused", cuda_device, True), ("unfused", cuda_device, False),
+                            ("cpu", "cpu", True)]:
+        svc = SamplingService(g, device=dev, config=ServiceConfig(fuse=fuse))
+        assert svc.device.type == torch.device(dev).type
+        kernels.reset_launch_counts()
+        ids = _serve_burst(svc, g.num_vertices)
+        runs[name] = (ids, svc.drain(), svc.stats, kernels.launch_counts())
+    ids, fused, stats, launches = runs["fused"]
+    assert stats.launches < runs["unfused"][2].launches
+    assert launches["walk_step_window"] > 0 and launches["derive_keys"] > 0
+    for other in ("unfused", "cpu"):
+        assert runs[other][0] == ids
+        for rid in ids:
+            np.testing.assert_array_equal(fused[rid].walks, runs[other][1][rid].walks)
+            assert fused[rid].sampled_edges == runs[other][1][rid].sampled_edges
+
+
+@pytest.mark.cuda
+def test_card_oom_service_equals_cpu(cuda_device):
+    from repro_torch.serve import SamplingService
+
+    g = powerlaw_graph(3000, seed=5, weighted=True, device="cpu")
+    parts = partition_by_vertex_range(g, 4)
+    runs = []
+    for dev in (cuda_device, "cpu"):
+        svc = SamplingService(partitions=parts, total_vertices=g.num_vertices, device=dev,
+                              oom_chunk=128, key=PRNGKey(2))
+        svc.prewarm(alg.biased_random_walk(), depth=8, width=16, requests=4)
+        rng = np.random.default_rng(4)
+        ids = [svc.submit(rng.integers(0, g.num_vertices, 16), depth=int(rng.choice([4, 8])),
+                          spec=alg.biased_random_walk()) for _ in range(8)]
+        runs.append((ids, svc.drain(), dataclasses.asdict(svc.stats)))
+    (ids, card, card_stats), (cpu_ids, cpu, cpu_stats) = runs
+    assert ids == cpu_ids and card_stats == cpu_stats and card_stats["oom_launches"] == 1
+    for rid in ids:
+        np.testing.assert_array_equal(card[rid].walks, cpu[rid].walks)
+
+
+@pytest.mark.cuda
+def test_card_streaming_thread_burst_equals_unfused(cuda_device):
+    """The scheduler thread launches on the service's card; a burst it
+    serves equals the unfused batch service's answers, and no future fails."""
+    from repro_torch.serve import (
+        SamplingService, ServiceConfig, StreamConfig, StreamingSamplingService)
+
+    g = powerlaw_graph(3000, seed=5, weighted=True, device="cpu")
+    svc = SamplingService(g, device=cuda_device, config=ServiceConfig(max_requests_per_launch=4))
+    for spec in (alg.deepwalk(), alg.weighted_random_walk()):
+        svc.prewarm(spec, depth=8, width=16, requests=4)
+    rng = np.random.default_rng(9)
+    specs = [alg.deepwalk(), alg.weighted_random_walk()]
+    reqs = [(rng.integers(0, g.num_vertices, int(rng.integers(9, 17))), specs[i % 2],
+             fold_in(PRNGKey(23), i)) for i in range(24)]
+    with StreamingSamplingService(svc, StreamConfig(max_batch_window_ms=3)) as stream:
+        futs = [stream.submit(s, depth=8, spec=sp, key=k, deadline_ms=200) for s, sp, k in reqs]
+        got = [f.result(timeout=120) for f in futs]
+    assert svc.stats.stream_failed_requests == 0 and svc.stats.launches < len(reqs)
+    base = SamplingService(g, device=cuda_device, config=ServiceConfig(fuse=False))
+    ids = [base.submit(s, depth=8, spec=sp, key=k) for s, sp, k in reqs]
+    want = base.drain()
+    for res, rid in zip(got, ids):
+        np.testing.assert_array_equal(res.walks, want[rid].walks)

@@ -137,10 +137,20 @@ fused = random_walk_segments(g, [[0, 1], [2, -1], [3, 4]], keys, depth=3,
 walks, stats = oom_random_walk(partition_by_vertex_range(g, 4), 200, list(range(16)),
                                PRNGKey(1), depth=3, spec=alg.biased_random_walk(),
                                max_degree=g.max_degree(), device="cpu")
+from repro_torch.serve import SamplingService, StreamingSamplingService
+svc = SamplingService(g, device="cpu", key=PRNGKey(4))
+ids = [svc.submit([i, i + 1, i + 2], depth=3, spec=spec)
+       for i, spec in enumerate((alg.deepwalk(), alg.deepwalk(), alg.weighted_random_walk()))]
+served = svc.drain()
+drained_launches = svc.stats.launches
+with StreamingSamplingService(svc) as stream:
+    streamed = stream.submit([5, 6], depth=3, spec=alg.deepwalk()).result(timeout=60)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"bad": bad, "walked": walked, "sampled": int(sample.num_edges.sum()),
-                  "fused": int(fused.sampled_edges.sum()), "oom": stats.sampled_edges}))
+                  "fused": int(fused.sampled_edges.sum()), "oom": stats.sampled_edges,
+                  "served": sorted(served) == ids, "launches": drained_launches,
+                  "streamed": streamed.sampled_edges}))
 """
 
 
@@ -154,3 +164,5 @@ def test_port_imports_neither_jax_nor_repro():
     assert res["walked"] == 4  # every mode walked
     assert res["sampled"] > 0  # and traversal sampled
     assert res["fused"] > 0 and res["oom"] > 0  # and the segment and out-of-memory walks
+    assert res["served"] and res["launches"] == 2  # the service fused its two deepwalks
+    assert res["streamed"] > 0  # and the streaming service delivered one
