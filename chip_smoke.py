@@ -67,8 +67,9 @@ comes out.  One walk per vertex, depth 40 (DeepWalk's walk length):
    step under the same key) is held against the plain version: the frontier
    selects under ``traversal`` in the ``its_select`` entry, the neighbor
    rows in ``its_select_wide`` (times per launch), with rows of P = 4,097
-   at K = 33.  The wide kernel is also timed on the warp kernel's operands
-   (``wide_ms``: the frontier selects, and the opaque path's rows);
+   at K = 33, with each of its four phases' device time in one traced
+   call (``phase_ms``) and its scratch's bytes.  The wide kernel is also timed on the warp kernel's
+   operands (``wide_ms``: the frontier selects, and the opaque path's rows);
 11. segments — ``random_walk_segments``, R requests in one batch, each row
    under its own key: ``segments`` (R-MAT 21, ``deepwalk``, 64 rows of
    32,768 walkers, ``arange(V)`` reshaped, depth 40: one ``derive_keys``
@@ -193,6 +194,9 @@ OOM_CONFIGS = {
     "+BA+WS": dict(batched=True, workload_aware=True, balance=False),
     "+BA+WS+BAL": dict(batched=True, workload_aware=True, balance=True),
 }
+#: the wide its_select kernel's phases, in launch order, by their kernels
+WIDE_PHASES = {"totals": "its_select_chunk_kernel", "prefixes": "its_select_prefix_kernel",
+               "envelope": "its_select_envelope_kernel", "rounds": "its_select_rounds_kernel"}
 KERNELS = ("reject_step", "alias_step", "walk_step", "walk_step_window", "its_select",
            "its_select_wide", "reject_step_rows", "alias_step_rows", "walk_step_rows",
            "derive_keys")
@@ -764,19 +768,7 @@ class Smoke:
         at ``TRAVERSAL_INSTANCES`` instances, seeds drawn from the vertices
         with at least one edge.  Every neighbor selection reads the whole
         row of a frontier vertex, ``max_degree`` wide, so none is cut."""
-        alg = self.alg
-        rng = np.random.default_rng(SEED)
-        deg = (g.indptr[1:] - g.indptr[:-1]).cpu().numpy()
-        live = np.nonzero(deg > 0)[0]
-        one = rng.choice(live, (TRAVERSAL_INSTANCES, 1)).astype(np.int32)
-        pools = rng.choice(live, (TRAVERSAL_INSTANCES, MDRW_SEEDS)).astype(np.int32)
-        v = g.num_vertices
-        for name, spec, seeds, depth, cap, mv in [
-            ("neighbor", alg.biased_neighbor_sampling(2, 8), one, 3, POOL_CAPACITY, v),
-            ("snowball", alg.snowball_sampling(16, 8), one, 2, POOL_CAPACITY, v),
-            ("layer", alg.layer_sampling(8, 8), one, 3, POOL_CAPACITY, v),
-            ("mdrw", alg.multi_dimensional_random_walk(), pools, MDRW_DEPTH, MDRW_CAPACITY, 0),
-        ]:
+        for name, spec, seeds, depth, cap, mv in traversal_cases(self.alg, g):
             self.run_traversal(name, g, spec, seeds, depth, cap, mv, gen_s)
         self.wide_entries["check"] = self.measure_wide_check()
         wide = [self.wide_entries[k] for k in ("layer", "snowball", "neighbor", "mdrw", "check")]
@@ -786,7 +778,7 @@ class Smoke:
         row["launches_by_path"] = {k: v["launches"] for k, v in self.traversal_launches.items()}
         row["launches_per_step"] = layer["launches"] / layer["depth"]
         # the row's times are the layer path's first launch (one block of rows)
-        for key in ("ms", "loop_ms", "plain_ms", "bound_ms"):
+        for key in ("ms", "loop_ms", "plain_ms", "bound_ms", "phase_ms", "scratch_bytes"):
             row[key] = wide[0][key]
         row["x_bound"] = row["ms"] / row["bound_ms"]
         row["bound_by"] = wide[0]["bound_by"]
@@ -915,6 +907,8 @@ class Smoke:
             lambda want: self.select_work(n, p, k, want[1]), rows=n, width=p, k=k)
         if with_wide:
             entry.update(self.time_wide(path, biases, rands))
+        if kernel_name == "its_select_wide":
+            entry.update(self.wide_phases(biases, rands))
         return entry
 
     def time_wide(self, path, biases, rands):
@@ -930,6 +924,31 @@ class Smoke:
         loop_ms = self.loop_ms(launch, TIMING_REPS)
         return dict(wide_ms=self.device_ms(launch, TIMING_REPS, loop_ms), wide_loop_ms=loop_ms)
 
+    def wide_phases(self, biases, rands):
+        """The wide kernel's phases (chunk sums, prefix tables, envelope,
+        rounds): each one's device time a call (``phase_ms``), from the
+        card's events of ``TIMING_REPS`` whole calls in one trace, and the
+        scratch's bytes."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch, its = self.torch, self.its_mod
+        its._launch(biases, rands, wide=True)
+        self.sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TIMING_REPS):
+                its._launch(biases, rands, wide=True)
+            self.sync()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        phase_ms = {}
+        for ph, kernel in WIDE_PHASES.items():
+            us = [e.self_device_time_total for e in events if kernel in e.key]
+            _require(us, f"its_select_wide: the trace shows no {kernel}")
+            phase_ms[ph] = sum(us) / 1e3 / TIMING_REPS
+        n, p = biases.shape
+        words = self.build.load().its_select_wide_scratch_words(n, p, rands.shape[2])
+        return dict(phase_ms=phase_ms, scratch_bytes=4 * words)
+
     def measure_wide_check(self):
         """The wide kernel just past the warp kernel's shapes (P = 4,097,
         K = 33) on rows of few candidates (dense collisions), against its
@@ -941,10 +960,12 @@ class Smoke:
         biases = torch.rand((n, p), generator=gen, device=self.dev)
         biases = torch.where(torch.rand((n, p), generator=gen, device=self.dev) < 0.02, biases, 0.0)
         rands = torch.rand((n, SELECT_BUDGET, k), generator=gen, device=self.dev)
-        return self.compare(
+        entry = self.compare(
             "check", "its_select_wide", f"P={p} K={k}", lambda: K.its_select(biases, rands),
             self.chunked(lambda s: self.ref.its_select_ref(biases[s], rands[s]), n),
             lambda want: self.select_work(n, p, k, want[1]), rows=n, width=p, k=k)
+        entry.update(self.wide_phases(biases, rands))
+        return entry
 
     # -- the segment walk (R requests in one batch) ----------------------------
 
@@ -1690,6 +1711,24 @@ class Smoke:
         for k in KERNELS:
             row = self.kernel_rows[k]
             _require(row["launches"] > 0 and row["mismatches"] == 0, f"kernel row {row}")
+
+
+def traversal_cases(alg, g) -> list:
+    """Phase 10's paths on graph ``g``: ``(name, spec, seeds, depth,
+    pool_capacity, max_vertices)`` each, seeds drawn from the vertices with
+    at least one edge; ``alg`` is ``repro_torch.core.algorithms``."""
+    rng = np.random.default_rng(SEED)
+    deg = (g.indptr[1:] - g.indptr[:-1]).cpu().numpy()
+    live = np.nonzero(deg > 0)[0]
+    one = rng.choice(live, (TRAVERSAL_INSTANCES, 1)).astype(np.int32)
+    pools = rng.choice(live, (TRAVERSAL_INSTANCES, MDRW_SEEDS)).astype(np.int32)
+    v = g.num_vertices
+    return [
+        ("neighbor", alg.biased_neighbor_sampling(2, 8), one, 3, POOL_CAPACITY, v),
+        ("snowball", alg.snowball_sampling(16, 8), one, 2, POOL_CAPACITY, v),
+        ("layer", alg.layer_sampling(8, 8), one, 3, POOL_CAPACITY, v),
+        ("mdrw", alg.multi_dimensional_random_walk(), pools, MDRW_DEPTH, MDRW_CAPACITY, 0),
+    ]
 
 
 def _step_kernels(methods: tuple, n_buckets: int) -> set:

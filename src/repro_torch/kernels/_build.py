@@ -39,7 +39,7 @@ _SIGNATURES = {
     "walk_step_launch": [_P, _P, _P, _P, _P, _I, _I, _PI, _PU, _P, _I, _P],
     "walk_step_window_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "its_select_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "its_select_wide_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "its_select_wide_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "hash_uniform_launch": [_P, _P, _P, _I, _I, _P],
     "derive_keys_launch": [_P, _P, _I, _I, _PI, _PU, _P],
 }
@@ -95,7 +95,7 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = _I
-            lib.its_select_wide_scratch_words.argtypes = [_I, _I]
+            lib.its_select_wide_scratch_words.argtypes = [_I, _I, _I]
             lib.its_select_wide_scratch_words.restype = ctypes.c_longlong
             lib.walk_kernels_error_string.argtypes = [_I]
             lib.walk_kernels_error_string.restype = ctypes.c_char_p

@@ -1,8 +1,8 @@
 // Walk-step and selection kernels for Hopper (sm_90a): one random-walk
 // transition per walker over a flat CSR graph (rejection, alias, flat-bias
 // ITS, window-bias ITS), and ITS selection of K of P candidates with
-// bipartite region search (a warp an instance for K <= 32 and P <= 4096, a
-// block a row for any other K and P).
+// bipartite region search (a warp an instance for K <= 32 and P <= 4096,
+// and for any other K and P each row split over many blocks).
 //
 // Each kernel computes what a Pallas TPU kernel of src/repro/kernels/
 // computes, bit for bit, and is held against its plain PyTorch version in
@@ -1125,20 +1125,100 @@ cudaError_t its_select_run(const float* biases, const float* rands, int* out, in
 }
 
 // -- its_select, wide rows ------------------------------------------------------
+//
+// Replaces its_select_pallas (src/repro/kernels/its_select.py:113) for the
+// shapes its_select_kernel does not take: K > 32 draws or rows of P > 4096
+// candidates (traversal sampling's per-vertex pools of max_degree
+// candidates, layer sampling's and MDRW's pooled rows of frontier_size x
+// max_degree).  The same function, bit for bit: CTPS cumsum(max(b, 0)) /
+// max(total, 1e-12) with XLA's association (ref.py::padded_cumsum), ITERS
+// rounds of K uniforms, a bipartite region search on a collision, the count
+// of CTPS entries <= r, the lowest draw index winning a candidate, and the
+// (iters, searches) counters.
+//
+// Bound by bytes: the rows are read once (a launch of layer sampling is 163
+// rows of 821,376 entries, 535 MB); a search reads a few words.  A launch
+// holds few long rows, so each row is split over many blocks, and the rows
+// are read once: what later phases need is kept a word or two a 16-block.
+//
+// Why the split is exact.  padded_cumsum is a fixed tree: level 0 is the
+// row, level l + 1 the totals of level l's 16-blocks (each level zero-padded
+// to whole blocks), the top level (at most 16 wide) is scanned in order, and
+// a node's prefix is its in-block sum plus the scanned value of the node
+// before its block one level up, T_l[q] = s_l[q] + T_{l+1}[q/16 - 1]: the
+// right-nested s1 + (s2 + (s3 + ...)) of XLA's recursion.  Any schedule that
+// adds the same nodes in the same nesting with __fadd_rn gives the same
+// bits.  A chunk of kChunk = 16^3 entries aligned at a multiple of 4096
+// holds whole nodes of levels 0-2 and is one node of level 3.  So every
+// value the tree adds into chunk c from outside is one of three entries of
+// a small table a row (P / 4096 chunks: 201 at layer's P): T3[c - 1] (level
+// 3 scanned), T2[16c - 1] = tot[c - 1] + T3[c - 2] (the previous chunk's
+// last level-2 node) and T1[256c - 1] = e1[c - 1] + (e2[c - 1] + T3[c - 2])
+// (its last level-1 node), where tot, e1 and e2 are the previous chunk's
+// total, its last level-1 and its second-to-last level-2 in-block sums.
+// ref.py::chunked_cumsum mirrors the split on the CPU, and
+// tests/test_torch_wide_scan.py holds it bit-equal to padded_cumsum and
+// jnp.cumsum.  An entry of 16-block x is then its in-block sum plus one
+// value a block, bpre[x] (none for the row's first block).
+//
+// Four launches:
+// A. its_select_chunk_kernel, a block of 256 threads a (row, chunk): each
+//    warp loads 512 entries, 16 bytes a lane, neighbouring lanes on
+//    neighbouring addresses; takes each 16-block's in-block sums in
+//    registers (four lanes a block, the running sum handed on by shuffles,
+//    in order), levels 1 and 2 in shared memory; writes a block's first
+//    entry, total and level-1 in-block sum, the chunk's level-2 sums and
+//    its count of positive entries.  The only pass over the rows.
+// B. its_select_prefix_kernel, a warp a row: scans the chunk totals by
+//    padded_cumsum's rule and writes each chunk's three prefixes.
+// C. its_select_envelope_kernel, A's grid, a thread a 16-block: bpre, the
+//    block's first entry (its undivided CTPS value), and the chunk's runs of
+//    the envelope (see exact_count: the running maximum of the blocks' last
+//    entries from the chunk's first block, the running minimum of their
+//    first entries to its last) and its extremes.
+// D. its_select_rounds_kernel, a block a row (a warp for K <= 32; draw j on
+//    thread j mod the block's threads): loads its tables, scans
+//    the chunks' extremes (block_envelope), so that pm(b) and sm(b) are a
+//    chunk's run joined with the chunks before or after it (WideRow), and
+//    runs the rounds.  A search narrows on a table of every G-th block's
+//    first entry (shared memory, at most 1,024 entries: G = 64 at layer's
+//    P, 8 at P = 102,784), then to one 16-block on the blocks' first entries
+//    (C's, 33 MB at layer's launch, mostly in L2), and counts inside it from
+//    its 16 biases reloaded and bpre, added as A and C add them.  The
+//    CTPS is S / total, S the undivided sums and total = max(S[P - 1],
+//    1e-12), divided (__fdiv_rn) where a search tests an entry (the table
+//    once, as D copies it): x -> RN(x / total) is nondecreasing, so the
+//    comparisons and the envelope are those of the divided CTPS.
+//    exact_count makes a search the count of entries <= r.  The candidates
+//    taken in earlier rounds are a hash set of at most K entries in shared
+//    memory (device memory past kSetSmemBytes).  A draw claims its
+//    candidate by inserting it with atomicCAS and lowering the entry's value
+//    to its index with atomicMin, so the lowest draw index wins whatever the
+//    order the atomics land in; the winner marks the entry taken.
+//
+// Scratch (wide_layout): seven words a 16-block and a few a chunk, about
+// 0.44 x the rows' bytes.
 
-constexpr int kWideThreads = 512;
-constexpr int kMaxLevels = 9;           // block-total levels of the scan: 16^8 > 2^31
-constexpr int kFree = 0x7fffffff;      // owner map: no claim
-constexpr int kTaken = -1;             // owner map: selected in an earlier round
+constexpr int kChunk = kScanBlock * kScanBlock * kScanBlock;  // entries of a level-3 node
+constexpr int kChunkBlocks = kChunk / kScanBlock;             // its 16-blocks
+constexpr int kChunkThreads = 256;                            // 8 warps of 512 entries
+constexpr int kPrefixWarps = 4;                               // rows a block of B
+constexpr int kRoundsThreads = 512;                           // D's largest block
+constexpr int kMaxLevels = 9;                // block-total levels of a scan: 16^8 > 2^31
+constexpr int kFirstTableWords = 1024;       // D's table of block first entries, at most
+constexpr long long kExtSmemBytes = 32 * 1024;     // D's chunk extremes in shared memory up to this
+constexpr long long kSetSmemBytes = 96 * 1024;     // D's taken set in shared memory up to this
+constexpr int kUnclaimed = 0x7fffffff;       // a set entry's value: no claim yet
+constexpr int kTaken = -1;                   // ... taken in an earlier round
 
-// The levels of the blocked scan of a P-wide row (kernels/ref.py::
-// padded_cumsum): level 0 is the row itself; level l + 1 holds the totals
+// The levels of the blocked scan of a w-wide array (kernels/ref.py::
+// padded_cumsum): level 0 is the array itself; level l + 1 holds the totals
 // of level l's 16-blocks, ceil(w_l / 16) of them, until a level is at most
-// 16 wide, which is scanned sequentially.  Levels 1.. live one after the
-// other in a per-block scratch: off[l] is level l's offset there.
+// 16 wide, which is scanned in order.  Levels 1.. follow the array one after
+// the other: off[l] is level l's offset after it.
 struct ScanLevels {
-  int n;          // levels above the row
-  long long len;  // words of levels 1..n in the scratch
+  int n;          // levels above the array
+  long long len;  // words of levels 1..n
   long long w[kMaxLevels + 1], off[kMaxLevels + 1];
 };
 
@@ -1158,12 +1238,266 @@ __host__ __device__ inline ScanLevels scan_levels(long long p) {
   return L;
 }
 
-// Scratch words a block needs for rows of P candidates and K draws: the
-// CTPS (P floats), the owner map (P ints), the scan levels, the block
-// envelope (two floats a 16-block, exact_count) and the candidate of each
-// draw in a round (K ints).
-__host__ __device__ inline long long wide_scratch_words(long long p, long long k) {
-  return 2 * p + scan_levels(p).len + 2 * ((p + kScanBlock - 1) / kScanBlock) + k;
+// padded_cumsum of a[0, w) in place, by one warp, with the levels above it
+// in a[w, w + scan_levels(w).len): each level's 16-blocks summed in order
+// (a lane a block; totals to the next level), the top level by lane 0, then
+// from the top down each level adds the scanned value before its block.
+__device__ void warp_padded_cumsum(float* a, long long w, int lane) {
+  const ScanLevels S = scan_levels(w);
+  auto level = [&](int l) { return l == 0 ? a : a + w + S.off[l]; };
+  for (int l = 0; l < S.n; ++l) {
+    float* lev = level(l);
+    float* up = level(l + 1);
+    const long long wl = S.w[l];
+    for (long long b = lane; b < (wl + kScanBlock - 1) / kScanBlock; b += 32) {
+      float acc = 0.0f;
+      for (int x = 0; x < kScanBlock; ++x) {
+        const long long q = b * kScanBlock + x;
+        const float v = q < wl ? lev[q] : 0.0f;
+        acc = x == 0 ? v : __fadd_rn(acc, v);
+        if (q < wl) lev[q] = acc;
+      }
+      up[b] = acc;
+    }
+    __syncwarp();
+  }
+  if (lane == 0) {
+    float* top = level(S.n);
+    for (long long q = 1; q < S.w[S.n]; ++q) top[q] = __fadd_rn(top[q - 1], top[q]);
+  }
+  __syncwarp();
+  for (int l = S.n - 1; l >= 0; --l) {
+    float* lev = level(l);
+    const float* up = level(l + 1);
+    for (long long q = lane; q < S.w[l]; q += 32)
+      if (q >= kScanBlock) lev[q] = __fadd_rn(lev[q], up[q / kScanBlock - 1]);
+    __syncwarp();
+  }
+}
+
+// Where the wide kernels' arrays lie in the scratch for n rows of P and K
+// draws, in 32-bit words.  The wrapper asks its size of
+// its_select_wide_scratch_words and allocates it; the launch lays it out
+// again from the same (n, P, K).  Block arrays hold nbp words a row, 256 a
+// chunk; chunk arrays w3.
+struct WideLayout {
+  long long w3;   // chunks a row
+  long long nbp;  // block words a row: kChunkBlocks a chunk
+  long long lev;  // B's words a row: the chunk totals' scan and its upper levels
+  long long set;  // words a row of D's set in device memory (0: in shared memory)
+  int slots;      // hash slots of the set: a power of two >= 2K
+  int gshift;     // D's table holds every (1 << gshift)-th block's first entry
+  float *bx0, *btot, *s1;       // A, a block: first entry, total, level-1 in-block sum
+  float* s2;                    // A, a chunk: its 16 level-2 in-block sums (16 words)
+  int* npos;                    // A, a chunk: positive entries
+  float *pre1, *pre2, *pre3;    // B, a chunk: T1[256c - 1], T2[16c - 1], T3[c - 1]
+  float *bpre, *bfirst;         // C, a block: the value added to its in-block sums, first entry
+  float *pml, *sml;             // C, a block: the envelope's runs inside its chunk
+  float *cmax, *cmin;           // C, a chunk: largest last entry, smallest first entry
+  float* work;                  // B's scan, lev words a row
+  int* setmem;                  // D's set (keys, values, a draw's slot), set words a row
+  long long words;
+};
+
+inline WideLayout wide_layout(float* base, long long n, long long p, long long k) {
+  WideLayout L;
+  L.w3 = (p + kChunk - 1) / kChunk;
+  L.nbp = L.w3 * kChunkBlocks;
+  L.lev = L.w3 + scan_levels(L.w3).len;
+  const long long nb = (p + kScanBlock - 1) / kScanBlock;
+  L.gshift = 0;
+  while (((nb - 1) >> L.gshift) + 1 > kFirstTableWords) ++L.gshift;
+  L.slots = 2;
+  while (L.slots < 2 * k) L.slots *= 2;
+  const long long set_words = 2LL * L.slots + k;
+  L.set = 4 * set_words <= kSetSmemBytes ? 0 : set_words;
+  long long at = 0;
+  auto take = [&](long long words) {
+    float* q = base ? base + at : nullptr;
+    at += words;
+    return q;
+  };
+  float** blocks[] = {&L.bx0, &L.btot, &L.s1, &L.bpre, &L.bfirst, &L.pml, &L.sml};
+  for (float** b : blocks) *b = take(n * L.nbp);
+  L.s2 = take(n * L.w3 * kScanBlock);
+  float** chunks[] = {&L.pre1, &L.pre2, &L.pre3, &L.cmax, &L.cmin};
+  for (float** c : chunks) *c = take(n * L.w3);
+  L.npos = reinterpret_cast<int*>(take(n * L.w3));
+  L.work = take(n * L.lev);
+  L.setmem = reinterpret_cast<int*>(take(n * L.set));
+  L.words = at;
+  return L;
+}
+
+// A on chunk c of row i.  Lane `lane` of warp `warp` holds the entries
+// base + 128m + 4lane + e, base = c * kChunk + 512 warp (m, e < 4): float4 m
+// of 16-block jb = 32 warp + 8m + lane / 4 of the chunk, quarter lane % 4.
+template <bool kVec>
+__global__ void __launch_bounds__(kChunkThreads) its_select_chunk_kernel(
+    const float* __restrict__ biases, WideLayout L, int p) {
+  constexpr int kPad = kChunkBlocks + kChunkBlocks / kScanBlock;  // 17 words a level-1 block
+  __shared__ float s_tot[kPad], s_s1[kPad], s_x0[kChunkBlocks], s_l2[kScanBlock];
+  __shared__ int s_npos;
+  const long long i = blockIdx.x / L.w3;
+  const int c = (int)(blockIdx.x % L.w3);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const float* row = biases + i * p;
+  const long long base = (long long)c * kChunk + 512 * warp;
+  if (tid == 0) s_npos = 0;
+  float v[4][4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const long long q = base + 128 * m + 4 * lane;
+    if constexpr (kVec) {  // P % 4 == 0: a float4 lies wholly inside or past the row
+      const float4 x = q < p ? __ldg(reinterpret_cast<const float4*>(row + q))
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      v[m][0] = x.x;
+      v[m][1] = x.y;
+      v[m][2] = x.z;
+      v[m][3] = x.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[m][e] = q + e < p ? __ldg(row + q + e) : 0.0f;
+    }
+  }
+  int npos = 0;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[m][e] = fmaxf(v[m][e], 0.0f);
+      npos += v[m][e] > 0.0f;
+    }
+  }
+  // level 0: the in-block sums, quarter by quarter in order
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int jb = 32 * warp + 8 * m + (lane >> 2);
+    float run = 0.0f;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const float carry = __shfl_up_sync(kFull, run, 1);
+      if ((lane & 3) == s) {
+        float acc = s == 0 ? v[m][0] : __fadd_rn(carry, v[m][0]);
+#pragma unroll
+        for (int e = 1; e < 4; ++e) acc = __fadd_rn(acc, v[m][e]);
+        run = acc;
+      }
+    }
+    if ((lane & 3) == 0) s_x0[jb] = v[m][0];
+    if ((lane & 3) == 3) s_tot[jb + (jb >> 4)] = run;
+  }
+  npos = __reduce_add_sync(kFull, npos);
+  __syncthreads();
+  if (lane == 0) atomicAdd(&s_npos, npos);
+  // levels 1 and 2: 16 lanes a level-1 block each, then lane 0 level 2
+  if (warp == 0) {
+    if (lane < kScanBlock) {
+      const float* b = s_tot + (kScanBlock + 1) * lane;
+      float* s = s_s1 + (kScanBlock + 1) * lane;
+      float acc = b[0];
+      s[0] = acc;
+      for (int x = 1; x < kScanBlock; ++x) {
+        acc = __fadd_rn(acc, b[x]);
+        s[x] = acc;
+      }
+      s_l2[lane] = acc;
+    }
+    __syncwarp();
+    if (lane == 0) {
+      float acc = s_l2[0];
+      for (int x = 1; x < kScanBlock; ++x) {
+        acc = __fadd_rn(acc, s_l2[x]);
+        s_l2[x] = acc;
+      }
+    }
+  }
+  __syncthreads();
+  const long long at = i * L.nbp + (long long)c * kChunkBlocks + tid;  // block tid
+  L.bx0[at] = s_x0[tid];
+  L.btot[at] = s_tot[tid + (tid >> 4)];
+  L.s1[at] = s_s1[tid + (tid >> 4)];
+  const long long t = i * L.w3 + c;
+  if (tid < kScanBlock) L.s2[t * kScanBlock + tid] = s_l2[tid];
+  if (tid == 0) L.npos[t] = s_npos;
+}
+
+// B: row i's chunk totals scanned (T3) and each chunk's three prefixes.
+__global__ void __launch_bounds__(kPrefixWarps * 32) its_select_prefix_kernel(WideLayout L,
+                                                                              int n) {
+  const int lane = threadIdx.x & 31;
+  const long long i = (long long)blockIdx.x * kPrefixWarps + (threadIdx.x >> 5);
+  if (i >= n) return;  // the whole warp leaves together
+  const long long w3 = L.w3;
+  const float* s2 = L.s2 + i * w3 * kScanBlock;  // a chunk's total is its s2[15]
+  const float* s1 = L.s1 + i * L.nbp;            // its e1 s1[255], its e2 s2[14]
+  float* t3 = L.work + i * L.lev;
+  for (long long c = lane; c < w3; c += 32) t3[c] = s2[c * kScanBlock + kScanBlock - 1];
+  __syncwarp();
+  warp_padded_cumsum(t3, w3, lane);
+  for (long long c = lane; c < w3; c += 32) {
+    float p1 = 0.0f, p2 = 0.0f, p3 = 0.0f;  // chunk 0 adds nothing
+    if (c >= 1) {
+      const float tot = s2[(c - 1) * kScanBlock + kScanBlock - 1];
+      const float e2 = s2[(c - 1) * kScanBlock + kScanBlock - 2];
+      const float e1 = s1[c * kChunkBlocks - 1];
+      p3 = t3[c - 1];
+      p2 = c >= 2 ? __fadd_rn(tot, t3[c - 2]) : tot;
+      p1 = __fadd_rn(e1, c >= 2 ? __fadd_rn(e2, t3[c - 2]) : e2);
+    }
+    L.pre1[i * w3 + c] = p1;
+    L.pre2[i * w3 + c] = p2;
+    L.pre3[i * w3 + c] = p3;
+  }
+}
+
+// C on chunk c of row i: thread tid takes 16-block tid of the chunk.
+__global__ void __launch_bounds__(kChunkThreads) its_select_envelope_kernel(WideLayout L,
+                                                                            int p) {
+  __shared__ float s_warp[2][kChunkThreads / 32];
+  const long long i = blockIdx.x / L.w3;
+  const int c = (int)(blockIdx.x % L.w3);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long t = i * L.w3 + c;
+  const long long at = i * L.nbp + (long long)c * kChunkBlocks + tid;
+  // the value the tree adds to the block's in-block sums (none to the row's first block)
+  float b = L.pre1[t];
+  bool add = c > 0;
+  if (tid > 0) {
+    const int im = (tid - 1) >> 4;
+    b = L.s1[at - 1];
+    if (im == 0) {
+      if (c > 0) b = __fadd_rn(b, L.pre2[t]);
+    } else {
+      const float e2 = L.s2[t * kScanBlock + im - 1];
+      b = __fadd_rn(b, c > 0 ? __fadd_rn(e2, L.pre3[t]) : e2);
+    }
+    add = true;
+  }
+  L.bpre[at] = add ? b : 0.0f;
+  // its first and last entries (a block past the row: neutral); its last
+  // real entry's in-block sum is its total, the zeros after it add nothing
+  const bool live = (long long)c * kChunk + (long long)kScanBlock * tid < p;
+  const float x0 = L.bx0[at], tot = L.btot[at];
+  float lo = live ? (add ? __fadd_rn(x0, b) : x0) : INFINITY;
+  float hi = live ? (add ? __fadd_rn(tot, b) : tot) : -INFINITY;
+  L.bfirst[at] = lo;
+  // the chunk's runs
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float h = __shfl_up_sync(kFull, hi, d), l = __shfl_down_sync(kFull, lo, d);
+    if (lane >= d) hi = fmaxf(hi, h);
+    if (lane + d < 32) lo = fminf(lo, l);
+  }
+  if (lane == 31) s_warp[0][warp] = hi;
+  if (lane == 0) s_warp[1][warp] = lo;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) hi = fmaxf(hi, s_warp[0][w]);
+  for (int w = warp + 1; w < kChunkThreads / 32; ++w) lo = fminf(lo, s_warp[1][w]);
+  L.pml[at] = hi;
+  L.sml[at] = lo;
+  if (tid == kChunkThreads - 1) L.cmax[t] = hi;
+  if (tid == 0) L.cmin[t] = lo;
 }
 
 // The envelope of one row (see exact_count), by a block, in place: pm[b]
@@ -1208,187 +1542,332 @@ __device__ void block_envelope(long long nb, float* __restrict__ pm, float* __re
   __syncthreads();
 }
 
-// Replaces its_select_pallas (src/repro/kernels/its_select.py:113) for the
-// shapes its_select_kernel does not take: K > 32 draws or rows of P > 4096
-// candidates (traversal sampling's per-vertex pools of max_degree
-// candidates, and layer sampling's and MDRW's pooled rows of
-// frontier_size x max_degree).  The same function, bit for bit: CTPS
-// cumsum(max(b, 0)) / max(total, 1e-12) with XLA's association, ITERS
-// rounds of K uniforms, a bipartite region search on a collision, the
-// lowest draw index winning a candidate, and the (iters, searches)
-// counters.
-// Bound by bytes: each row is read once and its CTPS written once, and a
-// row of layer sampling (P = 821,376) is 3.3 MB, far past what a warp's
-// ring slot in shared memory holds.  The design is simple, not tuned:
-// - One block per row, persistent over rows; its CTPS, the scan's upper
-//   levels, an owner map of the candidates and the round's candidates live
-//   in the block's slice of a device-memory scratch the wrapper allocates
-//   (wide_scratch_words), which L2 keeps close while the block works on it.
-// - The scan follows ref.py::padded_cumsum level by level: the 16-blocks of
-//   each level are summed in order by one thread each (writing their
-//   in-block sums in place and their totals to the next level), the top
-//   level (at most 16 wide) by one thread, then each level from the top
-//   down adds the scanned total of the block before (the prefix of level
-//   l + 1 at index q/16 - 1) to its in-block sums: the right-nested
-//   association s1 + (s2 + (s3 + ...)) of XLA's recursive scan.  The row
-//   level adds and divides by the total in one pass (__fdiv_rn).
-// - Draws are spread over the block's threads (draw j on thread j mod 512),
-//   each searching the CTPS in device memory by binary search, made the
-//   count of entries <= r by the row's block envelope (exact_count), which
-//   the block writes after the scan.  A collision within a round goes to the lowest draw
-//   index: every draw with an admissible candidate claims it with
-//   atomicMin of its index in the owner map, and after a barrier the draw
-//   whose index stands there wins and marks the candidate taken (-1, below
-//   any index, so no later claim undoes it).  A minimum does not depend on
-//   the order the atomics land in, so the result is deterministic; the
-//   owner map is read through volatile loads, past L1.
-// - The owner map is set free once per block and the winners' entries are
-//   freed again after each row, so a row costs K writes there, not P.
-__global__ void __launch_bounds__(kWideThreads, 2) its_select_wide_kernel(
+// One row as D reads it: the biases, C's block arrays, a table of every
+// G-th block's first entry divided by the total (G = 1 << gshift, at most
+// kFirstTableWords entries, in shared memory) and the chunks' running
+// extremes (shared memory, or device memory for very long rows).
+struct WideRow {
+  const float *bias, *bpre, *bfirst, *btot, *pml, *sml;
+  const float *tab, *cpm, *csm;
+  long long w3, nb;
+  int p, gshift;
+  bool vec;  // the row's 16-blocks load as float4s
+  float total;
+
+  // pm(b) and sm(b) of exact_count: a chunk's run joined with the running
+  // extremes of the chunks before it (cpm, inclusive) or after it (csm)
+  __device__ __forceinline__ float pm(long long b) const {
+    const long long c = b / kChunkBlocks;
+    return c > 0 ? fmaxf(pml[b], cpm[c - 1]) : pml[b];
+  }
+  __device__ __forceinline__ float sm(long long b) const {
+    const long long c = b / kChunkBlocks;
+    return c + 1 < w3 ? fminf(sml[b], csm[c + 1]) : sml[b];
+  }
+  __device__ __forceinline__ float ctps(float s) const { return __fdiv_rn(s, total); }
+
+  // The undivided CTPS of 16-block x, s[e] at entry 16x + e, and its
+  // biases, raw[e] (entries past the row: zeros), from its biases and
+  // bpre[x], added as A and C add them.
+  __device__ __forceinline__ void block(long long x, float (&s)[kScanBlock],
+                                        float (&raw)[kScanBlock]) const {
+    const long long q0 = x * kScanBlock;
+    if (vec) {
+#pragma unroll
+      for (int e = 0; e < kScanBlock; e += 4) {
+        const float4 v = q0 + e < p ? __ldg(reinterpret_cast<const float4*>(bias + q0 + e))
+                                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        raw[e] = v.x;
+        raw[e + 1] = v.y;
+        raw[e + 2] = v.z;
+        raw[e + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kScanBlock; ++e) raw[e] = q0 + e < p ? __ldg(bias + q0 + e) : 0.0f;
+    }
+    const float b = x > 0 ? __ldg(bpre + x) : 0.0f;
+    float acc = 0.0f;
+#pragma unroll
+    for (int e = 0; e < kScanBlock; ++e) {
+      const float v = fmaxf(raw[e], 0.0f);
+      acc = e == 0 ? v : __fadd_rn(acc, v);
+      s[e] = x > 0 ? __fadd_rn(acc, b) : acc;
+    }
+  }
+
+  // the undivided CTPS at entry q
+  __device__ __forceinline__ float at(long long q) const {
+    float s[kScanBlock], raw[kScanBlock];
+    block(q / kScanBlock, s, raw);
+    return pick(s, q % kScanBlock);
+  }
+
+  static __device__ __forceinline__ float pick(const float (&s)[kScanBlock], long long e) {
+    float v = s[0];
+#pragma unroll
+    for (int x = 1; x < kScanBlock; ++x)
+      if (x == e) v = s[x];
+    return v;
+  }
+};
+
+// count_straddled on the split envelope.  A straddled block whose first
+// entry (bfirst) is > r counts nothing, one whose last (btot + bpre, as C
+// adds it) is <= r counts whole, and only a block that holds r is loaded:
+// in a run of zero biases every block is flat, and the run costs three
+// words a block.
+__device__ __noinline__ int wide_count_straddled(const WideRow R, float r) {
+  const long long p = R.p, nb = R.nb;
+  long long lo = 0, hi = nb;  // blocks [0, a): all <= r
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (R.ctps(R.pm(mid)) <= r) lo = mid + 1;
+    else hi = mid;
+  }
+  const long long a = lo;
+  lo = 0;
+  hi = nb;  // blocks [b, nb): all > r
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (R.ctps(R.sm(mid)) <= r) lo = mid + 1;
+    else hi = mid;
+  }
+  long long c = min(a * kScanBlock, p);
+  for (long long x = a; x < lo; ++x) {
+    if (R.ctps(__ldg(R.bfirst + x)) > r) continue;
+    const float last = x > 0 ? __fadd_rn(__ldg(R.btot + x), __ldg(R.bpre + x)) : __ldg(R.btot);
+    if (R.ctps(last) <= r) {
+      c += min(p - x * kScanBlock, (long long)kScanBlock);
+      continue;
+    }
+    float s[kScanBlock], raw[kScanBlock];
+    R.block(x, s, raw);
+#pragma unroll
+    for (int e = 0; e < kScanBlock; ++e) c += x * kScanBlock + e < p && R.ctps(s[e]) <= r;
+  }
+  return (int)c;
+}
+
+// What a search found: the region idx (the count of CTPS entries <= r,
+// clipped to P - 1), whether its candidate has mass, and the block x it
+// ended in with that block's undivided CTPS s and biases raw, which the
+// region search and the mass test reuse.
+struct Found {
+  int idx;
+  bool mass;
+  long long x;
+  float s[kScanBlock], raw[kScanBlock];
+};
+
+// The region of r.  The binary search keeps lo == 0 or s[lo - 1] <= r, and
+// hi == P or s[hi] > r, whatever entries it tests: the table's entries
+// (shared memory) until [lo, hi) holds no table block's start, the blocks'
+// first entries (C's, a few MB a launch, which L2 keeps) until it holds no
+// block start, so it lies in one 16-block x, which is nondecreasing: its
+// count of entries <= r ends the search.  Block x's entries, biases and
+// the four envelope words exact_count may read (pm of blocks x - 2 and
+// x - 1, sm of x + 1 and x + 2) are loaded together, so a search costs
+// log2(G) dependent reads of L2 and one of device memory when no step of
+// the CTPS lies beside r.
+__device__ __forceinline__ void wide_search(const WideRow& R, float r, Found& f) {
+  const int p = R.p;
+  const long long nb = R.nb;
+  int lo = 0, hi = p;
+  const int span = kScanBlock << R.gshift;  // entries a table step
+  for (int jlo = 0, jhi = (p + span - 1) / span; jlo < jhi;) {
+    const int j = (jlo + jhi) >> 1;
+    if (R.tab[j] <= r) {
+      lo = j * span + 1;
+      jlo = j + 1;
+    } else {
+      hi = j * span;
+      jhi = j;
+    }
+  }
+  for (int xlo = (lo + kScanBlock - 1) / kScanBlock, xhi = (hi + kScanBlock - 1) / kScanBlock;
+       xlo < xhi;) {
+    const int x = (xlo + xhi) >> 1;
+    if (R.ctps(__ldg(R.bfirst + x)) <= r) {
+      lo = x * kScanBlock + 1;
+      xlo = x + 1;
+    } else {
+      hi = x * kScanBlock;
+      xhi = x;
+    }
+  }
+  // u lies in [16x, 16x + 16]: exact_count reads pm(ba - 1), ba - 1 in
+  // {x - 2, x - 1}, and sm(bb + 1), bb + 1 in {x + 1, x + 2}
+  const long long x = lo / kScanBlock;
+  const float pm2 = x >= 2 ? R.pm(x - 2) : -INFINITY, pm1 = x >= 1 ? R.pm(x - 1) : -INFINITY;
+  const float sm1 = x + 1 < nb ? R.sm(x + 1) : INFINITY, sm2 = x + 2 < nb ? R.sm(x + 2) : INFINITY;
+  R.block(min(x, nb - 1), f.s, f.raw);
+  f.x = min(x, nb - 1);
+  int u = lo;
+#pragma unroll
+  for (int e = 0; e < kScanBlock; ++e) {
+    const long long q = x * kScanBlock + e;
+    u += q >= lo && q < hi && R.ctps(f.s[e]) <= r;
+  }
+  const int ba = (u - 1) / kScanBlock, bb = u / kScanBlock;
+  const bool settled =
+      (u == 0 || ba == 0 || R.ctps(ba - 1 == x - 2 ? pm2 : pm1) <= r) &&
+      (u == p || bb + 1 >= nb || R.ctps(bb + 1 == x + 1 ? sm1 : sm2) > r);
+  f.idx = min(settled ? u : wide_count_straddled(R, r), p - 1);
+  f.mass = f.idx / kScanBlock == f.x ? WideRow::pick(f.raw, f.idx % kScanBlock) > 0.0f
+                                     : __ldg(R.bias + f.idx) > 0.0f;
+}
+
+// D's set of candidates: open addressing over `slots` keys (-1 free) and
+// values (kUnclaimed, the lowest claiming draw, or kTaken).
+__device__ __forceinline__ unsigned set_slot(int c, int slots) {
+  unsigned x = (unsigned)c;
+  x ^= x >> 16;
+  x *= 0x7feb352du;
+  x ^= x >> 15;
+  x *= 0x846ca68bu;
+  x ^= x >> 16;
+  return x & (unsigned)(slots - 1);
+}
+
+// Whether candidate c was taken in an earlier round (claims of this round,
+// landing meanwhile, are not kTaken).
+__device__ __forceinline__ bool set_taken(const int* keys, const int* vals, int slots, int c) {
+  const volatile int* vk = keys;
+  const volatile int* vv = vals;
+  for (unsigned x = set_slot(c, slots);; x = (x + 1) & (unsigned)(slots - 1)) {
+    const int key = vk[x];
+    if (key == c) return vv[x] == kTaken;
+    if (key < 0) return false;
+  }
+}
+
+// Draw j claims candidate c; returns c's slot.  At most K keys are ever
+// inserted (each claimed candidate gets a winner), so a free slot is found.
+__device__ __forceinline__ int set_claim(int* keys, int* vals, int slots, int c, int j) {
+  for (unsigned x = set_slot(c, slots);; x = (x + 1) & (unsigned)(slots - 1)) {
+    const int key = atomicCAS(keys + x, -1, c);
+    if (key < 0 || key == c) {
+      atomicMin(vals + x, j);
+      return (int)x;
+    }
+  }
+}
+
+// D: a block a row; see above.  Dynamic shared memory holds the table of
+// block first entries, the chunks' running extremes (when ext_smem) and then
+// the set (when L.set == 0).
+__global__ void __launch_bounds__(kRoundsThreads) its_select_rounds_kernel(
     const float* __restrict__ biases, const float* __restrict__ rands, int* __restrict__ out,
-    int* __restrict__ stats, float* __restrict__ scratch, int n, int p, int iters, int k) {
-  __shared__ int s_count;
+    int* __restrict__ stats, WideLayout L, int p, int iters, int k, int vec, int ext_smem) {
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float s_env[64];
-  const ScanLevels L = scan_levels(p);
-  const long long words = wide_scratch_words(p, k);
-  float* ctps = scratch + (long long)blockIdx.x * words;
-  int* owner_base = reinterpret_cast<int*>(ctps + p);
-  volatile int* owner = owner_base;
-  float* lv = ctps + 2LL * p;
-  float* pm = lv + L.len;
-  float* sm = pm + (p + kScanBlock - 1) / kScanBlock;
-  int* cand_of = reinterpret_cast<int*>(sm + (p + kScanBlock - 1) / kScanBlock);
+  __shared__ int s_npos, s_searches;
+  const long long i = blockIdx.x;
   const int tid = threadIdx.x, bd = blockDim.x;
-  for (long long q = tid; q < p; q += bd) owner[q] = kFree;
-
-  for (long long i = blockIdx.x; i < n; i += gridDim.x) {
-    const float* row = biases + i * p;
-    if (tid == 0) s_count = 0;
-    __syncthreads();
-    // level 0: the row's 16-blocks, in-block sums into ctps, totals up
-    int npos = 0;
-    const long long nb0 = (p + (long long)kScanBlock - 1) / kScanBlock;
-    for (long long b = tid; b < nb0; b += bd) {
-      float acc = 0.0f;
+  const long long w3 = L.w3, nb = (p + kScanBlock - 1) / kScanBlock;
+  const long long nt = (nb + (1LL << L.gshift) - 1) >> L.gshift;
+  const float* bfirst = L.bfirst + i * L.nbp;
+  float* cpm = L.cmax + i * w3;
+  float* csm = L.cmin + i * w3;
+  WideRow R{biases + i * p, L.bpre + i * L.nbp, bfirst, L.btot + i * L.nbp, L.pml + i * L.nbp,
+            L.sml + i * L.nbp, nullptr, cpm, csm, w3, nb, p, L.gshift, vec != 0, 1.0f};
+  R.total = fmaxf(R.at(p - 1), 1e-12f);
+  // the table, divided by the total as it is copied
+  float* tab = reinterpret_cast<float*>(smem);
+  for (long long j0 = tid; j0 < nt; j0 += 8 * bd) {  // eight loads in flight a thread
+    float v[8];
 #pragma unroll
-      for (int x = 0; x < kScanBlock; ++x) {
-        const long long q = b * kScanBlock + x;
-        const float v = q < p ? fmaxf(__ldg(row + q), 0.0f) : 0.0f;
-        npos += v > 0.0f;
-        acc = x == 0 ? v : __fadd_rn(acc, v);
-        if (q < p) ctps[q] = acc;
-      }
-      if (L.n > 0) lv[L.off[1] + b] = acc;
+    for (int u = 0; u < 8; ++u) {
+      const long long j = j0 + (long long)u * bd;
+      v[u] = j < nt ? __ldg(bfirst + (j << L.gshift)) : 0.0f;
     }
-    atomicAdd(&s_count, npos);
-    __syncthreads();
-    // levels 1 .. n-1 the same way; the top level sequentially
-    for (int l = 1; l < L.n; ++l) {
-      const long long w = L.w[l], nb = (w + kScanBlock - 1) / kScanBlock;
-      float* lev = lv + L.off[l];
-      for (long long b = tid; b < nb; b += bd) {
-        float acc = 0.0f;
 #pragma unroll
-        for (int x = 0; x < kScanBlock; ++x) {
-          const long long q = b * kScanBlock + x;
-          const float v = q < w ? lev[q] : 0.0f;
-          acc = x == 0 ? v : __fadd_rn(acc, v);
-          if (q < w) lev[q] = acc;
-        }
-        lv[L.off[l + 1] + b] = acc;
-      }
-      __syncthreads();
+    for (int u = 0; u < 8; ++u)
+      if (j0 + (long long)u * bd < nt) tab[j0 + (long long)u * bd] = R.ctps(v[u]);
+  }
+  R.tab = tab;
+  unsigned char* at = smem + (4 * nt + 15) / 16 * 16;
+  if (ext_smem) {
+    float* ext = reinterpret_cast<float*>(at);
+    for (long long c = tid; c < w3; c += bd) {
+      ext[c] = cpm[c];
+      ext[w3 + c] = csm[c];
     }
-    if (tid == 0 && L.n > 0) {  // (a row of at most 16 is one block: scanned above)
-      float* top = lv + L.off[L.n];
-      for (long long q = 1; q < L.w[L.n]; ++q) top[q] = __fadd_rn(top[q - 1], top[q]);
-    }
-    __syncthreads();
-    // down: level l's in-block sums plus level l + 1's prefix before the block
-    for (int l = L.n - 1; l >= 1; --l) {
-      float* lev = lv + L.off[l];
-      const float* up = lv + L.off[l + 1];
-      for (long long q = tid; q < L.w[l]; q += bd) {
-        const long long jb = q / kScanBlock;
-        if (jb > 0) lev[q] = __fadd_rn(lev[q], up[jb - 1]);
-      }
-      __syncthreads();
-    }
-    const long long lb = (p - 1) / kScanBlock;
-    float last = ctps[p - 1];
-    if (L.n > 0 && lb > 0) last = __fadd_rn(last, lv[L.off[1] + lb - 1]);
-    const float total = fmaxf(last, 1e-12f);
-    __syncthreads();  // every thread has read ctps[p - 1] before it is divided
-    for (long long q = tid; q < p; q += bd) {
-      const long long jb = q / kScanBlock;
-      float v = ctps[q];
-      if (L.n > 0 && jb > 0) v = __fadd_rn(v, lv[L.off[1] + jb - 1]);
-      v = __fdiv_rn(v, total);
-      ctps[q] = v;
-      if (q % kScanBlock == 0) sm[jb] = v;  // the envelope's inputs
-      if (q % kScanBlock == kScanBlock - 1 || q == p - 1) pm[jb] = v;
-    }
-    const int want = min(s_count, k);
-    for (int j = tid; j < k; j += bd) out[i * k + j] = -1;
-    __syncthreads();
-    block_envelope((p + kScanBlock - 1) / kScanBlock, pm, sm, s_env);
-    if (tid == 0) s_count = 0;  // now the searches
-
-    // the rounds
-    int rounds = 0, searches = 0;
-    for (int t = 0; t < iters; ++t) {
-      bool pending = false;
-      for (int j = tid; j < want; j += bd) pending = pending || out[i * k + j] < 0;
-      if (!__syncthreads_or(pending)) break;
-      ++rounds;
-      for (int j = tid; j < want; j += bd) {
-        int claim = -1;
-        if (out[i * k + j] < 0) {
-          const float r1 = __ldg(rands + (i * iters + t) * k + j);
-          const int idx1 =
-              min(exact_count(upper_bound(ctps, p, r1), ctps, pm, sm, p, r1, 1.0f, false), p - 1);
-          const bool hit1 = owner[idx1] == kTaken;
-          searches += 1 + hit1;
-          int cand = idx1;
-          bool blocked = false;
-          if (hit1) {  // region search past the taken region
-            const float lo = idx1 > 0 ? ctps[idx1 - 1] : 0.0f;
-            const float delta = __fsub_rn(ctps[idx1], lo);
-            float r2 = __fmul_rn(r1, __fsub_rn(1.0f, delta));
-            r2 = r2 < lo ? r2 : __fadd_rn(r2, delta);
-            r2 = fminf(fmaxf(r2, 0.0f), 1.0f);
-            cand = min(exact_count(upper_bound(ctps, p, r2), ctps, pm, sm, p, r2, 1.0f, false),
-                       p - 1);
-            blocked = owner[cand] == kTaken;
-          }
-          if (!blocked && __ldg(row + cand) > 0.0f) {
-            atomicMin(owner_base + cand, j);
-            claim = cand;
-          }
-        }
-        cand_of[j] = claim;
-      }
-      __syncthreads();  // every claim of the round has landed
-      for (int j = tid; j < want; j += bd) {
-        const int c = cand_of[j];
-        if (c >= 0 && owner[c] == j) {  // the lowest claiming draw
-          out[i * k + j] = c;
-          owner[c] = kTaken;
-        }
-      }
-      __syncthreads();  // the winners are taken before the next round's tests
-    }
-    atomicAdd(&s_count, searches);
+    cpm = ext;
+    csm = ext + w3;
+    R.cpm = cpm;
+    R.csm = csm;
+    at += (8 * w3 + 15) / 16 * 16;
+  }
+  const int slots = L.slots;
+  int* keys = L.set ? L.setmem + i * L.set : reinterpret_cast<int*>(at);
+  int* vals = keys + slots;
+  int* slot_of = vals + slots;  // the slot each draw claimed this round, or -1
+  for (int x = tid; x < slots; x += bd) {
+    keys[x] = -1;
+    vals[x] = kUnclaimed;
+  }
+  for (int j = tid; j < k; j += bd) out[i * k + j] = -1;
+  if (tid == 0) {
+    s_npos = 0;
+    s_searches = 0;
+  }
+  __syncthreads();
+  int np = 0;
+  for (long long c = tid; c < w3; c += bd) np += L.npos[i * w3 + c];
+  atomicAdd(&s_npos, np);
+  block_envelope(w3, cpm, csm, s_env);  // ends with a barrier
+  const int want = min(s_npos, k);
+  int rounds = 0, searches = 0;
+  Found f;
+  for (int t = 0; t < iters; ++t) {
+    bool pending = false;
+    for (int j = tid; j < want; j += bd) pending = pending || out[i * k + j] < 0;
+    if (!__syncthreads_or(pending)) break;  // later rounds change nothing
+    ++rounds;
     for (int j = tid; j < want; j += bd) {
-      const int c = out[i * k + j];
-      if (c >= 0) owner[c] = kFree;
+      int slot = -1;
+      if (out[i * k + j] < 0) {
+        const float r1 = __ldg(rands + (i * iters + t) * k + j);
+        wide_search(R, r1, f);
+        const int idx1 = f.idx;
+        const bool hit1 = set_taken(keys, vals, slots, idx1);
+        searches += 1 + hit1;
+        if (hit1) {  // region search past the taken region
+          // S[idx1 - 1] and S[idx1], from the search's block where they lie in it
+          const long long e1 = idx1 - f.x * kScanBlock;
+          const float s1 = e1 >= 0 && e1 < kScanBlock ? WideRow::pick(f.s, e1) : R.at(idx1);
+          const float s0 = idx1 == 0                   ? 0.0f
+                           : e1 >= 1 && e1 <= kScanBlock ? WideRow::pick(f.s, e1 - 1)
+                                                         : R.at(idx1 - 1);
+          const float lo = idx1 > 0 ? R.ctps(s0) : 0.0f;
+          const float delta = __fsub_rn(R.ctps(s1), lo);
+          float r2 = __fmul_rn(r1, __fsub_rn(1.0f, delta));
+          r2 = r2 < lo ? r2 : __fadd_rn(r2, delta);
+          r2 = fminf(fmaxf(r2, 0.0f), 1.0f);
+          wide_search(R, r2, f);
+        }
+        if (f.mass && !(hit1 && set_taken(keys, vals, slots, f.idx)))
+          slot = set_claim(keys, vals, slots, f.idx, j);
+      }
+      slot_of[j] = slot;
     }
-    __syncthreads();
-    if (tid == 0) {
-      stats[2 * i] = rounds;
-      stats[2 * i + 1] = s_count;
+    __syncthreads();  // every claim of the round has landed
+    for (int j = tid; j < want; j += bd) {
+      const int x = slot_of[j];
+      if (x >= 0 && reinterpret_cast<volatile int*>(vals)[x] == j) {  // the lowest claiming draw
+        out[i * k + j] = keys[x];
+        vals[x] = kTaken;
+      }
     }
-    // the next row's first barrier orders these reads before s_count is reset
+    __syncthreads();  // the winners are taken before the next round's tests
+  }
+  atomicAdd(&s_searches, searches);
+  __syncthreads();
+  if (tid == 0) {
+    stats[2 * i] = rounds;
+    stats[2 * i + 1] = s_searches;
   }
 }
 
@@ -1506,21 +1985,49 @@ int its_select_launch(const void* biases, const void* rands, void* out, void* st
 }
 
 // Rows the warp-per-instance kernel does not take (K > 32 or P > 4096), or
-// any rows when the caller asks for this path: one block a row, at most
-// `blocks` blocks, over a scratch of blocks x its_select_wide_scratch_words
-// 32-bit words.
+// any rows when the caller asks for this path: the phases A-D of the wide
+// kernels, one launch each, over a scratch of
+// its_select_wide_scratch_words(n, p, k) 32-bit words.
 int its_select_wide_launch(const void* biases, const void* rands, void* out, void* stats,
-                           void* scratch, int n, int p, int iters, int k, int blocks,
-                           void* stream) {
-  if (n > 0 && blocks > 0) {
-    its_select_wide_kernel<<<blocks, kWideThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)biases, (const float*)rands, (int*)out, (int*)stats, (float*)scratch, n, p,
-        iters, k);
-  }
+                           void* scratch, int n, int p, int iters, int k, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const WideLayout L = wide_layout((float*)scratch, n, p, k);
+  const float* b = (const float*)biases;
+  const bool vec = p % 4 == 0 && (uintptr_t)b % 16 == 0;
+  const long long chunks = (long long)n * L.w3;
+  if (chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  // A: the chunks' in-block sums
+  if (vec) its_select_chunk_kernel<true><<<(int)chunks, kChunkThreads, 0, st>>>(b, L, p);
+  else its_select_chunk_kernel<false><<<(int)chunks, kChunkThreads, 0, st>>>(b, L, p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  // B: the rows' prefix tables
+  its_select_prefix_kernel<<<(n + kPrefixWarps - 1) / kPrefixWarps, kPrefixWarps * 32, 0, st>>>(
+      L, n);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  // C: each 16-block's prefix and the envelope
+  its_select_envelope_kernel<<<(int)chunks, kChunkThreads, 0, st>>>(L, p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  // D: the rounds
+  const long long nb = (p + kScanBlock - 1) / kScanBlock;
+  const long long nt = ((nb - 1) >> L.gshift) + 1;
+  const bool ext_smem = 8 * L.w3 <= kExtSmemBytes;
+  const long long smem = (4 * nt + 15) / 16 * 16 + (ext_smem ? (8 * L.w3 + 15) / 16 * 16 : 0) +
+                         (L.set ? 0 : 4 * (2LL * L.slots + k));
+  if ((e = cudaFuncSetAttribute(its_select_rounds_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+      cudaSuccess)
+    return (int)e;
+  const int threads = std::min(kRoundsThreads, (k + 31) / 32 * 32);
+  its_select_rounds_kernel<<<n, threads, (int)smem, st>>>(
+      b, (const float*)rands, (int*)out, (int*)stats, L, p, iters, k, vec, ext_smem);
   return (int)cudaGetLastError();
 }
 
-long long its_select_wide_scratch_words(int p, int k) { return wide_scratch_words(p, k); }
+long long its_select_wide_scratch_words(int n, int p, int k) {
+  return wide_layout(nullptr, n, p, k).words;
+}
 
 int hash_uniform_launch(const void* keys, const void* counters, void* out, int nkeys, int n,
                         void* stream) {

@@ -6,8 +6,10 @@ tensor launches a kernel of ``csrc/walk_kernels.cu`` (or raises), a CPU
 tensor runs ``kernels.ref.its_select_ref``.  Two kernels compute the same
 function, chosen by shape: ``its_select_kernel`` (a warp an instance, a
 lane a draw, the row staged in shared memory) for ``K <= 32`` and
-``P <= 4096``, and ``its_select_wide_kernel`` (a block a row, the CTPS in a
-device-memory scratch) for any other ``K`` and ``P``.
+``P <= 4096``, and the wide kernels for any other ``K`` and ``P``: each row
+split into chunks of 4,096 entries over many blocks and read once, its scan
+joined by a small table a row with XLA's association kept exact, then a
+block a row for the rounds (phases A-D of ``its_select_wide_launch``).
 ``its_select.launches`` counts the launches of both,
 ``its_select.wide_launches`` those of the wide kernel.
 """
@@ -21,9 +23,6 @@ from repro_torch.kernels import _build, ref
 MAX_K = 32
 #: the warp kernel's register scan holds up to 8 16-blocks a lane: 8 * 32 * 16
 MAX_P = 4096
-#: resident blocks of the wide kernel per SM (512 threads each), as its
-#: ``__launch_bounds__`` holds them: the scratch is sized for this many
-WIDE_BLOCKS_PER_SM = 2
 
 
 def its_select(biases: torch.Tensor, rands: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -66,13 +65,11 @@ def _launch(biases: torch.Tensor, rands: torch.Tensor, wide: bool):
     lib = _build.load()
     stream = _build.stream_handle(biases)
     if wide:
-        sms = torch.cuda.get_device_properties(biases.device).multi_processor_count
-        blocks = min(n, WIDE_BLOCKS_PER_SM * sms)
-        words = lib.its_select_wide_scratch_words(p, k)
-        scratch = torch.empty(blocks * words, dtype=torch.float32, device=biases.device)
+        words = lib.its_select_wide_scratch_words(n, p, k)
+        scratch = torch.empty(words, dtype=torch.float32, device=biases.device)
         code = lib.its_select_wide_launch(
             biases.data_ptr(), rands.data_ptr(), idx.data_ptr(), stats.data_ptr(),
-            scratch.data_ptr(), n, p, iters, k, blocks, stream,
+            scratch.data_ptr(), n, p, iters, k, stream,
         )
         _build.check(lib, code, "its_select (wide)")
         its_select.wide_launches += 1

@@ -81,6 +81,57 @@ def padded_cumsum(x: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], m)[..., :n]
 
 
+#: entries of a chunk of the wide ``its_select`` kernel: 16^3, one node of
+#: the scan's level 3, aligned at a multiple of itself
+CHUNK = SCAN_BLOCK ** 3
+
+
+def chunked_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """:func:`padded_cumsum` over ``(n, P)`` rows as the wide ``its_select``
+    kernel splits it, bit for bit: chunks of :data:`CHUNK` entries, each
+    on its own, joined by a small table a row.
+
+    A chunk aligned at a multiple of 4,096 holds whole nodes of levels 0-2
+    and is one node of level 3.  So (phase A) each chunk takes its in-block
+    sums at levels 0, 1 and 2 alone; (phase B) a row scans its chunk totals
+    by :func:`padded_cumsum`'s rule (``t3``) and gives each chunk ``c`` the
+    three prefixes the tree adds into it from outside: ``t3[c-1]``, the
+    scanned value of the previous chunk's last level-2 node
+    (``tot[c-1] + t3[c-2]``) and of its last level-1 node
+    (``e1[c-1] + (e2[c-1] + t3[c-2])``); (phase C) each 16-block gets the
+    one value the tree adds to its in-block sums, built from those with the
+    tree's association, and (phase D) an entry is its in-block sum plus that
+    value.  For tests only: the main path runs the kernel on the card and
+    :func:`padded_cumsum` on the CPU.
+    """
+    n, p = x.shape
+    w3 = -(-p // CHUNK)
+    add = lambda a, b, cond: torch.where(cond, a + b, a)  # noqa: E731  (a, or a + b where the tree adds)
+    # A: in-block sums of levels 0, 1, 2 of each chunk
+    s0 = _sequential_cumsum(torch.nn.functional.pad(x, (0, w3 * CHUNK - p)).reshape(n, w3, 256, 16))
+    s1 = _sequential_cumsum(s0[..., -1].reshape(n, w3, 16, 16)).reshape(n, w3, 256)
+    s2 = _sequential_cumsum(s1.reshape(n, w3, 16, 16)[..., -1])
+    tot, e1, e2 = s2[..., 15], s1[..., 255], s2[..., 14]
+    # B: the level-3 scan and the three prefixes of each chunk
+    t3 = padded_cumsum(tot)
+    prev = lambda a, d: torch.nn.functional.pad(a, (d, 0))[:, :w3]  # noqa: E731  (a[c - d], 0 before)
+    c = torch.arange(w3)
+    two = c >= 2
+    pre3 = prev(t3, 1)
+    pre2 = add(prev(tot, 1), prev(t3, 2), two)
+    pre1 = prev(e1, 1) + add(prev(e2, 1), prev(t3, 2), two)
+    # C: the value each 16-block adds, from the chunk's sums and the table; D: the entries
+    one = (c >= 1)[None, :, None]
+    jm = torch.arange(255)  # block jb = jm + 1 adds level 1 up to jm
+    im = (jm // 16)[None, None, :]
+    lev2 = add(torch.nn.functional.pad(s2, (1, 0))[..., jm // 16], pre3[..., None], one)
+    lev2 = torch.where(im == 0, pre2[..., None], lev2)
+    blk = add(s1[..., :255], lev2, one | (im > 0))
+    out = torch.cat([add(s0[:, :, :1], pre1[:, :, None, None], one[..., None]),
+                     s0[:, :, 1:] + blk[..., None]], dim=2)
+    return out.reshape(n, w3 * CHUNK)[:, :p]
+
+
 def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
     """:func:`padded_cumsum` for the walk-step windows, whose widths need no
     padding: at most 16, or multiples of 16 whose block counts obey the same

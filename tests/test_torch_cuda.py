@@ -534,6 +534,72 @@ def test_its_select_wide_kernel_on_narrow_rows_and_many_draws(cuda_device, k, p)
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
 
 
+def _launch_rows(seed: int, n: int, p: int, k: int, iters: int, device):
+    """Rows made on the card, in turn: rows whose 16-blocks start with a
+    zero bias and that hold a long run of zeros, with their first round's
+    draws on the entries where the CTPS steps down (and just before them);
+    rows of fewer positive entries than K (as few as one); all-zero rows;
+    rows of a few hundred positive entries, so draws collide."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    b = torch.rand((n, p), generator=gen, device=device)
+    b = b * torch.exp2(torch.rand((n, p), generator=gen, device=device) * 16 - 8)
+    r = torch.rand((n, iters, k), generator=gen, device=device)
+    kind = torch.arange(n, device=device) % 4
+    b[kind == 0, 16::16] = 0.0
+    b[kind == 0, p // 5: p // 2] = 0.0
+    keep = torch.rand((n, p), generator=gen, device=device)
+    few = torch.clamp(torch.randint(1, k + 1, (n, 1), generator=gen, device=device), max=k) - 1
+    sparse = keep < 400.0 / p
+    for i in torch.nonzero(kind == 1).flatten().tolist():  # fewer than K positive (at least one)
+        at = torch.randperm(p, generator=gen, device=device)[: max(1, int(few[i]))]
+        sparse[i] = False
+        sparse[i, at] = True
+    b = torch.where((kind[:, None] == 1) | (kind[:, None] == 3), torch.where(sparse, b, 0.0), b)
+    b[kind == 2] = 0.0
+    sums = ref.padded_cumsum(b)
+    ctps = sums / torch.clamp(sums[:, -1:], min=1e-12)
+    for i in torch.nonzero(kind == 0).flatten().tolist():
+        down = torch.nonzero(ctps[i, 1:] < ctps[i, :-1]).flatten()
+        at = torch.cat([ctps[i, down + 1], ctps[i, down]])
+        if at.numel():
+            r[i, 0] = at[torch.randint(0, at.numel(), (k,), generator=gen, device=device)]
+    return b.contiguous(), r.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 8, 16, 33, 600])
+@pytest.mark.parametrize("p", [4097, 65_537, 102_784, 821_376])
+@pytest.mark.parametrize("n", [1, 3, 163])
+def test_its_select_wide_kernel_at_launch_shapes(cuda_device, n, p, k):
+    """The wide kernel at the traversal paths' shapes (layer's 163 rows of
+    821,376, the per-vertex rows of 102,784) and around the chunk edges,
+    against the plain version run on the card: rows where the CTPS steps
+    down, rows of fewer candidates than K, all-zero rows."""
+    b, r = _launch_rows(n * p + k, n, p, k, 8, cuda_device)
+    want = ref.its_select_ref(b, r)
+    kernels.reset_launch_counts()
+    got = kernels.its_select(b, r)
+    torch.cuda.synchronize()
+    for field, g, w in zip(("idx", "stats"), got, want):
+        assert torch.equal(g, w), f"{field}: {int((g != w).sum())} mismatches"
+    assert kernels.its_select.wide_launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p,k", [(3, 20_000, 9000), (1, 4096 * 4097, 4)])
+def test_its_select_wide_kernel_with_tables_in_device_memory(cuda_device, n, p, k):
+    """The rounds kernel's tables past its shared-memory budgets: the taken
+    set of K = 9,000 draws, and the chunk extremes of a row of 4,097
+    chunks, both in device memory."""
+    b, r = _launch_rows(n + p + k, n, p, k, 4, cuda_device)
+    want = ref.its_select_ref(b, r)
+    got = kernels.its_select(b, r)
+    torch.cuda.synchronize()
+    for field, g, w in zip(("idx", "stats"), got, want):
+        assert torch.equal(g, w), f"{field}: {int((g != w).sum())} mismatches"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dense", [False, True])
 def test_its_select_kernels_agree_at_the_warp_limit(cuda_device, dense):
