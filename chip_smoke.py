@@ -122,6 +122,7 @@ printing no result, without a CUDA device or outside a checkout.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -182,6 +183,14 @@ SEGMENT_CHECK_ROWS, SEGMENT_CHECK_WIDTH, SEGMENT_CHECK_DEPTH = 4, 4096, 4
 SERVE_REQUESTS, SERVE_REPS, SERVE_SEQ_REPS = 64, 5, 2
 SKEWED_DEPTHS, SKEWED_P = (4, 8, 16, 32, 64), (0.35, 0.3, 0.2, 0.1, 0.05)
 OOM_SERVE_DEPTHS = (4, 8, 16)
+#: the sharded phases: shards on the one card, and each path's walkers,
+#: depth and exchange slots
+SHARDS = 4
+SHARD_CHECK_DEPTH = 8
+SHARD_MIXED_WALKERS, SHARD_MIXED_DEPTH, SHARD_MIXED_SLOTS = 65_536, 16, 4_096
+SHARD_PL_WALKERS, SHARD_PL_DEPTH, SHARD_PL_SLOTS = 1_000_000, 16, 65_536
+SHARD_SMALL_WALKERS, SHARD_SMALL_DEPTH = 4_096, 8
+SHARD_OPAQUE_WALKERS, SHARD_OPAQUE_DEPTH = 1_024, 4
 STREAM_REQUESTS, STREAM_DEPTH, STREAM_WIDTH = 150, 8, 16
 STREAM_MAX_COHORT, STREAM_WINDOW_MS = 16, 10.0
 #: the out-of-memory walk at ``benchmarks/fig13_oom.py``'s settings, and the
@@ -199,7 +208,7 @@ WIDE_PHASES = {"totals": "its_select_chunk_kernel", "prefixes": "its_select_pref
                "envelope": "its_select_envelope_kernel", "rounds": "its_select_rounds_kernel"}
 KERNELS = ("reject_step", "alias_step", "walk_step", "walk_step_window", "its_select",
            "its_select_wide", "reject_step_rows", "alias_step_rows", "walk_step_rows",
-           "derive_keys")
+           "derive_keys", "reject_step_entries", "alias_step_entries", "walk_step_entries")
 
 
 def _fail(msg: str) -> int:
@@ -227,7 +236,8 @@ class Smoke:
         from repro_torch.core import (
             algorithms, backend, engine, methods, oom, rng, select, transition)
         from repro_torch.graph import generators, partition
-        from repro_torch import serve
+        from repro_torch import serve, shard
+        from repro_torch.graph import csr
         from repro_torch.kernels import _build, ref, threefry
         from repro_torch.serve.stream import percentile
 
@@ -237,6 +247,8 @@ class Smoke:
         self.its_mod = importlib.import_module("repro_torch.kernels.its_select")
         self.gen, self.build, self.ref, self.threefry = generators, _build, ref, threefry
         self.serve, self.percentile = serve, percentile
+        self.shard, self.csr = shard, csr
+        self.shard_walk = importlib.import_module("repro_torch.shard.walk")
         self.card = _card_line()
         self.dev = torch.device("cuda")
         self.key = rng.PRNGKey(SEED)
@@ -741,6 +753,9 @@ class Smoke:
             "reject_step_rows": "src/repro/kernels/walk_step.py:267",
             "alias_step_rows": "src/repro/kernels/alias_select.py:66",
             "walk_step_rows": "src/repro/kernels/walk_step.py:158",
+            "reject_step_entries": "src/repro/kernels/walk_step.py:267",
+            "alias_step_entries": "src/repro/kernels/alias_select.py:66",
+            "walk_step_entries": "src/repro/kernels/walk_step.py:158",
             # no TPU kernel: the per-row key derivation of jax.vmap in
             # random_walk_segments
             "derive_keys": "src/repro/core/engine.py:535",
@@ -1583,6 +1598,304 @@ class Smoke:
 
     # -- the device hash ------------------------------------------------------
 
+    # -- the sharded engine (4 shards on one card) ----------------------------
+
+    @contextlib.contextmanager
+    def step_spy(self, record=False):
+        """Count the sharded drain's step dispatches (``walk_step_adaptive``
+        and ``walk_step_bucketed_window`` calls: one a shard and
+        sub-round); with ``record`` also each flat batch's distinct depths
+        (a sync a call) and the operands of the first batch and of the first
+        batch that mixes depths.  Yields a dict."""
+        torch, bk = self.torch, self.bk
+        real, real_window = bk.walk_step_adaptive, bk.walk_step_bucketed_window
+        seen = dict(calls=0, mixed=0, first=None, mixed_batch=None)
+
+        def spy(key, indptr, indices, bias, cur, **kw):
+            seen["calls"] += 1
+            if record:
+                depths = int(torch.unique(key.depth[key.inst >= 0]).numel())
+                seen["mixed"] += depths > 1
+                slot = "first" if seen["first"] is None else (
+                    "mixed_batch" if depths > 1 and seen["mixed_batch"] is None else None)
+                if slot:
+                    seen[slot] = dict(
+                        key=key.with_entries(key.depth.clone(), key.inst.clone()),
+                        indptr=indptr, indices=indices, bias=bias, cur=cur.clone(),
+                        depths=depths, **kw)
+            return real(key, indptr, indices, bias, cur, **kw)
+
+        def window_spy(*args, **kw):
+            seen["calls"] += 1
+            return real_window(*args, **kw)
+
+        bk.walk_step_adaptive, bk.walk_step_bucketed_window = spy, window_spy
+        try:
+            yield seen
+        finally:
+            bk.walk_step_adaptive, bk.walk_step_bucketed_window = real, real_window
+
+    def sharded(self, name, g, spec, seeds, depth, kernel_name, *, check="card", **opts):
+        """One timed ``sharded_random_walk`` over SHARDS shards of the card
+        after a warm-up (the layout's build and the kernels' first
+        launches; it records the first and a mixed-depth batch), held
+        against the card's ``random_walk`` under the same key: seconds,
+        SEPS, ms a round, rounds, blocks, the drain's stats, launches, peak
+        memory.  Returns ``(row, recorded batches)``."""
+        torch, S = self.torch, self.shard
+        mesh = S.ShardMesh.on(self.dev, SHARDS)
+        md = g.max_degree()
+        walk = dict(depth=depth, spec=spec, max_degree=md, **opts)
+        t0 = time.perf_counter()
+        with self.step_spy(record=True) as rec:
+            S.sharded_random_walk(mesh, g, seeds, self.key, **dict(walk, depth=min(depth, 4)))
+        self.sync()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        self.kernels.reset_launch_counts()
+        with self.step_spy() as count:
+            t0 = time.perf_counter()
+            res = S.sharded_random_walk(mesh, g, seeds, self.key, **walk)
+            self.sync()
+            seconds = time.perf_counter() - t0
+        launches = self.kernels.launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        for k in ({kernel_name} - {None}) | self.kernels_of(g, spec, md):
+            _require(launches[k] > 0, f"{name}: {k} never launched: {launches}")
+        t0 = time.perf_counter()
+        want = self.eng.random_walk(g, seeds, self.key, depth=depth, spec=spec, max_degree=md,
+                                    device=self.dev)
+        _require(torch.equal(res.walks, want.walks),
+                 f"{name}: the sharded walks differ from the card's random_walk")
+        edges = int(res.sampled_edges)
+        _require(edges == int(want.sampled_edges), f"{name}: sampled edges differ")
+        rounds = count["calls"] / (SHARDS * res.stats["sub_rounds"])
+        row = dict(
+            path=name, spec=spec.name, shards=SHARDS, walkers=int(seeds.shape[0]), depth=depth,
+            options={k: v for k, v in opts.items()}, launches=launches, sampled_edges=edges,
+            seconds=seconds, seps=edges / seconds, rounds=rounds,
+            ms_per_round=1e3 * seconds / max(rounds, 1), peak_gib=peak_gib, warm_up_s=warm_s,
+            reference_check_s=time.perf_counter() - t0, card=self.card,
+            mixed_depth_batches_in_warm_up=rec["mixed"], **res.stats,
+        )
+        del res, want
+        return row, rec
+
+    def entry_row(self, kernel_name, path, batches, launches):
+        """Rows 1e-3e: a step kernel under per-entry keys (``EntryKeys``) on
+        batches the drain recorded, against its plain version on the same
+        operands: 0 mismatches, ms behind a spin, the bound."""
+        torch, ref, K = self.torch, self.ref, self.kernels
+        entries = []
+        for label, b in batches:
+            key, cur, tables = b["key"], b["cur"], b["tables"]
+            indptr, indices, bias = b["indptr"], b["indices"], b["bias"]
+            plan = dict(buckets=b["buckets"], use_chunked=b["use_chunked"], methods=b["methods"])
+            out = torch.full_like(cur, -1)
+            if kernel_name == "reject_step":
+                launch = lambda: K.reject_step(key, indptr, indices, bias, tables.row_max, cur,  # noqa: E731
+                                               out=out, **plan)
+                plain = lambda: ref.reject_step_ref(key, indptr, indices, bias,  # noqa: E731
+                                                    tables.row_max, cur, **plan)
+            elif kernel_name == "alias_step":
+                launch = lambda: K.alias_step(key, indptr, indices, tables.prob, tables.alias,  # noqa: E731
+                                              cur, out=out, **plan)
+                plain = lambda: ref.alias_step_ref(key, indptr, indices, tables.prob,  # noqa: E731
+                                                   tables.alias, cur, **plan)
+            else:
+                launch = lambda: K.walk_step(key, indptr, indices, bias, cur, out=out, **plan)  # noqa: E731
+                plain = lambda: ref.walk_step_ref(key, indptr, indices, bias, cur, **plan)  # noqa: E731
+            local = self.csr.CSRGraph(indptr=indptr, indices=indices, weights=bias)
+            work = lambda want: self.work(kernel_name, local, cur, want, bias, tables, key, plan)  # noqa: E731
+            entries.append(self.compare(
+                path, f"{kernel_name}_entries", label, launch, plain, work, walkers=cur.shape[0],
+                live=int((cur >= 0).sum()), depths=b["depths"]))
+        name = f"{kernel_name}_entries"
+        self.kernel_row(name, path, entries, launches=launches)
+
+    def shard_path(self, g):
+        """``shard``: deepwalk over 4 shards of the R-MAT graph on the card,
+        a walker a vertex, depth 40, the default hub budget; then the CPU
+        cross-check (the first CHECK_WALKERS seeds at depth
+        SHARD_CHECK_DEPTH over 4 CPU shards: walks and stats equal) and
+        ``shard_mixed`` (SHARD_MIXED_WALKERS walkers, depth
+        SHARD_MIXED_DEPTH, two sub-rounds, SHARD_MIXED_SLOTS slots: batches
+        of several depths), row 1e from both, and ``serve_shard``."""
+        torch, S = self.torch, self.shard
+        dw = self.alg.deepwalk()
+        seeds = torch.arange(g.num_vertices, dtype=torch.int32, device=self.dev)
+        row, rec = self.sharded("shard", g, dw, seeds, DEPTH, "reject_step")
+        _require(row["exchanged_entries"] > 0 and row["hub_hops"] > 0,
+                 f"shard: no exchange or hub traffic: {row}")
+        mesh = S.ShardMesh.on(self.dev, SHARDS)
+        md = g.max_degree()
+        row.update(self.profile("shard", lambda: S.sharded_random_walk(
+            mesh, g, seeds, self.key, depth=2, spec=dw, max_degree=md)))
+        first = rec["first"]
+        launches = row["launches"]["reject_step"]
+
+        _log(f"[shard] {json.dumps(row)}")
+        self.paths.append(row)
+
+        step = g.num_vertices // SHARD_MIXED_WALKERS
+        mseeds = seeds[::step][:SHARD_MIXED_WALKERS].contiguous()
+        mrow, mrec = self.sharded("shard_mixed", g, dw, mseeds, SHARD_MIXED_DEPTH, "reject_step",
+                                  sub_rounds=2, exchange_slots=SHARD_MIXED_SLOTS)
+        _require(mrow["blocks"] > 1 or mrow["mixed_depth_batches_in_warm_up"] > 0,
+                 f"shard_mixed: nothing deferred: {mrow}")
+        with self.step_spy(record=True) as mixed:
+            S.sharded_random_walk(mesh, g, mseeds, self.key, depth=SHARD_MIXED_DEPTH, spec=dw,
+                                  max_degree=md, sub_rounds=2,
+                                  exchange_slots=SHARD_MIXED_SLOTS)
+        mrow["batches"] = mixed["calls"]
+        mrow["mixed_depth_batches"] = mixed["mixed"]
+        _require(mixed["mixed_batch"] is not None, "shard_mixed: no batch mixed depths")
+        _log(f"[shard_mixed] {json.dumps(mrow)}")
+        self.paths.append(mrow)
+        self.entry_row("reject_step", "shard", [("shard round 1", first),
+                                                 ("shard_mixed mixed depths",
+                                                  mixed["mixed_batch"])], launches)
+        del rec, mrec, mixed, first
+        self.serve_shard_path(g)
+
+        # the CPU cross-check last: its layout is the cache's second entry
+        n = CHECK_WALKERS
+        t0 = time.perf_counter()
+        kw = dict(depth=SHARD_CHECK_DEPTH, spec=dw, max_degree=md)
+        card = S.sharded_random_walk(mesh, g, seeds[:n], self.key, **kw)
+        cpu = S.sharded_random_walk(S.ShardMesh.on("cpu", SHARDS), self.cpu_graph(g),
+                                    seeds[:n].cpu(), self.key, **kw)
+        _require(torch.equal(card.walks.cpu(), cpu.walks) and card.stats == cpu.stats,
+                 f"shard: card and CPU differ on the first {n} walkers: {card.stats} {cpu.stats}")
+        row.update(cpu_check_walkers=n, cpu_check_depth=SHARD_CHECK_DEPTH,
+                   cpu_check_s=time.perf_counter() - t0, cpu_check_stats=cpu.stats)
+        _log(f"[shard cpu check] {json.dumps(row['cpu_check_stats'])} {row['cpu_check_s']:.1f} s")
+        del card, cpu
+        self.shard_walk.clear_layout_cache()
+
+    def serve_shard_path(self, g):
+        """``serve_shard``: bench_serve.py's ``uniform`` mix through the
+        sharded placement over 4 shards of the card, after a prewarm: every
+        launch equals the card's single-device ``random_walk`` of its packed
+        seeds under its launch key (each request is a slice of one), and
+        every request its own shape."""
+        torch, S = self.torch, self.serve
+        rng = np.random.default_rng(SEED)
+        live = self.live_vertices(g)
+        dw = self.alg.deepwalk()
+        reqs = [(rng.choice(live, SERVE_WIDTH), SERVE_DEPTH) for _ in range(SERVE_REQUESTS)]
+        svc_mod = importlib.import_module("repro_torch.serve.service")
+        real = svc_mod.sharded_random_walk
+        calls = []
+
+        def spy(mesh, graph, seeds, key, **kw):
+            res = real(mesh, graph, seeds, key, **kw)
+            calls.append((seeds, key, kw, res.walks))
+            return res
+
+        mesh = self.shard.ShardMesh.on(self.dev, SHARDS)
+        svc = S.SamplingService(g, mesh=mesh, placement="sharded", key=self.key)
+        t0 = time.perf_counter()
+        svc.prewarm(dw, depth=SERVE_DEPTH, width=SERVE_WIDTH, requests=SERVE_REQUESTS)
+        prewarm_s = time.perf_counter() - t0
+        svc_mod.sharded_random_walk = spy
+        try:
+            self.kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            ids = [svc.submit(s, depth=d, spec=dw) for s, d in reqs]
+            got = svc.drain()
+            seconds = time.perf_counter() - t0
+            launches = self.kernels.launch_counts()
+        finally:
+            svc_mod.sharded_random_walk = real
+        md = g.max_degree()
+        for seeds, key, kw, walks in calls:
+            want = self.eng.random_walk(g, seeds, key, depth=kw["depth"], spec=dw, max_degree=md,
+                                        device=self.dev).walks
+            lim = torch.as_tensor(kw["depth_limits"], device=self.dev)
+            want = torch.where(torch.arange(kw["depth"] + 1, device=self.dev)[None, :]
+                               <= lim[:, None], want, -1)
+            _require(torch.equal(walks, want), "serve_shard: a launch differs from random_walk")
+        for rid, (s, d) in zip(ids, reqs):
+            _require(got[rid].walks.shape == (len(s), d + 1), f"serve_shard: request {rid}")
+        _require(svc.stats.sharded_launches == len(calls) >= 1, "serve_shard: launches")
+        walkers = sum(len(s) for s, _ in reqs)
+        edges = sum(r.sampled_edges for r in got.values())
+        row = dict(path="serve_shard", mix="uniform", shards=SHARDS, requests=len(reqs),
+                   walkers=walkers, depth=SERVE_DEPTH, sharded_launches=svc.stats.sharded_launches,
+                   padded_walker_slots=svc.stats.padded_walker_slots, prewarm_s=prewarm_s,
+                   seconds=seconds, seps=edges / seconds, launches=launches, card=self.card)
+        _log(f"[serve_shard] {json.dumps(row)}")
+        self.paths.append(row)
+
+    def shard_pl_path(self, g):
+        """``shard_pl``: the power-law graph over 4 shards of the card:
+        ``weighted_random_walk`` (alias in every cohort) and the same pinned
+        to ITS at SHARD_PL_WALKERS walkers, depth SHARD_PL_DEPTH (two
+        sub-rounds, SHARD_PL_SLOTS slots, so batches mix depths), node2vec
+        and MH at SHARD_SMALL_WALKERS, each equal to the card's
+        ``random_walk``; ``replicated_psum_walk`` (an opaque spec) and
+        ``instance_parallel_walk`` equal to the CPU port on the same
+        inputs; rows 2e and 3e from the alias and ITS runs' batches."""
+        torch, S, alg = self.torch, self.shard, self.alg
+        md = g.max_degree()
+        seeds = torch.arange(SHARD_PL_WALKERS, dtype=torch.int32, device=self.dev)
+        its = dataclasses.replace(alg.weighted_random_walk(), selection_method="its")
+        opts = dict(sub_rounds=2, exchange_slots=SHARD_PL_SLOTS)
+        for label, spec, kernel_name in [("alias", alg.weighted_random_walk(), "alias_step"),
+                                         ("its", its, "walk_step")]:
+            row, rec = self.sharded(f"shard_pl {label}", g, spec, seeds, SHARD_PL_DEPTH,
+                                    kernel_name, **opts)
+            _log(f"[shard_pl {label}] {json.dumps(row)}")
+            self.paths.append(row)
+            _require(rec["mixed_batch"] is not None, f"shard_pl {label}: no batch mixed depths")
+            self.entry_row(kernel_name, f"shard_pl {label}",
+                           [("round 1", rec["first"]), ("mixed depths", rec["mixed_batch"])],
+                           row["launches"][kernel_name])
+            del rec
+        small = seeds[:SHARD_SMALL_WALKERS]
+        for label, spec, kernel_name in [("node2vec", alg.node2vec(), "walk_step_window"),
+                                         ("mhrw", alg.metropolis_hastings_walk(), None)]:
+            row, _ = self.sharded(f"shard_pl {label}", g, spec, small, SHARD_SMALL_DEPTH,
+                                  kernel_name)
+            _log(f"[shard_pl {label}] {json.dumps(row)}")
+            self.paths.append(row)
+        self.shard_walk.clear_layout_cache()
+
+        gc = self.cpu_graph(g)
+        mesh, cpu_mesh = S.ShardMesh.on(self.dev, SHARDS), S.ShardMesh.on("cpu", SHARDS)
+        opaque = dataclasses.replace(alg.weighted_random_walk(), transition=None,
+                                     flat_edge_bias=None)
+        oseeds = seeds[:SHARD_OPAQUE_WALKERS]
+        kw = dict(depth=SHARD_OPAQUE_DEPTH, spec=opaque, max_degree=md)
+        self.kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = S.replicated_psum_walk(mesh, g, oseeds, self.key, **kw)
+        self.sync()
+        rep_s = time.perf_counter() - t0
+        rep_launches = self.kernels.launch_counts()
+        cpu = S.replicated_psum_walk(cpu_mesh, gc, oseeds.cpu(), self.key, **kw)
+        _require(torch.equal(card.cpu(), cpu), "shard_pl replicated: card and CPU differ")
+        _require(rep_launches["its_select"] > 0, "shard_pl replicated: its_select never launched")
+        dist = importlib.import_module("repro_torch.core.distributed")
+        iseeds = seeds[:CHECK_WALKERS]
+        kw = dict(depth=SHARD_PL_DEPTH, spec=alg.weighted_random_walk(), max_degree=md)
+        t0 = time.perf_counter()
+        ip = dist.instance_parallel_walk(mesh, g, iseeds, self.key, **kw)
+        self.sync()
+        ip_s = time.perf_counter() - t0
+        ipc = dist.instance_parallel_walk(cpu_mesh, gc, iseeds.cpu(), self.key, **kw)
+        _require(torch.equal(ip.walks.cpu(), ipc.walks)
+                 and int(ip.sampled_edges) == int(ipc.sampled_edges),
+                 "shard_pl instance_parallel: card and CPU differ")
+        row = dict(path="shard_pl fallbacks", card=self.card,
+                   replicated=dict(walkers=SHARD_OPAQUE_WALKERS, depth=SHARD_OPAQUE_DEPTH,
+                                   seconds=rep_s, launches=rep_launches),
+                   instance_parallel=dict(walkers=CHECK_WALKERS, depth=SHARD_PL_DEPTH,
+                                          seconds=ip_s, sampled_edges=int(ip.sampled_edges)))
+        _log(f"[shard_pl fallbacks] {json.dumps(row)}")
+        self.paths.append(row)
+
     def hash_check(self, w):
         """The kernels' threefry alone (``threefry.hash_uniform``) against
         ``rng.uniform``'s tensor hash, bit for bit, for W counters under the
@@ -1685,7 +1998,9 @@ class Smoke:
         self.serve_path(g)
         parts = self.oom_paths(g)
         self.serve_oom_path(g, parts)
-        del g, parts
+        del parts
+        self.shard_path(g)
+        del g
         self._cpu_graphs.clear()
         self.mt.clear_plan_cache()
         torch.cuda.empty_cache()
@@ -1707,6 +2022,7 @@ class Smoke:
                                 expect_plan=("alias",) * 3, check_rows=(0,))
         seg["opaque_rows"] = self.segments_vs_cpu("segments opaque", g, opaque, "its_select")
         self.stream_path(g)
+        self.shard_pl_path(g)
 
         for k in KERNELS:
             row = self.kernel_rows[k]

@@ -24,7 +24,10 @@ Every key here may also be ``rng.RowKeys`` (``random_walk_segments``: R
 rows of W walkers in one batch): the step kernels then read each row's
 keys from a device table, and the draws made in tensor code (the window
 uniform, the tails' uniforms) hash each walker's counter within its row
-under its row's key, in one pass over the batch.
+under its row's key, in one pass over the batch.  Or ``rng.EntryKeys``
+(the sharded drain: queue entries at their own depths): each entry draws
+under its depth's key at its instance, in the kernels and in tensor code
+alike.
 """
 from __future__ import annotations
 
@@ -235,7 +238,8 @@ def walk_step_adaptive(
 def window_bias_rows(indices, weights, st, dg, rows, bias_of, seg: int) -> torch.Tensor:
     """The ``(n, seg)`` bias rows of one window cohort: walkers ``rows``
     with row starts ``st`` and capped degrees ``dg`` gather their ids and
-    weights, and the hook's bias, clipped at 0, fills columns ``< dg``
+    weights, and the hook's bias ``bias_of(rows, u, w, mask, eidx)``
+    (``eidx`` the edge positions), clipped at 0, fills columns ``< dg``
     (zeros elsewhere).  Evaluated in blocks of ``select.ROW_BLOCK`` walkers,
     which bounds the hook's temporaries."""
     bias = torch.empty((rows.shape[0], seg), dtype=torch.float32, device=st.device)
@@ -246,7 +250,8 @@ def window_bias_rows(indices, weights, st, dg, rows, bias_of, seg: int) -> torch
         eidx = torch.where(cmask, st[blk, None].long() + offs, 0)
         u = torch.where(cmask, indices[eidx], -1)
         wt = torch.where(cmask, weights[eidx], 0.0)
-        bias[blk] = torch.where(cmask, torch.clamp(bias_of(rows[blk], u, wt, cmask), min=0.0), 0.0)
+        bias[blk] = torch.where(
+            cmask, torch.clamp(bias_of(rows[blk], u, wt, cmask, eidx), min=0.0), 0.0)
     return bias
 
 
@@ -266,8 +271,9 @@ def walk_step_bucketed_window(
     Per bucket, the cohort's members (only those: the reference evaluates
     every walker at every width, which would not fit the card at full size)
     gather their compact ``(n, seg)`` row windows — ids and weights — and
-    ``bias_of(rows, u, w, mask)`` evaluates the hook on them (``rows``
-    index the walkers; :func:`window_bias_rows`); the clipped, masked bias
+    ``bias_of(rows, u, w, mask, eidx)`` evaluates the hook on them
+    (``rows`` index the walkers, ``eidx`` are the window's edge positions;
+    :func:`window_bias_rows`); the clipped, masked bias
     rows go to one ``walk_step_window`` launch as they are.  The hook is
     per-edge, so each member's bias equals the reference's.  Degrees above
     the last bucket take :func:`select.walk_transition_chunked_window`.
@@ -301,6 +307,7 @@ def walk_step_bucketed_window(
             fold_in(key, 1), indptr, indices, safe, deg, buckets[-1], nxt,
             lambda huge, rows, rand: sel.walk_transition_chunked_window(
                 None, indptr, indices, weights, rows,
-                lambda sub, u, wt, m: bias_of(huge[sub], u, wt, m), chunk=CHUNK, rand=rand),
+                lambda sub, u, wt, m, e: bias_of(huge[sub], u, wt, m, e), chunk=CHUNK,
+                rand=rand),
         )
     return nxt

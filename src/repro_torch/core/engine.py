@@ -31,7 +31,7 @@ reference's counted RNG, so walks and samples equal ``repro``'s bit for bit.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,6 +53,9 @@ class WalkResult(NamedTuple):
     walks: torch.Tensor  # (I, depth+1) int32, -1 after termination ((R, W, depth+1) by rows)
     lengths: torch.Tensor  # (I,) realized lengths (# vertices)
     sampled_edges: torch.Tensor  # () total sampled edges (for SEPS; (R,) by rows)
+    #: engine counters where the engine keeps them (the sharded walk's
+    #: exchange and hub statistics), else None
+    stats: Optional[dict] = None
 
 
 def _degree(graph: CSRGraph, v: torch.Tensor) -> torch.Tensor:
@@ -179,7 +182,7 @@ def _window_bias_fn(graph: CSRGraph, program: tp.TransitionProgram, v, prev, dep
                     max_degree: int, row_of=None, ids_sorted=None):
     """Close the program's window hook over the walker state.
 
-    The returned ``bias_of(rows, u, w, mask)`` builds the EdgeCtx of
+    The returned ``bias_of(rows, u, w, mask, eidx=None)`` builds the EdgeCtx of
     walkers ``rows`` over a gathered window — candidate ids and weights,
     degrees by row lookup, prev-membership by binary search over
     ``ids_sorted`` (the ids the walk emits, ``graph.indices`` by default) —
@@ -194,7 +197,7 @@ def _window_bias_fn(graph: CSRGraph, program: tp.TransitionProgram, v, prev, dep
     deg_v = _degree(graph, vq)
     bs_steps = min(32, max(1, max(max_degree, 1).bit_length()))
 
-    def bias_of(rows, u, w, mask):
+    def bias_of(rows, u, w, mask, eidx=None):
         vr, pr = v[rows], prev[rows]
         if wb.needs_deg_u:
             uq = u if row_of is None else row_of(u)

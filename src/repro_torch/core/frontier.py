@@ -88,9 +88,9 @@ def owner_compaction(pid: torch.Tensor, valid: torch.Tensor, num_buckets: int):
     """
     pidv = torch.where(valid, pid, num_buckets).long()
     order = torch.argsort(pidv, stable=True)
-    adds = torch.zeros(num_buckets + 1, dtype=torch.int32, device=pid.device)
-    adds.scatter_add_(0, pidv, torch.ones_like(pidv, dtype=torch.int32))
-    adds = adds[:num_buckets]
+    # a histogram, not a scatter-add: most of a batch may be invalid, and
+    # atomics on the one invalid bucket would serialize
+    adds = torch.bincount(pidv, minlength=num_buckets + 1)[:num_buckets].to(torch.int32)
     offset = torch.cumsum(adds, 0, dtype=torch.int32) - adds
     return order, adds, offset
 

@@ -9,8 +9,9 @@ bit for bit, so a port walk equals the reference walk for the same key.
   Key derivation (:func:`PRNGKey`, :func:`fold_in`) runs on the host on
   Python ints; only the per-element hashing of :func:`uniform` runs on the
   tensor's device.  A batch of rows with a key each carries
-  :class:`RowKeys` (its keys derived on the device); every draw here
-  takes it.
+  :class:`RowKeys`, and a batch of queue entries at their own depths
+  :class:`EntryKeys` (their keys derived on the device); every draw here
+  takes either.
 - The hash itself (threefry2x32, the counter layout, the bits-to-float
   step) lives in ``kernels.threefry``, beside the walk-step kernels that run
   it per walker; this module re-exports it, with the draws built on it:
@@ -23,6 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.threefry import (  # noqa: F401 — the counted RNG's public names
+    BatchKeys,
+    EntryKeys,
     RowKeys,
     fold_in,
     gumbel,
@@ -54,8 +57,8 @@ def key_from_array(key) -> np.ndarray:
 
 def split(key, num: int = 2):
     """``(num, 2)`` keys, as ``jax.random.split(key, num)``'s raw words
-    (for :class:`RowKeys`, a list of ``num`` of them)."""
-    if isinstance(key, RowKeys):
+    (for :class:`BatchKeys`, a list of ``num`` of them)."""
+    if isinstance(key, BatchKeys):
         return [key.fold_in(i) for i in range(int(num))]
     return np.stack([fold_in(key, i) for i in range(int(num))])
 

@@ -327,9 +327,10 @@ def walk_transition_chunked_window(
     rand: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Window-bias variant of :func:`walk_transition_chunked`: the bias of
-    each ``(n, chunk)`` edge window is ``bias_of(rows, u, w, mask)``, the
-    transition program's hook over candidate ids ``u`` and weights ``w``
-    of walkers ``rows`` (indices into ``cur``), clipped at 0 and masked.
+    each ``(n, chunk)`` edge window is ``bias_of(rows, u, w, mask, eidx)``,
+    the transition program's hook over candidate ids ``u`` and weights
+    ``w`` (at edge positions ``eidx``) of walkers ``rows`` (indices into
+    ``cur``), clipped at 0 and masked.
     Both passes evaluate the hook on identical windows.  Returns per-row
     edge offsets, -1 for dead ends.
     """
@@ -346,7 +347,7 @@ def walk_transition_chunked_window(
         eidx = torch.where(m, start[rows, None] + pos, 0)
         u = torch.where(m, indices[eidx], -1)
         w = torch.where(m, weights[eidx], 0.0)
-        return torch.where(m, torch.clamp(bias_of(rows, u, w, m), min=0.0), 0.0)
+        return torch.where(m, torch.clamp(bias_of(rows, u, w, m, eidx), min=0.0), 0.0)
 
     return _chunked_scan(deg, rand, chunk, chunk_bias)
 

@@ -12,8 +12,14 @@ Device residency uses the compact local-id layout: a resident partition's
 never the full vertex space.  Queue entries keep global vertex ids; the
 rebase offset ``vertex_lo`` translates at the partition boundary.
 
-The hub layout of ``repro.graph.partition`` (replicated hub rows for the
-mesh-sharded walk) belongs to the sharded engine and is not ported here.
+The hub half (:func:`select_hubs`, :func:`hub_edge_layout`,
+:func:`hybrid_host_csr`, :func:`place_hub_edges`, :func:`localize_hybrid`)
+is the sharded walk's layout: the top-degree rows, budgeted in bytes, are
+replicated on every shard beside its compact range, each at an edge offset
+congruent to its global one modulo the widest window, so a pick off a
+replicated row is bit-identical to the owner's.  The first four build host
+numpy arrays equal to ``repro``'s; the copies of the hub rows are placed
+with one vectorized gather where ``repro`` loops over the hubs.
 """
 from __future__ import annotations
 
@@ -201,3 +207,161 @@ def partition_by_vertex_range(graph: CSRGraph, num_partitions: int) -> List[Rang
             indices=indices[e_lo:e_hi].copy(), weights=weights[e_lo:e_hi].copy(), edge_lo=e_lo,
         ))
     return parts
+
+
+# ---------------------------------------------------------------------------
+# The hub half: replicated hub rows for the sharded walk (``shard.walk``)
+# ---------------------------------------------------------------------------
+
+
+def select_hubs(indptr: np.ndarray, hub_bytes: int, seg_big: int, min_degree: int = 2,
+                bytes_per_edge: int = 28) -> np.ndarray:
+    """The top-degree *hub* rows that fit a per-shard byte budget.
+
+    Rows are taken greedily by descending degree (stable on ties) until the
+    cumulative replicated footprint exceeds ``hub_bytes``; each hub costs
+    ``(degree + seg_big) * bytes_per_edge`` (``seg_big``: the worst-case
+    alignment lead :func:`hub_edge_layout` may insert; ``bytes_per_edge``:
+    the seven per-edge int32/f32 lanes the drain replicates).  Rows of
+    degree below ``min_degree`` are never replicated.  Returns the hub
+    vertex ids sorted ascending (int64), as ``repro``'s.
+    """
+    deg = np.diff(np.asarray(indptr)).astype(np.int64)
+    if hub_bytes <= 0:
+        return np.empty(0, dtype=np.int64)
+    order = np.argsort(-deg, kind="stable")
+    cost = np.cumsum((deg[order] + max(seg_big, 0)) * bytes_per_edge)
+    take = int(np.searchsorted(cost, hub_bytes, side="right"))
+    hubs = order[:take]
+    hubs = hubs[deg[hubs] >= min_degree]
+    return np.sort(hubs).astype(np.int64)
+
+
+def hub_edge_layout(indptr: np.ndarray, hubs: np.ndarray, hub_region_lo: int,
+                    seg_big: int) -> tuple:
+    """Alignment-preserving placement of the replicated hub rows' edges.
+
+    Hub ``s``'s edges start at ``starts[s]``, with ``starts[s] % seg_big ==
+    indptr[hubs[s]] % seg_big``, placed in turn from ``hub_region_lo`` with
+    at most ``seg_big - 1`` junk edges between hubs.  Every shard computes
+    the same layout.  Returns ``(starts, end)``: int64 ``(H,)`` and the
+    first unused edge slot.
+    """
+    hubs = np.asarray(hubs)
+    starts = np.empty(hubs.shape[0], dtype=np.int64)
+    cur = int(hub_region_lo)
+    for s, h in enumerate(hubs):
+        g = int(indptr[h])
+        lead = (g - cur) % seg_big if seg_big > 0 else 0
+        starts[s] = cur + lead
+        cur = int(starts[s]) + int(indptr[h + 1] - indptr[h])
+    return starts, cur
+
+
+def _hub_edges(indptr_full: np.ndarray, hubs: np.ndarray, hub_starts: np.ndarray):
+    """``(src, dst)`` int64: each hub edge's position in the full graph and
+    in the hybrid layout, hub after hub."""
+    hubs = np.asarray(hubs, dtype=np.int64)
+    g0 = np.asarray(indptr_full, dtype=np.int64)[hubs]
+    deg = np.asarray(indptr_full, dtype=np.int64)[hubs + 1] - g0
+    off = np.arange(int(deg.sum()), dtype=np.int64) - np.repeat(np.cumsum(deg) - deg, deg)
+    return (np.repeat(g0, deg) + off,
+            np.repeat(np.asarray(hub_starts, dtype=np.int64), deg) + off)
+
+
+def hybrid_host_csr(part: RangePartition, pad_vertices: int, pad_edges: int, edge_align: int,
+                    hubs: np.ndarray, hub_starts: np.ndarray, indptr_full: np.ndarray,
+                    indices_full: np.ndarray, weights_full: np.ndarray) -> tuple:
+    """Host arrays of one shard's hub-replicated *hybrid* layout.
+
+    Row space (``pv = pad_vertices`` resident rows, ``H`` hubs)::
+
+        rows 0 .. pv-1        resident local rows (padding rows degree 0)
+        row  pv               bridge junk row (never addressed)
+        row  pv + 1 + 2s      hub s (its edges at hub_starts[s])
+        row  pv + 2 + 2s      junk gap row after hub s
+        row  pv + 2H          phantom sink (degree 0)
+
+    so ``indptr`` has ``pv + 2H + 2`` entries.  The edge arrays hold the
+    resident region (lead-padded to keep each row's global offset modulo
+    ``edge_align``) and then the hub region; gaps carry local index
+    ``phantom``, global index -1 and weight 0.  Returns ``(indptr,
+    indices_local, indices_global, weights)``, equal to ``repro``'s.
+    """
+    nv = part.num_vertices
+    lead = (part.edge_lo % edge_align) if edge_align > 0 else 0
+    pv = max(pad_vertices, nv)
+    hubs = np.asarray(hubs, dtype=np.int64)
+    num_hubs = int(hubs.shape[0])
+    phantom = pv + 2 * num_hubs
+    end_local = lead + part.num_edges
+    pe = max(pad_edges, end_local)
+    deg_full = np.diff(np.asarray(indptr_full)).astype(np.int64)
+    hub_deg = deg_full[hubs]
+    if num_hubs:
+        pe = max(pe, int(hub_starts[-1]) + int(hub_deg[-1]))
+
+    indptr = np.empty(phantom + 2, dtype=np.int32)
+    indptr[: nv + 1] = part.indptr + lead
+    indptr[nv + 1: pv + 1] = end_local
+    hub_ends = np.asarray(hub_starts, dtype=np.int64) + hub_deg
+    indptr[pv + 1: phantom: 2] = hub_starts
+    indptr[pv + 2: phantom + 1: 2] = hub_ends
+    end = int(hub_ends[-1]) if num_hubs else end_local
+    indptr[phantom] = end
+    indptr[phantom + 1] = end
+
+    indices_local = np.full(pe, phantom, dtype=np.int32)
+    indices_global = np.full(pe, -1, dtype=np.int32)
+    weights = np.zeros(pe, dtype=np.float32)
+
+    def local_ids(u):
+        u_loc = u.astype(np.int64) - part.vertex_lo
+        return np.where((u_loc >= 0) & (u_loc < nv), u_loc, phantom).astype(np.int32)
+
+    indices_local[lead:end_local] = local_ids(part.indices)
+    indices_global[lead:end_local] = part.indices.astype(np.int32)
+    weights[lead:end_local] = part.weights.astype(np.float32)
+    if num_hubs:
+        src, dst = _hub_edges(indptr_full, hubs, hub_starts)
+        hub_u = np.asarray(indices_full)[src]
+        indices_local[dst] = local_ids(hub_u)
+        indices_global[dst] = hub_u.astype(np.int32)
+        weights[dst] = np.asarray(weights_full)[src].astype(np.float32)
+    return indptr, indices_local, indices_global, weights
+
+
+def place_hub_edges(base: np.ndarray, full: np.ndarray, indptr_full: np.ndarray,
+                    hubs: np.ndarray, hub_starts: np.ndarray) -> np.ndarray:
+    """A copy of ``base`` (a per-edge lane's resident region and gap fill)
+    with each hub row's slice of the full-graph lane ``full`` placed at its
+    :func:`hub_edge_layout` offset: the bias, alias and target-degree lanes,
+    which the drain must read alike whether a row is resident or a hub."""
+    out = np.asarray(base).copy()
+    if np.asarray(hubs).shape[0]:
+        src, dst = _hub_edges(indptr_full, hubs, hub_starts)
+        out[dst] = np.asarray(full)[src]
+    return out
+
+
+def localize_hybrid(x: torch.Tensor, vertex_lo: int, num_rows: int, hubs: torch.Tensor,
+                    num_hubs: int) -> torch.Tensor:
+    """Global vertex ids to hybrid row ids (resident, hub or phantom).
+
+    Ids in the resident range rebase to rows ``0 .. num_rows-1`` (the
+    resident copy wins when a hub is also resident: both pick alike); ids
+    of a replicated hub (a binary search of the sorted ``hubs``) map to row
+    ``num_rows + 1 + 2·pos``; anything else, -1 padding included, maps to
+    the degree-0 phantom row ``num_rows + 2·num_hubs``.  ``row != phantom``
+    is the drain's stay-local test.  int32, on ``x``'s device.
+    """
+    phantom = num_rows + 2 * num_hubs
+    inside = (x >= vertex_lo) & (x < vertex_lo + num_rows)
+    loc = torch.where(inside, x - vertex_lo, phantom).to(torch.int32)
+    if num_hubs:
+        pos = torch.searchsorted(hubs, x.to(hubs.dtype).contiguous())
+        posc = torch.clamp(pos, 0, num_hubs - 1)
+        is_hub = (pos < num_hubs) & (hubs[posc] == x)
+        hub_row = (num_rows + 1 + 2 * posc).to(torch.int32)
+        loc = torch.where(inside, loc, torch.where(is_hub, hub_row, phantom)).to(torch.int32)
+    return loc

@@ -33,10 +33,11 @@ _I = ctypes.c_int
 _PI = ctypes.POINTER(ctypes.c_int)  # a host array: the step's ladder
 _PU = ctypes.POINTER(ctypes.c_uint32)  # a host array: key words
 _SIGNATURES = {
-    # ..., key words by value (or null), a device key table (or null), its row width, stream
-    "reject_step_launch": [_P, _P, _P, _P, _P, _P, _I, _PI, _PU, _P, _I, _P],
-    "alias_step_launch": [_P, _P, _P, _P, _P, _P, _I, _PI, _PU, _P, _I, _P],
-    "walk_step_launch": [_P, _P, _P, _P, _P, _I, _I, _PI, _PU, _P, _I, _P],
+    # ..., key words by value (or null), a device key table (or null), its row width,
+    # the entries' depths and instances (or null), stream
+    "reject_step_launch": [_P, _P, _P, _P, _P, _P, _I, _PI, _PU, _P, _I, _P, _P, _P],
+    "alias_step_launch": [_P, _P, _P, _P, _P, _P, _I, _PI, _PU, _P, _I, _P, _P, _P],
+    "walk_step_launch": [_P, _P, _P, _P, _P, _I, _I, _PI, _PU, _P, _I, _P, _P, _P],
     "walk_step_window_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "its_select_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "its_select_wide_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.walk_step import _ladder, _launch_keys, _step_operands, _table_ptr
+from repro_torch.kernels.walk_step import (
+    _entry_ptrs, _ladder, _launch_keys, _step_operands, _table_ptr)
 
 
 def alias_step(
@@ -38,7 +39,8 @@ def alias_step(
 
     key, indptr, indices, cur and the ladder (``buckets``, ``use_chunked``,
     ``methods``) as ``kernels.walk_step`` (``key`` may be
-    :class:`~repro_torch.kernels.threefry.RowKeys`); prob (E,) float32 and alias (E,)
+    :class:`~repro_torch.kernels.threefry.RowKeys` or
+    :class:`~repro_torch.kernels.threefry.EntryKeys`); prob (E,) float32 and alias (E,)
     int32: the CSR-aligned tables of ``core.select.build_alias``.  A bucket
     cohort's walker ``i`` draws ``uniform(fold_in(key, 0))`` at counter
     ``i`` over its row capped at the cohort's segment; a tail walker draws
@@ -56,12 +58,12 @@ def alias_step(
     w = cur.shape[0]
     if w == 0 or ladder[2] == 0:
         return out
-    words, table, width = _launch_keys("alias_step", key, cur, (0,), (1,))
+    words, table, width, entries = _launch_keys("alias_step", key, cur, (0,), (1,))
     lib = _build.load()
     code = lib.alias_step_launch(
         cur.data_ptr(), indptr.data_ptr(), indices.data_ptr(), prob.data_ptr(),
         alias.data_ptr(), out.data_ptr(), w, ladder, words, _table_ptr(table), width,
-        _build.stream_handle(cur),
+        *_entry_ptrs(entries), _build.stream_handle(cur),
     )
     _build.check(lib, code, "alias_step")
     alias_step.launches += 1

@@ -62,10 +62,13 @@ struct Key {
 // walker of the launch (a single walk: ValueKeys, by value, derived on the
 // host), or one set a row of a batch of R rows of `width` walkers
 // (TableKeys: a device table of R x N keys from derive_keys_kernel, as
-// jax.vmap over the rows gives them).  Walker i of a row hashes at its index
-// within the row, i - row * width, under its row's keys.  The rejection
-// rounds are N = 2 * kRejectIters keys: round t's slot uniform under key 2t,
-// its accept uniform under key 2t + 1 (fold_in(fold_in(step key, 2), j)).
+// jax.vmap over the rows gives them), or one set a depth for a batch of
+// queue entries that each carry their depth and instance (EntryKeys: the
+// sharded drain, whose batches mix depths).  Walker i of a row hashes at its
+// index within the row, i - row * width, under its row's keys; entry i
+// hashes at its instance under its depth's keys.  The rejection rounds are
+// N = 2 * kRejectIters keys: round t's slot uniform under key 2t, its accept
+// uniform under key 2t + 1 (fold_in(fold_in(step key, 2), j)).
 template <int N>
 struct ValueKeys {
   Key k[N];
@@ -81,6 +84,21 @@ struct TableKeys {
   __device__ __forceinline__ int row(int i) const { return i / width; }
   __device__ __forceinline__ unsigned long long counter(int i, int r) const {
     return (unsigned long long)(i - r * width);
+  }
+  __device__ __forceinline__ Key key(int j, int r) const {
+    const uint2 w = __ldg(tab + (size_t)r * N + j);
+    return Key{w.x, w.y};
+  }
+};
+
+template <int N>
+struct EntryKeys {
+  const uint2* tab;    // (S, N) keys: row d holds depth d's keys
+  const int* depth;    // (W,) each entry's depth: its row of tab
+  const int* inst;     // (W,) each entry's instance: its counter
+  __device__ __forceinline__ int row(int i) const { return max(__ldg(depth + i), 0); }
+  __device__ __forceinline__ unsigned long long counter(int i, int) const {
+    return (unsigned long long)max(__ldg(inst + i), 0);
   }
   __device__ __forceinline__ Key key(int j, int r) const {
     const uint2 w = __ldg(tab + (size_t)r * N + j);
@@ -186,7 +204,8 @@ __device__ __forceinline__ int cohort_of(const Ladder& L, int deg, int& cap) {
 // the accept uniform while that gather is in flight; the first acceptance
 // ends the loop, so a near-uniform row costs about one round and two
 // hashes, where the tensor budget hashed all 16.  Counter: the walker's
-// index i in the step's batch, or in its row under a key table (Keys).
+// index i in the step's batch, in its row under a key table, or its instance
+// under its depth's keys (Keys).
 // Writes only the walkers it serves.
 template <class Keys>
 __global__ void reject_step_kernel(const int* __restrict__ cur,
@@ -1872,7 +1891,8 @@ __global__ void __launch_bounds__(kRoundsThreads) its_select_rounds_kernel(
 }
 
 // The step kernels' key source: the host's words by value (key_table null),
-// or a device table of nkeys keys a row for rows of `width` walkers.
+// a device table of nkeys keys a row for rows of `width` walkers, or (with
+// entry_depth and entry_inst) a table of nkeys keys a depth for entries.
 template <int N>
 ValueKeys<N> value_keys(const unsigned* words) {
   ValueKeys<N> keys;
@@ -1902,16 +1922,23 @@ extern "C" {
 int reject_step_launch(const void* cur, const void* indptr, const void* indices,
                        const void* bias, const void* row_max, void* out, int w,
                        const int* ladder, const unsigned* key_words, const void* key_table,
-                       int width, void* stream) {
+                       int width, const void* entry_depth, const void* entry_inst,
+                       void* stream) {
   if (w > 0) {
     constexpr int N = 2 * kRejectIters;
     const int blocks = (w + kThreads - 1) / kThreads;
     cudaStream_t st = (cudaStream_t)stream;
     const Ladder L = make_ladder(ladder);
-    if (key_table) {
+    const uint2* tab = (const uint2*)key_table;
+    if (entry_depth) {
+      reject_step_kernel<EntryKeys<N>><<<blocks, kThreads, 0, st>>>(
+          (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)bias,
+          (const float*)row_max, (int*)out, w, L,
+          EntryKeys<N>{tab, (const int*)entry_depth, (const int*)entry_inst});
+    } else if (key_table) {
       reject_step_kernel<TableKeys<N>><<<blocks, kThreads, 0, st>>>(
           (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)bias,
-          (const float*)row_max, (int*)out, w, L, TableKeys<N>{(const uint2*)key_table, width});
+          (const float*)row_max, (int*)out, w, L, TableKeys<N>{tab, width});
     } else {
       reject_step_kernel<ValueKeys<N>><<<blocks, kThreads, 0, st>>>(
           (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)bias,
@@ -1924,15 +1951,21 @@ int reject_step_launch(const void* cur, const void* indptr, const void* indices,
 int alias_step_launch(const void* cur, const void* indptr, const void* indices,
                       const void* prob, const void* alias, void* out, int w, const int* ladder,
                       const unsigned* key_words, const void* key_table, int width,
-                      void* stream) {
+                      const void* entry_depth, const void* entry_inst, void* stream) {
   if (w > 0) {
     const int blocks = (w + kThreads - 1) / kThreads;
     cudaStream_t st = (cudaStream_t)stream;
     const Ladder L = make_ladder(ladder);
-    if (key_table) {
+    const uint2* tab = (const uint2*)key_table;
+    if (entry_depth) {
+      alias_step_kernel<EntryKeys<2>><<<blocks, kThreads, 0, st>>>(
+          (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)prob,
+          (const int*)alias, (int*)out, w, L,
+          EntryKeys<2>{tab, (const int*)entry_depth, (const int*)entry_inst});
+    } else if (key_table) {
       alias_step_kernel<TableKeys<2>><<<blocks, kThreads, 0, st>>>(
           (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)prob,
-          (const int*)alias, (int*)out, w, L, TableKeys<2>{(const uint2*)key_table, width});
+          (const int*)alias, (int*)out, w, L, TableKeys<2>{tab, width});
     } else {
       alias_step_kernel<ValueKeys<2>><<<blocks, kThreads, 0, st>>>(
           (const int*)cur, (const int*)indptr, (const int*)indices, (const float*)prob,
@@ -1945,13 +1978,16 @@ int alias_step_launch(const void* cur, const void* indptr, const void* indices,
 int walk_step_launch(const void* cur, const void* indptr, const void* indices,
                      const void* bias, void* out, int w, int n_bias, const int* ladder,
                      const unsigned* key_words, const void* key_table, int width,
-                     void* stream) {
+                     const void* entry_depth, const void* entry_inst, void* stream) {
   if (w > 0) {
     const Ladder L = make_ladder(ladder);
     cudaStream_t st = (cudaStream_t)stream;
-    if (key_table) {
+    const uint2* tab = (const uint2*)key_table;
+    if (entry_depth) {
       walk_step_run(cur, indptr, indices, bias, out, w, n_bias, L,
-                    TableKeys<1>{(const uint2*)key_table, width}, st);
+                    EntryKeys<1>{tab, (const int*)entry_depth, (const int*)entry_inst}, st);
+    } else if (key_table) {
+      walk_step_run(cur, indptr, indices, bias, out, w, n_bias, L, TableKeys<1>{tab, width}, st);
     } else {
       walk_step_run(cur, indptr, indices, bias, out, w, n_bias, L, value_keys<1>(key_words), st);
     }

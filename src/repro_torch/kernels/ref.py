@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.threefry import (
-    RowKeys,
+    BatchKeys,
     bits_to_unit_float,
     fold_in,
     threefry2x32,
@@ -347,17 +347,19 @@ def rejection_randoms(
     reference's counted-RNG contract.  All ``2·iters`` draws hash in one
     pass, laid out walker-major.  The ``reject_step`` kernel hashes only the
     rounds each walker reaches; this is what its plain version reads.
-    Under :class:`~repro_torch.kernels.threefry.RowKeys` walker ``b`` draws
-    its rounds under its row's keys at its index in the row.
+    Under :class:`~repro_torch.kernels.threefry.BatchKeys` walker ``b``
+    draws its rounds under its own keys at its own counter (its row's keys
+    at its index in the row, or its depth's keys at its instance).
     """
     if iters < 1:
         raise ValueError(f"rejection budget needs at least one round, got iters={iters}")
     (n,) = tuple(batch_shape) if isinstance(batch_shape, (tuple, list)) else (batch_shape,)
-    if isinstance(key, RowKeys):  # each walker's rounds under its row's keys
+    if isinstance(key, BatchKeys):  # each walker's rounds under its own keys
+        if n != key.size:
+            raise ValueError(f"rejection_randoms: keys of {key.size} walkers for {n}")
         rounds = key.table(*((t,) for t in range(2 * iters))).to(torch.int64) & 0xFFFFFFFF
-        b = torch.arange(n, dtype=torch.int64, device=key.device)
-        row = torch.div(b, key.width, rounding_mode="floor")
-        ctr = (b - row * key.width)[:, None]
+        row, ctr = key.lanes()
+        ctr = ctr[:, None]
         x0, x1 = threefry2x32(rounds[row, :, 0], rounds[row, :, 1], ctr >> 32, ctr & 0xFFFFFFFF)
         return bits_to_unit_float(x0 ^ x1).reshape(n, iters, 2).contiguous()
     keys = np.stack([fold_in(key, t) for t in range(2 * iters)])

@@ -15,10 +15,13 @@ without a cycle.
 - A batch of R rows with a key each (``random_walk_segments``: R requests
   in one launch) carries :class:`RowKeys` instead: ``fold_in`` extends its
   path on the host, and the rows' keys are derived on the device
-  (:func:`derive_keys`) when a draw needs them.  Every draw here takes
-  either kind of key; under :class:`RowKeys` walker ``b`` of the flattened
-  ``(R·width,)`` batch draws under row ``b // width``'s key at its index in
-  the row, as ``jax.vmap`` over the rows draws.
+  (:func:`derive_keys`) when a draw needs them.  Under :class:`RowKeys`
+  walker ``b`` of the flattened ``(R·width,)`` batch draws under row
+  ``b // width``'s key at its index in the row, as ``jax.vmap`` over the
+  rows draws.  A batch of queue entries that each carry their own depth
+  and instance (the sharded drain) carries :class:`EntryKeys`: entry ``b``
+  draws under the walk's key at its depth, at its instance.  Every draw
+  here takes any of these keys.
 - Element ``i`` of a draw hashes the counter ``(i >> 32, i & 0xffffffff)``;
   the two output words are XORed into 32 random bits, and the float is
   ``(bits >> 9 | 0x3f800000) - 1`` (23 mantissa bits in ``[0, 1)``).
@@ -65,22 +68,18 @@ def threefry2x32(k0, k1, x0, x1):
 MAX_KEY_PATHS, MAX_KEY_DEPTH = 16, 8
 
 
-class RowKeys:
-    """The keys of a batch of R rows of ``width`` walkers, one key a row,
-    as ``jax.vmap`` over the rows of a walk holds them.
+class BatchKeys:
+    """Keys of a batch of walkers that do not share one key: a device table
+    ``base`` of R keys, and the ``fold_in`` data ``path`` applied to every
+    one of them since.  :meth:`fold_in` extends the path on the host and
+    derives nothing; :meth:`table` derives the keys of the path and its
+    suffixes on the device in one :func:`derive_keys` launch.  A subclass
+    says, by :meth:`lanes`, under which of the R keys and at which counter
+    each walker of the batch draws: :class:`RowKeys` and
+    :class:`EntryKeys`."""
 
-    ``base`` is the rows' keys as an ``(R, 2)`` int32 tensor (the uint32
-    words' bits) on the batch's device, and ``path`` the ``fold_in`` data
-    applied to every row since.  :meth:`fold_in` extends the path on the
-    host and derives nothing; :meth:`table` derives the keys of the path and
-    its suffixes on the device in one :func:`derive_keys` launch.  Walker
-    ``b`` of the flattened ``(R·width,)`` batch belongs to row ``b // width``
-    and draws at counter ``b % width``.
-    """
-
-    def __init__(self, base: torch.Tensor, width: int, path: tuple = ()):
+    def __init__(self, base: torch.Tensor, path: tuple = ()):
         self.base = base
-        self.width = int(width)
         self.path = tuple(int(d) & _MASK for d in path)
 
     @property
@@ -91,28 +90,130 @@ class RowKeys:
     def device(self) -> torch.device:
         return self.base.device
 
-    def fold_in(self, data: int) -> "RowKeys":
-        return RowKeys(self.base, self.width, self.path + (data,))
+    @property
+    def size(self) -> int:
+        """The walkers of the batch."""
+        raise NotImplementedError
+
+    def fold_in(self, data: int) -> "BatchKeys":
+        raise NotImplementedError
+
+    def lanes(self, idx: torch.Tensor | None = None):
+        """``(row, counter)`` int64 of walkers ``idx`` of the batch (all of
+        them by default): the key table's row each draws under, and its
+        counter."""
+        raise NotImplementedError
 
     def table(self, *suffixes) -> torch.Tensor:
-        """``(R, n, 2)`` int32: each row's key at ``path + suffix`` for each
-        of the n suffixes (tuples of ``fold_in`` data)."""
+        """``(R, n, 2)`` int32: each key at ``path + suffix`` for each of
+        the n suffixes (tuples of ``fold_in`` data)."""
         return derive_keys(self.base, [self.path + tuple(s) for s in suffixes])
 
     def words(self) -> torch.Tensor:
-        """``(R, 2)`` int64: each row's key at ``path``, as unsigned words."""
+        """``(R, 2)`` int64: each key at ``path``, as unsigned words."""
         keys = self.table(())[:, 0] if self.path else self.base
         return keys.to(torch.int64) & _MASK
 
 
+class RowKeys(BatchKeys):
+    """The keys of a batch of R rows of ``width`` walkers, one key a row,
+    as ``jax.vmap`` over the rows of a walk holds them.
+
+    ``base`` is the rows' keys as an ``(R, 2)`` int32 tensor (the uint32
+    words' bits) on the batch's device.  Walker ``b`` of the flattened
+    ``(R·width,)`` batch belongs to row ``b // width`` and draws at counter
+    ``b % width``.
+    """
+
+    def __init__(self, base: torch.Tensor, width: int, path: tuple = ()):
+        super().__init__(base, path)
+        self.width = int(width)
+
+    @property
+    def size(self) -> int:
+        return self.rows * self.width
+
+    def fold_in(self, data: int) -> "RowKeys":
+        return RowKeys(self.base, self.width, self.path + (data,))
+
+    def lanes(self, idx: torch.Tensor | None = None):
+        b = (torch.arange(self.size, dtype=torch.int64, device=self.device) if idx is None
+             else idx.to(torch.int64))
+        row = torch.div(b, self.width, rounding_mode="floor")
+        return row, b - row * self.width
+
+
+class EntryKeys(BatchKeys):
+    """The keys of a batch of queue entries that each carry their own depth
+    and instance (the sharded drain's batches, where entries of several
+    depths meet).
+
+    ``base`` is an ``(S, 2)`` int32 table whose row ``d`` is the walk's key
+    at depth ``d`` (``fold_in(key, d)``); ``depth`` and ``inst`` are the
+    entries' ``(B,)`` int32 depths and instances.  Entry ``b`` draws under
+    row ``depth[b]`` at counter ``inst[b]``: ``draw(fold_in(key,
+    depth[b]))[inst[b]]``, what the single-device walk draws for that
+    walker at that depth, wherever and whenever the entry is popped.
+    Entries with a negative depth or instance (empty slots) draw at row and
+    counter 0.  The derived tables are cached across :meth:`fold_in` and
+    :meth:`with_entries`, so a walk derives each suffix's table once.
+    """
+
+    def __init__(self, base: torch.Tensor, depth: torch.Tensor, inst: torch.Tensor,
+                 path: tuple = (), cache: dict | None = None):
+        super().__init__(base, path)
+        self.depth, self.inst = depth, inst
+        self._cache = {} if cache is None else cache
+
+    @property
+    def size(self) -> int:
+        return self.depth.shape[0]
+
+    def fold_in(self, data: int) -> "EntryKeys":
+        return EntryKeys(self.base, self.depth, self.inst, self.path + (data,), self._cache)
+
+    def with_entries(self, depth: torch.Tensor, inst: torch.Tensor) -> "EntryKeys":
+        """The same keys (and cache) for another batch of entries."""
+        return EntryKeys(self.base, depth, inst, self.path, self._cache)
+
+    def lanes(self, idx: torch.Tensor | None = None):
+        d, i = (self.depth, self.inst) if idx is None else (self.depth[idx], self.inst[idx])
+        return torch.clamp(d, min=0).to(torch.int64), torch.clamp(i, min=0).to(torch.int64)
+
+    def entry_operands(self):
+        """The entries' depths and instances as contiguous int32 tensors,
+        for the step kernels."""
+        return (self.depth.to(torch.int32).contiguous(),
+                self.inst.to(torch.int32).contiguous())
+
+    def table(self, *suffixes) -> torch.Tensor:
+        paths = tuple(self.path + tuple(s) for s in suffixes)
+        if paths not in self._cache:
+            self._cache[paths] = derive_keys(self.base, [list(p) for p in paths])
+        return self._cache[paths]
+
+
 def fold_in(key, data: int):
     """New key from ``key`` and an integer, as ``jax.random.fold_in``
-    (for :class:`RowKeys`, every row's key, derived when it is used)."""
-    if isinstance(key, RowKeys):
+    (for :class:`BatchKeys`, every key of the table, derived when it is
+    used)."""
+    if isinstance(key, BatchKeys):
         return key.fold_in(data)
     k0, k1 = (int(k) for k in key)
     a, b = threefry2x32(k0, k1, 0, int(data) & _MASK)
     return np.array([a, b], dtype=np.uint32)
+
+
+def _batch_bits(key: "BatchKeys", idx, per: int) -> torch.Tensor:
+    """``(n, per)`` random bits of walkers ``idx`` (all by default) of a
+    batch under :class:`BatchKeys`: walker ``b``'s ``per`` elements hash
+    counters ``per·c .. per·c + per - 1`` under its row's key, ``c`` its
+    counter (the layout of a ``(W, per)`` draw, row ``c``)."""
+    row, ctr = key.lanes(idx)
+    words = key.words()[row]
+    c = ctr[:, None] * per + torch.arange(per, dtype=torch.int64, device=key.device)
+    a, b = threefry2x32(words[:, :1], words[:, 1:], c >> 32, c & _MASK)
+    return a ^ b
 
 
 def bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
@@ -133,21 +234,18 @@ def random_bits(key, shape, device="cpu", offset: int = 0) -> torch.Tensor:
     ``offset`` shifts the counters: the result is the elements ``offset``
     onward of a larger draw of the same key (the layout is partitionable),
     so a block of rows of a batch draws exactly its share of the batch's
-    bits.  Under :class:`RowKeys` the shape's leading axis is the flattened
-    batch ``R·width``: each row's slice is a draw of its own under its key
-    (one hash over every ``(row key, counter)`` pair; ``offset`` 0, the
-    keys' device)."""
+    bits.  Under :class:`BatchKeys` the shape's leading axis is the batch:
+    each walker's slice is its row of a draw of its own key, at its counter
+    (one hash over every ``(key, counter)`` pair; ``offset`` 0, the keys'
+    device)."""
     shape = tuple(int(d) for d in shape) if isinstance(shape, (tuple, list)) else (int(shape),)
     n = int(np.prod(shape))
-    if isinstance(key, RowKeys):
-        if offset or not shape or shape[0] != key.rows * key.width:
-            raise ValueError(f"a draw under the keys of {key.rows} rows of {key.width} walkers "
-                             f"needs a leading axis of {key.rows * key.width} and no offset, "
-                             f"got {shape}, offset {offset}")
-        words = key.words()
-        i = torch.arange(n // key.rows, dtype=torch.int64, device=key.device)
-        a, b = threefry2x32(words[:, :1], words[:, 1:], i >> 32, i & _MASK)
-        return (a ^ b).reshape(shape)
+    if isinstance(key, BatchKeys):
+        if offset or not shape or shape[0] != key.size:
+            raise ValueError(f"a draw under the keys of a batch of {key.size} walkers needs a "
+                             f"leading axis of {key.size} and no offset, got {shape}, "
+                             f"offset {offset}")
+        return _batch_bits(key, None, n // key.size).reshape(shape)
     i = torch.arange(int(offset), int(offset) + n, dtype=torch.int64, device=device)
     return bits_at(key, i).reshape(shape)
 
@@ -173,15 +271,11 @@ def uniform_range(key, shape, minval: float, maxval: float,
 def uniform_at(key, counters: torch.Tensor) -> torch.Tensor:
     """The uniforms of the given counters only: ``uniform(key, (W,))[counters]``
     for any ``W`` above them, at the cost of ``len(counters)`` hashes.  Under
-    :class:`RowKeys` the counters index the flattened batch: walker ``b``
-    hashes ``b % width`` under row ``b // width``'s key."""
+    :class:`BatchKeys` the counters index the batch, and each walker hashes
+    its own counter under its own key (:meth:`BatchKeys.lanes`)."""
     counters = counters.to(torch.int64)
-    if isinstance(key, RowKeys):
-        row = torch.div(counters, key.width, rounding_mode="floor")
-        ctr = counters - row * key.width
-        words = key.words()[row]
-        a, b = threefry2x32(words[:, 0], words[:, 1], ctr >> 32, ctr & _MASK)
-        return bits_to_unit_float(a ^ b)
+    if isinstance(key, BatchKeys):
+        return bits_to_unit_float(_batch_bits(key, counters, 1).reshape(-1))
     return bits_to_unit_float(bits_at(key, counters))
 
 

@@ -12,9 +12,12 @@ Each wrapper counts its kernel launches in a plain integer attribute,
 and the walkers' vertices, find each walker's degree cohort on the ladder
 themselves, serve every cohort planned for their method in one launch, and
 hash the counted uniforms their walkers consume inside the kernel.  Their
-key is one key for every walker, or :class:`~repro_torch.kernels.threefry.RowKeys`:
-one key a row of a batch of rows, read from a device table
-(``random_walk_segments``: every row in one launch).
+key is one key for every walker, :class:`~repro_torch.kernels.threefry.RowKeys`
+(one key a row of a batch of rows, read from a device table:
+``random_walk_segments``, every row in one launch), or
+:class:`~repro_torch.kernels.threefry.EntryKeys` (a key a depth, read from a
+device table at each entry's depth, the counter its instance: the sharded
+drain, whose batches mix depths).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.threefry import RowKeys, fold_in
+from repro_torch.kernels.threefry import BatchKeys, EntryKeys, RowKeys, fold_in
 
 #: the longest degree ladder the step kernels take
 MAX_LADDER = 4
@@ -65,16 +68,25 @@ def _key_words(*keys) -> ctypes.Array:
 
 
 def _launch_keys(name: str, key, cur: torch.Tensor, *suffixes):
-    """A step kernel's keys: ``key`` after each suffix of ``fold_in`` data.
-    For one key, ``(words, None, 0)``: the words by value, derived on the
-    host.  For :class:`RowKeys` over ``cur``'s rows, ``(None, table,
-    width)``: a device table of each row's keys (one ``derive_keys``
-    launch), which the kernel reads at walker ``b``'s row ``b // width``."""
-    if isinstance(key, RowKeys):
-        if key.rows * key.width != cur.shape[0]:
-            raise ValueError(f"{name}: keys of {key.rows} rows of {key.width} walkers for "
-                             f"{cur.shape[0]} walkers")
-        return None, key.table(*suffixes), key.width
+    """A step kernel's keys: ``key`` after each suffix of ``fold_in`` data,
+    as ``(words, table, width, entries)``.  For one key, ``(words, None, 0,
+    None)``: the words by value, derived on the host.  For
+    :class:`RowKeys` over ``cur``'s rows, ``(None, table, width, None)``: a
+    device table of each row's keys (one ``derive_keys`` launch), which the
+    kernel reads at walker ``b``'s row ``b // width``.  For
+    :class:`EntryKeys`, ``(None, table, 0, (depth, inst))``: a table of each
+    depth's keys, which the kernel reads at entry ``b``'s depth, hashing at
+    its instance."""
+    if isinstance(key, BatchKeys):
+        if key.size != cur.shape[0]:
+            raise ValueError(f"{name}: keys of {key.size} walkers for {cur.shape[0]} walkers")
+        if isinstance(key, EntryKeys):
+            entries = key.entry_operands()
+            if entries[0].device != cur.device:
+                raise ValueError(f"{name}: entry keys on {entries[0].device}, walkers on "
+                                 f"{cur.device}")
+            return None, key.table(*suffixes), 0, entries
+        return None, key.table(*suffixes), key.width, None
     derived = {(): np.asarray(key, dtype=np.uint32)}
 
     def at(path):
@@ -82,7 +94,12 @@ def _launch_keys(name: str, key, cur: torch.Tensor, *suffixes):
             derived[path] = fold_in(at(path[:-1]), path[-1])
         return derived[path]
 
-    return _key_words(*(at(tuple(s)) for s in suffixes)), None, 0
+    return _key_words(*(at(tuple(s)) for s in suffixes)), None, 0, None
+
+
+def _entry_ptrs(entries):
+    """The entries' depth and instance pointers (null for other keys)."""
+    return (None, None) if entries is None else (entries[0].data_ptr(), entries[1].data_ptr())
 
 
 def _table_ptr(table):
@@ -121,7 +138,8 @@ def walk_step(
     key: the step's key (the uniform is ``fold_in(key, 0)`` at the
     walker's index in ``cur``), or :class:`~repro_torch.kernels.threefry.RowKeys`
     for a batch of rows (each row's key, at the walker's index in its
-    row); indptr (V+1,) int32, indices (E,) int32
+    row), or :class:`~repro_torch.kernels.threefry.EntryKeys` for a batch of
+    queue entries (each entry's depth's key, at its instance); indptr (V+1,) int32, indices (E,) int32
     and bias (E,) float32: the flat CSR; cur: (W,) int32 vertices, -1 for
     finished walkers; ``buckets``/``use_chunked``/``methods``: the step's
     ladder and plan (``core.backend.walk_bucket_plan``,
@@ -142,11 +160,12 @@ def walk_step(
     w = cur.shape[0]
     if w == 0 or ladder[2] == 0:
         return out
-    words, table, width = _launch_keys("walk_step", key, cur, (0,))
+    words, table, width, entries = _launch_keys("walk_step", key, cur, (0,))
     lib = _build.load()
     code = lib.walk_step_launch(
         cur.data_ptr(), indptr.data_ptr(), indices.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        w, bias.shape[0], ladder, words, _table_ptr(table), width, _build.stream_handle(cur),
+        w, bias.shape[0], ladder, words, _table_ptr(table), width, *_entry_ptrs(entries),
+        _build.stream_handle(cur),
     )
     _build.check(lib, code, "walk_step")
     walk_step.launches += 1
@@ -234,13 +253,13 @@ def reject_step(
     w = cur.shape[0]
     if w == 0 or ladder[2] == 0:
         return out
-    words, table, width = _launch_keys("reject_step", key, cur,
-                                       *((2, t) for t in range(2 * ref.REJECT_ITERS)))
+    words, table, width, entries = _launch_keys(
+        "reject_step", key, cur, *((2, t) for t in range(2 * ref.REJECT_ITERS)))
     lib = _build.load()
     code = lib.reject_step_launch(
         cur.data_ptr(), indptr.data_ptr(), indices.data_ptr(), bias.data_ptr(),
         row_max.data_ptr(), out.data_ptr(), w, ladder, words, _table_ptr(table), width,
-        _build.stream_handle(cur),
+        *_entry_ptrs(entries), _build.stream_handle(cur),
     )
     _build.check(lib, code, "reject_step")
     reject_step.launches += 1

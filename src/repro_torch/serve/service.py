@@ -17,8 +17,11 @@ The pipeline per :meth:`SamplingService.drain`:
    batch whose row ``r`` equals the standalone ``random_walk(graph,
    padded_seeds_r, key_r, depth=bucket)`` bit for bit.
 3. A service holding *partitioned* graph storage routes the cohort to the
-   §V frontier-queue drain (``oom_random_walk``): all member requests merge
-   into one flat instance axis with per-instance ``depth_limits``.
+   §V frontier-queue drain (``oom_random_walk``), and one holding a graph
+   and a :class:`~repro_torch.shard.ShardMesh` with ``placement="sharded"``
+   to the owner-routed mesh drain (``shard.sharded_random_walk``): all
+   member requests merge into one flat instance axis with per-instance
+   ``depth_limits``.
 4. Results come to the host (``.cpu().numpy()``, which is also where the
    launch's device work ends) and are sliced per request: row padding off,
    depth bucket cut to the request's own walk length.
@@ -27,12 +30,12 @@ The pipeline per :meth:`SamplingService.drain`:
 returns bit-identical responses.
 
 Against ``repro.serve.service``: ``backend=`` becomes ``device=`` (``cuda``
-unless the caller passes ``"cpu"``), resolved once and passed to every
-engine call; there is no ``method=``, since ``repro``'s walk body never
-reads it and the port's engines take none; the sharded placement
-(``placement="sharded"``, ``mesh=``) raises, as the sharded engine is not
-ported yet.  Every request's walks, and the service's stats, equal
-``repro``'s under the same keys.
+unless the caller passes ``"cpu"``; on the sharded placement the mesh's
+first device), resolved once and passed to every engine call; there is no
+``method=``, since ``repro``'s walk body never reads it and the port's
+engines take none; ``mesh=`` takes a ``ShardMesh`` and there is no
+``shard_axis=`` (the mesh has one axis).  Every request's walks, and the
+service's stats, equal ``repro``'s under the same keys.
 """
 from __future__ import annotations
 
@@ -51,6 +54,8 @@ from repro_torch.core.rng import PRNGKey, fold_in, key_from_array, split
 from repro_torch.graph.csr import CSRGraph, resolve_device
 from repro_torch.graph.partition import RangePartition
 from repro_torch.kernels import _build
+from repro_torch.shard.mesh import ShardMesh
+from repro_torch.shard.walk import sharded_random_walk
 from repro_torch.serve.queue import (
     AdmissionError,
     Cohort,
@@ -110,7 +115,7 @@ class ServiceStats:
     walkers_served: int = 0
     launches: int = 0  # fused in-memory launches
     oom_launches: int = 0  # partition-scheduler passes
-    sharded_launches: int = 0  # device-mesh drains (no sharded placement yet: stays 0)
+    sharded_launches: int = 0  # device-mesh frontier-exchange drains
     padded_walker_slots: int = 0  # launched slots minus real walkers
     plans_prewarmed: int = 0  # explicit prewarm() selection-plan builds
     #: placements prewarm() has warmed
@@ -141,7 +146,10 @@ class SamplingService:
     Construct with EITHER an in-memory ``graph`` (requests run through the
     fused ``random_walk_segments`` path) OR host-resident ``partitions`` +
     ``total_vertices`` (requests run through the §V out-of-memory
-    frontier-queue drain).  ``submit()`` admits a request (raising
+    frontier-queue drain) OR a ``graph`` plus a ``mesh``
+    (:class:`~repro_torch.shard.ShardMesh`) and ``placement="sharded"``
+    (the graph is range-sharded over the mesh and cohorts run through the
+    owner-routed drain, ``shard.sharded_random_walk``).  ``submit()`` admits a request (raising
     :class:`~repro_torch.serve.queue.AdmissionError` over capacity) and
     returns a request id; ``drain()`` serves everything pending and returns
     ``{request_id: RequestResult}``.
@@ -149,13 +157,14 @@ class SamplingService:
     On the in-memory path each request gets its own key (derived from the
     service key and the request id unless passed explicitly), so its result
     does not depend on which other requests share its launch.  OOM-routed
-    cohorts merge all member requests into one flat instance axis under one
-    launch-level key: results are deterministic for a fixed submission set
-    but not composition-independent, and per-request ``key=`` values are
-    unused there.
+    and shard-routed cohorts merge all member requests into one flat
+    instance axis under one launch-level key: results are deterministic for
+    a fixed submission set but not composition-independent, and per-request
+    ``key=`` values are unused there.
 
     Every launch runs on ``device`` (``cuda`` unless the caller passes
-    ``"cpu"``; without a card ``cuda`` raises), resolved once here: a bare
+    ``"cpu"``, the mesh's first device on the sharded placement; without a
+    card ``cuda`` raises), resolved once here: a bare
     ``cuda`` is pinned to the current card, and each launch runs with that
     card current, so a launch from another thread (the streaming
     scheduler's) lands on the same card.
@@ -168,38 +177,49 @@ class SamplingService:
         partitions: Optional[List[RangePartition]] = None,
         total_vertices: Optional[int] = None,
         max_degree: Optional[int] = None,
-        device="cuda",
+        device=None,
         config: Optional[ServiceConfig] = None,
         key=None,
         oom_memory_capacity: int = 2,
         oom_num_streams: int = 2,
         oom_chunk: int = 1024,
-        mesh=None,
+        mesh: Optional[ShardMesh] = None,
         placement: Optional[str] = None,
     ):
         if (graph is None) == (partitions is None):
             raise ValueError(
-                "pass exactly one of graph= (in-memory) or partitions= (out-of-memory)"
-            )
-        if placement == "sharded" or mesh is not None:
-            raise ValueError(
-                'placement="sharded" and mesh= need the sharded engine '
-                "(repro.shard's sharded_random_walk), which is not ported yet; "
-                'use placement="memory" or "oom"'
+                "pass exactly one of graph= (in-memory / sharded) or "
+                "partitions= (out-of-memory)"
             )
         if placement is None:
-            placement = "oom" if partitions is not None else "memory"
-        if placement not in ("memory", "oom"):
+            placement = "oom" if partitions is not None else (
+                "sharded" if mesh is not None else "memory"
+            )
+        if placement not in ("memory", "oom", "sharded"):
             raise ValueError(f"unknown placement {placement!r}")
+        if placement == "sharded" and (graph is None or mesh is None):
+            raise ValueError('placement="sharded" needs graph= and mesh=')
+        if placement != "sharded" and mesh is not None:
+            # a mesh the service would never use: the caller configured one
+            # execution path and would get another
+            raise ValueError(
+                f'mesh= is only meaningful with placement="sharded", '
+                f"got placement={placement!r}"
+            )
+        if placement == "sharded" and not isinstance(mesh, ShardMesh):
+            raise TypeError(f"mesh= takes a ShardMesh, got {type(mesh).__name__}")
         if placement == "oom" and partitions is None:
             raise ValueError('placement="oom" needs partitions=')
         if placement == "memory" and graph is None:
             raise ValueError('placement="memory" needs graph=')
+        if device is None:
+            device = mesh.devices[0] if placement == "sharded" else "cuda"
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
         self.placement = placement
+        self.mesh = mesh
         self.graph = graph.to(dev) if graph is not None else None
         self.partitions = partitions
         if graph is not None:
@@ -298,7 +318,9 @@ class SamplingService:
            partition's host plan and tables (``core.oom.prewarm_plans``), which
            the drain would otherwise build at each partition's first
            residency (seconds a partition at R-MAT scale 21).
-        3. **Warm launch** (both placements): when ``depth`` is given, one
+           The sharded placement reuses the memory placement's full-graph
+           plan, which the sharded drain slices per shard.
+        3. **Warm launch** (every placement): when ``depth`` is given, one
            throwaway launch at the padded geometry a request of ``(width,
            depth)`` would occupy (``requests`` sizes the fused request
            axis), through the placement's engine.
@@ -306,8 +328,8 @@ class SamplingService:
         The warm launch uses a fixed throwaway key and moves neither the
         service's stats nor its request-id and launch-key sequences, so
         prewarming never changes what any later request samples.  Returns
-        the memory placement's per-cohort method plan (empty when there is
-        nothing to plan, and on the OOM placement, as ``repro``).
+        the memory or sharded placement's per-cohort method plan (empty when
+        there is nothing to plan, and on the OOM placement, as ``repro``).
         """
         if self.device.type == "cuda":
             _build.load()
@@ -330,8 +352,8 @@ class SamplingService:
         """One throwaway launch at the bucketed geometry, placement-routed.
 
         Seeds are vertex 0 plus ``-1`` padding (an all-padding launch would
-        end before the OOM drain ever runs a chunk); the key is a constant,
-        and no service stats or counters move.
+        end before the OOM or sharded drain ever steps); the key is a
+        constant, and no service stats or counters move.
         """
         cfg = self.config
         depth_b = _pow2_bucket(int(depth), cfg.min_depth_bucket)
@@ -348,18 +370,25 @@ class SamplingService:
                     max_degree=self.max_degree, device=self.device,
                 ).walks.cpu()
                 return
-            # OOM: cohorts pack one flat instance axis (128-multiple,
-            # mirroring _pack_flat) with per-instance depth limits
+            # OOM / sharded: cohorts pack one flat instance axis
+            # (128-multiple, mirroring _pack_flat) with per-instance depth
+            # limits
             i_pad = _pow2_bucket(width_b * max(int(requests), 1), 128)
             seeds = np.full((i_pad,), -1, np.int32)
             seeds[0] = 0
             limits = np.zeros((i_pad,), np.int32)
             limits[0] = depth_b
-            oom_random_walk(
-                self.partitions, self.num_vertices, seeds, key,
-                depth=depth_b, spec=spec, max_degree=self.max_degree,
-                depth_limits=limits, device=self.device, **self._oom_kwargs,
-            )
+            if self.placement == "oom":
+                oom_random_walk(
+                    self.partitions, self.num_vertices, seeds, key,
+                    depth=depth_b, spec=spec, max_degree=self.max_degree,
+                    depth_limits=limits, device=self.device, **self._oom_kwargs,
+                )
+            else:
+                sharded_random_walk(
+                    self.mesh, self.graph, seeds, key, depth=depth_b, spec=spec,
+                    max_degree=self.max_degree, depth_limits=limits,
+                ).walks.cpu()
 
     # -- serving -----------------------------------------------------------
 
@@ -400,6 +429,8 @@ class SamplingService:
         with self._on_device():
             if self.placement == "oom":
                 self._run_oom(cohort, out)
+            elif self.placement == "sharded":
+                self._run_sharded(cohort, out)
             elif self.config.fuse:
                 self._run_fused(cohort, out)
             else:
@@ -487,4 +518,18 @@ class SamplingService:
         )
         self._unpack_flat(spans, walks, out)
         self.stats.oom_launches += 1
+        self.stats.padded_walker_slots += ghost
+
+    def _run_sharded(self, cohort: Cohort, out: Dict[int, RequestResult]) -> None:
+        """Route one cohort through the owner-routed mesh drain
+        (``shard.sharded_random_walk``): the OOM path's flat-instance-axis
+        packing and launch-key contract."""
+        seeds, limits, spans, key, ghost = self._pack_flat(cohort)
+        res = sharded_random_walk(
+            self.mesh, self.graph, seeds, key,
+            depth=cohort.depth, spec=cohort.requests[0].spec,
+            max_degree=self.max_degree, depth_limits=limits,
+        )
+        self._unpack_flat(spans, res.walks.cpu().numpy(), out)
+        self.stats.sharded_launches += 1
         self.stats.padded_walker_slots += ghost

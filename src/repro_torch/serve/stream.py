@@ -18,8 +18,9 @@ The scheduling policy:
 
 - **Forming cohorts**: submitted requests join the forming cohort of their
   group key — the same ``(cohort_key, depth bucket, width bucket)`` the
-  batch queue uses on the in-memory placement, program-only on the OOM
-  placement — in strict arrival order (the ``take_cohorts`` FIFO contract).
+  batch queue uses on the in-memory placement, program-only on the OOM and
+  sharded placements — in strict arrival order (the ``take_cohorts`` FIFO
+  contract).
 - **Launch triggers**, per forming cohort: *fill* (the cohort reaches
   ``max_requests_per_launch``); *slack* (the most urgent member's remaining
   deadline slack approaches ``slack_factor ×`` the cohort key's measured
@@ -355,7 +356,7 @@ class StreamingSamplingService:
     def prewarm(self, spec: SamplingSpec, **kwargs) -> tuple:
         """The wrapped service's :meth:`SamplingService.prewarm`, under the
         launch lock: the caches it fills (the plans and tables of
-        ``core.methods`` and ``core.oom``) are module state that launches
+        ``core.methods``, ``core.oom`` and ``shard.walk``) are module state that launches
         from the scheduler thread read and fill too.  Call this, not the
         service's own, once :meth:`start` has run."""
         with self._launch_lock:

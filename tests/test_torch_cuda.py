@@ -20,7 +20,8 @@ from repro_torch.core import select as sel  # noqa: E402
 from repro_torch.core.engine import random_walk, random_walk_segments, traversal_sample  # noqa: E402
 from repro_torch.core.methods import MethodTables  # noqa: E402
 from repro_torch.core.oom import oom_random_walk  # noqa: E402
-from repro_torch.core.rng import RowKeys, PRNGKey, fold_in, uniform_at, uniform_many  # noqa: E402
+from repro_torch.core.rng import (  # noqa: E402
+    EntryKeys, RowKeys, PRNGKey, fold_in, uniform_at, uniform_many)
 from repro_torch.graph import csr_from_edges, partition_by_vertex_range, powerlaw_graph  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.threefry import derive_keys, hash_uniform  # noqa: E402
@@ -813,8 +814,9 @@ def test_card_segments_equal_cpu_segments(cuda_device, name):
     cpu = random_walk_segments(g, seeds, keys, device="cpu", **kw)
     kernels.reset_launch_counts()
     gpu = random_walk_segments(g, seeds, keys, device=cuda_device, **kw)
-    for a, b in zip(cpu, gpu):
+    for a, b in zip(cpu[:3], gpu[:3]):  # walks, lengths, sampled edges
         assert torch.equal(a, b.cpu())
+    assert cpu.stats is None and gpu.stats is None
     assert sum(kernels.launch_counts().values()) > 0
     solo = random_walk(g, seeds[3], keys[3], device=cuda_device, **kw)
     assert torch.equal(solo.walks, gpu.walks[3])
@@ -930,3 +932,91 @@ def test_card_streaming_thread_burst_equals_unfused(cuda_device):
     want = base.drain()
     for res, rid in zip(got, ids):
         np.testing.assert_array_equal(res.walks, want[rid].walks)
+
+
+def _entry_keys(depth: int, d, inst, device, seed: int = 5):
+    """``EntryKeys`` of a walk of ``depth`` steps under ``PRNGKey(seed)``
+    for entries at depths ``d`` and instances ``inst``, on ``device``."""
+    words = np.stack([fold_in(PRNGKey(seed), t) for t in range(depth)])
+    base = torch.from_numpy(words.view(np.int32).copy()).to(device)
+    return EntryKeys(base, torch.from_numpy(d).to(device), torch.from_numpy(inst).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,mixed", [(1, False), (41, False), (41, True)])
+@pytest.mark.parametrize("ladder,tail", [((128, 512), True), ((128,), False)])
+def test_entry_key_kernels_match_plain_versions(cuda_device, depth, mixed, ladder, tail):
+    """The three step kernels under per-entry keys (a key table a depth,
+    each entry at its own depth and instance): batches of one depth (0 or
+    40) and of many, instances out of order and empty slots; one
+    ``derive_keys`` and one step launch each, every entry equal to the
+    plain version."""
+    w = 3001
+    cpu = _case(depth + 7 * mixed, w=w)
+    rng = np.random.default_rng(depth)
+    inst = rng.permutation(5 * w)[:w].astype(np.int32)
+    d = (rng.integers(0, depth, w) if mixed else np.full(w, depth - 1)).astype(np.int32)
+    inst[cpu["cur"].numpy() < 0] = -1
+    d[::97] = -1
+    gpu = {k: v.to(cuda_device) for k, v in cpu.items()}
+    kcpu = fold_in(_entry_keys(depth, d, inst, "cpu"), 1)
+    kgpu = fold_in(_entry_keys(depth, d, inst, cuda_device), 1)
+    for fn, method in STEP_KERNELS:
+        want = _step(fn, cpu, kcpu, ladder, tail, method)
+        kernels.reset_launch_counts()
+        got = _step(fn, gpu, kgpu, ladder, tail, method)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=fn.__name__)
+        counts = kernels.launch_counts()
+        assert counts[fn.__name__] == 1 and counts["derive_keys"] <= 1
+
+
+@pytest.mark.cuda
+def test_entry_keys_equal_single_key_launches(cuda_device):
+    """An entry at depth t and instance i draws what walker i of a
+    by-value launch under ``fold_in(key, t)`` draws."""
+    w, depth = 2000, 7
+    c = {k: v.to(cuda_device) for k, v in _case(13, w=w).items()}
+    rng = np.random.default_rng(1)
+    d = rng.integers(0, depth, w).astype(np.int32)
+    ek = fold_in(_entry_keys(depth, d, np.arange(w, dtype=np.int32), cuda_device), 1)
+    for fn, method in STEP_KERNELS:
+        batch = _step(fn, c, ek, (128, 512), True, method)
+        for t in range(depth):
+            solo = _step(fn, c, fold_in(fold_in(PRNGKey(5), t), 1), (128, 512), True, method)
+            sel_t = torch.from_numpy(d == t).to(cuda_device)
+            assert torch.equal(batch[sel_t], solo[sel_t]), (fn.__name__, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["deepwalk", "weighted", "node2vec"])
+def test_card_sharded_walk_equals_card_walk(cuda_device, name):
+    """Four shards on one card walk as the card's single-device
+    ``random_walk`` does, with traffic through the exchange and the hubs,
+    and launch the step kernels under per-entry keys."""
+    from repro_torch.shard import ShardMesh, sharded_random_walk
+
+    spec = {"deepwalk": alg.deepwalk(), "weighted": alg.weighted_random_walk(),
+            "node2vec": alg.node2vec()}[name]
+    g = powerlaw_graph(20_000, seed=2, weighted=True, device=cuda_device)
+    md = g.max_degree()
+    seeds = np.arange(0, 20_000, 3, dtype=np.int32)
+    want = random_walk(g, seeds, PRNGKey(8), depth=10, spec=spec, max_degree=md,
+                       device=cuda_device)
+    kernels.reset_launch_counts()
+    got = sharded_random_walk(ShardMesh.on(cuda_device, 4), g, seeds, PRNGKey(8), depth=10,
+                              spec=spec, max_degree=md, sub_rounds=2, exchange_slots=500)
+    counts = kernels.launch_counts()
+    assert torch.equal(got.walks, want.walks)
+    assert got.stats["exchanged_entries"] > 0 and got.stats["hub_hops"] > 0
+    step = "walk_step_window" if name == "node2vec" else None
+    assert step is None or counts[step] > 0
+    assert counts["derive_keys"] > 0 or name == "node2vec"
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_pins_each_shard_to_a_card(cuda_device):
+    from repro_torch.shard import ShardMesh
+
+    mesh = ShardMesh.on("cuda", 4)
+    assert mesh.size == 4 and all(d.type == "cuda" and d.index is not None for d in mesh.devices)

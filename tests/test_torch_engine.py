@@ -145,12 +145,24 @@ served = svc.drain()
 drained_launches = svc.stats.launches
 with StreamingSamplingService(svc) as stream:
     streamed = stream.submit([5, 6], depth=3, spec=alg.deepwalk()).result(timeout=60)
+from repro_torch.core.distributed import instance_parallel_walk
+from repro_torch.shard import ShardMesh, sharded_random_walk
+mesh = ShardMesh.on("cpu", 4)
+sharded = sharded_random_walk(mesh, g, list(range(16)), PRNGKey(1), depth=3,
+                              spec=alg.deepwalk(), max_degree=g.max_degree())
+parallel = instance_parallel_walk(mesh, g, list(range(16)), PRNGKey(1), depth=3,
+                                  spec=alg.deepwalk(), max_degree=g.max_degree())
+shard_svc = SamplingService(g, mesh=mesh, key=PRNGKey(4))
+shard_svc.submit([0, 1], depth=3, spec=alg.deepwalk())
+shard_served = len(shard_svc.drain())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"bad": bad, "walked": walked, "sampled": int(sample.num_edges.sum()),
                   "fused": int(fused.sampled_edges.sum()), "oom": stats.sampled_edges,
                   "served": sorted(served) == ids, "launches": drained_launches,
-                  "streamed": streamed.sampled_edges}))
+                  "streamed": streamed.sampled_edges,
+                  "sharded": int(sharded.sampled_edges), "parallel": int(parallel.sampled_edges),
+                  "shard_served": shard_served}))
 """
 
 
@@ -166,3 +178,5 @@ def test_port_imports_neither_jax_nor_repro():
     assert res["fused"] > 0 and res["oom"] > 0  # and the segment and out-of-memory walks
     assert res["served"] and res["launches"] == 2  # the service fused its two deepwalks
     assert res["streamed"] > 0  # and the streaming service delivered one
+    assert res["sharded"] > 0 and res["parallel"] > 0  # the sharded and instance-parallel walks
+    assert res["shard_served"] == 1  # and the sharded service

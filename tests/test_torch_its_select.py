@@ -221,5 +221,5 @@ def test_walk_transition_chunked_window_equal(hub_degree):
     tprev = torch.from_numpy(prev)
     got = tsel.walk_transition_chunked_window(
         key_from_array(jax.random.key_data(key)), tg.indptr, tg.indices, tg.weights,
-        torch.from_numpy(cur), lambda rows, u, w, m: hook(torch, u, w, tprev[rows]))
+        torch.from_numpy(cur), lambda rows, u, w, m, eidx: hook(torch, u, w, tprev[rows]))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))

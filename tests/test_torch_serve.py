@@ -4,7 +4,7 @@ Every contract of ``tests/test_serve.py`` held by the port: admission and
 back-pressure, cohort formation and its FIFO ordering, fused = unfused =
 standalone padded walks, the out-of-memory route with per-request depth
 limits, prewarm invisibility and the drain-failure requeue.  The sharded
-placement is not ported: asking for it raises.
+placement's contracts are held in ``test_torch_shard.py``.
 
 Then the cross-package parity: the same requests (seeds, depths, specs
 from each package's factories, the same key words or no key at all) go
@@ -423,17 +423,6 @@ class TestPrewarm:
         cold = SamplingService(partitions=parts, total_vertices=g.num_vertices, device="cpu",
                                oom_chunk=128, key=PRNGKey(4))
         np.testing.assert_array_equal(warm.walks, self._drain_one(cold, g).walks)
-
-    def test_sharded_placement_raises(self, graph):
-        """No sharded engine in the port yet: asking for it raises and names
-        it, never falling back to another placement."""
-        g = graph
-        with pytest.raises(ValueError, match="sharded engine"):
-            SamplingService(g, placement="sharded", device="cpu")
-        with pytest.raises(ValueError, match="sharded engine"):
-            SamplingService(g, mesh=object(), device="cpu")
-        with pytest.raises(ValueError, match="sharded engine"):
-            SamplingService(g, mesh=object(), placement="sharded", device="cpu")
 
 
 class TestRobustness:
