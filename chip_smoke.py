@@ -94,6 +94,29 @@ comes out.  One walk per vertex, depth 40 (DeepWalk's walk length):
    every hop must be an edge; the first 256 instances, traced on the card
    (idle share, from a trace of the card's events alone) and rerun on the
    CPU, must give equal walks and stats.
+13. lm — the LM harness (after every sampling phase), two ``paths``
+   entries.  ``lm_walk``: ``examples/walk_corpus_lm_torch.py --scale 100m``
+   (8 layers, d_model 640, vocabulary 20,000, f32): its DeepWalk corpus
+   (4,096 walks of 64 on a 20,000-vertex power-law graph) built on the
+   card with the step kernels' launches counted (at least one must launch)
+   and equal to a CPU rerun, then 60 AdamW steps at batch 8 × 64 (loss
+   finite and falling), a checkpoint at step 30 restored into a fresh
+   model, optimizer state and pipeline whose replay of steps 30-39 equals
+   the uninterrupted run (1e-5 relative); ``kernels.ops``' two helpers
+   against their plain versions.  ``lm_gemma3_1b``: ``get_config("gemma3_1b")``
+   as it stands (26 layers, d_model 1,152, vocabulary 262,144, bf16,
+   ``remat="full"``, 2 microbatches, about 1.0B parameters): 6 train steps
+   on batch 8 × 1,024 of the reference's learnable pattern (loss finite,
+   falling), prefill of 8 × 1,024 and 16 decode steps from a cache of
+   1,024 + 16; then the weights cast to f32 (TF32 off): loss and logits on
+   1 × 128 tokens against the CPU port (loss 1e-4 relative, logits 1e-4 of
+   their scale), and 16 decode steps against the forward's logits at those
+   positions (3e-3).  Each prints ms a step, tokens/s, peak GiB (and the
+   corpus's seconds, the prefill's ms and the decode's ms a token) and a
+   torch.profiler trace of one train step (gemma3_1b: and of one decode
+   token): device busy ms, idle share, top kernels.  No new kernel: the LM
+   path's products and attention are torch ops.  ``scripts/lm_steps.py``
+   runs this phase alone.
 
 Each path runs with the kernels' launch counts set to 0 just before and read
 just after; a kernel its path never launched fails the run, and a flat
@@ -125,9 +148,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import importlib
+import importlib.util
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -206,6 +231,12 @@ OOM_CONFIGS = {
 #: the wide its_select kernel's phases, in launch order, by their kernels
 WIDE_PHASES = {"totals": "its_select_chunk_kernel", "prefixes": "its_select_prefix_kernel",
                "envelope": "its_select_envelope_kernel", "rounds": "its_select_rounds_kernel"}
+#: the LM phases: the walk LM's scale, batch, sequence, steps, the
+#: checkpoint step and the steps replayed after it; gemma3_1b's batch,
+#: sequence, train steps, decode tokens and the f32 cross-check's tokens
+LM_WALK_SCALE, LM_WALK_BATCH, LM_WALK_SEQ, LM_WALK_STEPS = "100m", 8, 64, 60
+LM_WALK_CKPT, LM_WALK_REPLAY, LM_WARMUP_STEPS = 30, 10, 5
+LM_BATCH, LM_SEQ, LM_TRAIN_STEPS, LM_DECODE, LM_CHECK_SEQ = 8, 1024, 6, 16, 128
 KERNELS = ("reject_step", "alias_step", "walk_step", "walk_step_window", "its_select",
            "its_select_wide", "reject_step_rows", "alias_step_rows", "walk_step_rows",
            "derive_keys", "reject_step_entries", "alias_step_entries", "walk_step_entries")
@@ -1922,7 +1953,7 @@ class Smoke:
 
     # -- profile ------------------------------------------------------------
 
-    def profile(self, name, call, host_events=True) -> dict:
+    def profile(self, name, call, host_events=True, steps_per_call=2) -> dict:
         """Trace ``call`` (a path's run at depth 2), again until the trace
         spans ``PROFILE_MIN_S`` (a fast path's two steps alone take a
         fraction of a millisecond); device time from the card's own events.
@@ -1957,10 +1988,230 @@ class Smoke:
             _log(f"[{name}] trace of {walks} walks: {len(prof.key_averages())} keys, {kinds}")
         _require(busy_ms > 0, f"{name}: the trace shows no device time")
         return dict(
-            profile_steps=2 * walks, profile_wall_ms=wall * 1e3, profile_device_busy_ms=busy_ms,
+            profile_steps=steps_per_call * walks, profile_wall_ms=wall * 1e3, profile_device_busy_ms=busy_ms,
             device_idle_share=1 - busy_ms / (wall * 1e3),
             profile_top=[[k[:60], us / 1e3, c] for k, us, c in rows[:8]],
         )
+
+    # -- the LM harness ------------------------------------------------------
+
+    def lm_paths(self):
+        """Phase 13: ``lm_walk`` and ``lm_gemma3_1b``."""
+        torch = self.torch
+        torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32
+        from repro_torch.configs import get_config
+
+        self.lm_walk_path()
+        self.lm_gemma_path(get_config("gemma3_1b"))
+
+    def lm_train(self, model, step_fn, ostate, step, batches, times=None):
+        """Run ``step_fn`` over ``batches``; each step's loss (a float: the
+        step waits for the card), its seconds into ``times``."""
+        losses = []
+        for b in batches:
+            t0 = time.perf_counter()
+            ostate, step, m = step_fn(model, ostate, step, b)
+            losses.append(float(m["loss"]))
+            if times is not None:
+                times.append(time.perf_counter() - t0)
+        return ostate, step, losses
+
+    def lm_walk_path(self):
+        """``lm_walk``: the example at ``--scale 100m`` on its walk corpus."""
+        from repro_torch.data import TokenPipeline
+        from repro_torch.models import model as lm
+        from repro_torch.train import checkpoint, optimizer, train_step
+
+        torch, kernels = self.torch, self.kernels
+        ex = _example_module()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g = ex.corpus_graph(self.dev)
+        graph_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        corpus = ex.walk_corpus(g, LM_WALK_SEQ, self.dev)
+        corpus_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        step_launches = {k: launches[k] for k in ("reject_step", "alias_step", "walk_step")}
+        _require(sum(step_launches.values()) > 0,
+                 f"lm_walk: the corpus launched no step kernel: {launches}")
+        cpu_corpus = ex.walk_corpus(g.to("cpu"), LM_WALK_SEQ, "cpu")
+        _require(np.array_equal(corpus, cpu_corpus), "lm_walk: card and CPU corpora differ")
+        ops_check = self.ops_check(g)
+
+        cfg = ex.walk_lm_config(LM_WALK_SCALE)
+        step_fn = train_step.make_train_step(cfg, ex.OPT, device=self.dev)
+        model = lm.DecoderLM(cfg, seed=0, device=self.dev)
+        ostate = optimizer.opt_init(ex.OPT, dict(model.named_parameters()))
+        pipe = TokenPipeline(cfg.vocab_size, LM_WALK_BATCH, LM_WALK_SEQ, corpus=corpus)
+        times: list = []
+        with tempfile.TemporaryDirectory() as ckdir:
+            mgr = checkpoint.CheckpointManager(ckdir, keep=1, fingerprint=cfg.name)
+            ostate, step, losses = self.lm_train(
+                model, step_fn, ostate, 0, (pipe.next() for _ in range(LM_WALK_CKPT)), times)
+            mgr.save(step, (model.state_dict(), ostate), extra={"pipeline": pipe.state_dict()})
+            ostate, step, more = self.lm_train(
+                model, step_fn, ostate, step,
+                (pipe.next() for _ in range(LM_WALK_STEPS - LM_WALK_CKPT)), times)
+            losses += more
+            fresh = lm.DecoderLM(cfg, seed=1, device=self.dev)
+            template = (fresh.state_dict(),
+                        optimizer.opt_init(ex.OPT, dict(fresh.named_parameters())))
+            (sd, fresh_state), manifest = mgr.restore(template)
+        fresh.load_state_dict(sd)
+        fresh_pipe = TokenPipeline(cfg.vocab_size, LM_WALK_BATCH, LM_WALK_SEQ, corpus=corpus)
+        fresh_pipe.load_state_dict(manifest["extra"]["pipeline"])
+        _, _, replay = self.lm_train(fresh, step_fn, fresh_state, manifest["step"],
+                                     (fresh_pipe.next() for _ in range(LM_WALK_REPLAY)))
+        prof = self.profile("lm_walk", lambda: step_fn(fresh, fresh_state, LM_WALK_STEPS,
+                                                       fresh_pipe.next()), steps_per_call=1)
+        want = np.array(losses[LM_WALK_CKPT:LM_WALK_CKPT + LM_WALK_REPLAY])
+        replay_err = float(np.max(np.abs(np.array(replay) - want) / np.abs(want)))
+        _require(np.isfinite(losses).all(), f"lm_walk: a loss is not finite: {losses}")
+        _require(losses[-1] < losses[0], f"lm_walk: the loss did not fall: {losses}")
+        _require(manifest["step"] == LM_WALK_CKPT and replay_err <= 1e-5,
+                 f"lm_walk: replay after restore differs by {replay_err:.3g}: {replay} vs {want}")
+        ms = float(np.median(times[LM_WARMUP_STEPS:])) * 1e3
+        row = dict(path="lm_walk", scale=LM_WALK_SCALE, params=cfg.param_count(),
+                   layers=cfg.num_layers, d_model=cfg.d_model, batch=LM_WALK_BATCH,
+                   seq=LM_WALK_SEQ, steps=LM_WALK_STEPS, graph_s=graph_s, corpus_s=corpus_s,
+                   corpus_shape=list(corpus.shape), corpus_launches=step_launches,
+                   ms_per_step=ms, tokens_per_s=LM_WALK_BATCH * LM_WALK_SEQ / (ms * 1e-3),
+                   first_loss=losses[0], last_loss=losses[-1], replay_max_rel_err=replay_err,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30, ops=ops_check,
+                   card=self.card, **prof)
+        _log(f"[lm_walk] {json.dumps(row)}")
+        self.paths.append(row)
+        del model, fresh, ostate, fresh_state, sd, template, g
+        torch.cuda.empty_cache()
+
+    def ops_check(self, g):
+        """``kernels.ops``' helpers on the card against their plain versions
+        on the CPU, under one key, at one small shape each."""
+        torch = self.torch
+        ops = importlib.import_module("repro_torch.kernels.ops")
+        key = self.rng.PRNGKey(SEED)
+        rs = np.random.default_rng(SEED)
+        b = rs.random((64, 300)).astype(np.float32) * (rs.random((64, 300)) > 0.3)
+        card = ops.its_select(key, torch.from_numpy(b).to(self.dev), 8, iters=8)
+        cpu = ops.its_select(key, torch.from_numpy(b), 8, iters=8)
+        _require(torch.equal(card.cpu(), cpu), "ops.its_select: card and CPU differ")
+        md = g.max_degree()
+        seg = -(-md // 128) * 128
+        _require(seg <= 512, f"ops.walk_step: max degree {md} above 512")
+        cur = torch.from_numpy(rs.integers(-1, g.num_vertices, 4096).astype(np.int32))
+        card = ops.walk_step(key, g, cur.to(self.dev), max_seg=seg)
+        cpu = ops.walk_step(key, g.to("cpu"), cur, max_seg=seg)
+        _require(torch.equal(card.cpu(), cpu), "ops.walk_step: card and CPU differ")
+        return dict(its_select=[64, 300, 8], walk_step=[4096, seg], equal=True)
+
+    def lm_gemma_path(self, cfg):
+        """``lm_gemma3_1b``: the full config's train, prefill and decode
+        steps in bf16, then its f32 cross-checks."""
+        from repro_torch.models import model as lm
+        from repro_torch.train import optimizer
+        from repro_torch.train import train_step as steps
+
+        torch = self.torch
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = lm.DecoderLM(cfg, seed=0, device=self.dev)
+        init_s = time.perf_counter() - t0
+        ocfg = optimizer.OptConfig(kind="adamw", lr=1e-3, warmup_steps=2)
+        ostate = optimizer.opt_init(ocfg, dict(model.named_parameters()))
+        base = np.arange(LM_SEQ + 1) % 7 + 1  # the reference's learnable pattern
+        batch = {"tokens": np.tile(base[:-1], (LM_BATCH, 1)).astype(np.int32),
+                 "labels": np.tile(base[1:], (LM_BATCH, 1)).astype(np.int32)}
+        times: list = []
+        step_fn = steps.make_train_step(cfg, ocfg, device=self.dev)
+        ostate, _, losses = self.lm_train(model, step_fn, ostate, 0,
+                                          [batch] * LM_TRAIN_STEPS, times)
+        _require(np.isfinite(losses).all() and losses[-1] < losses[0],
+                 f"lm_gemma3_1b: the loss is not finite or did not fall: {losses}")
+        train_ms = float(np.median(times[2:])) * 1e3
+        train_peak = torch.cuda.max_memory_allocated() / 2**30
+        train_prof = self.profile("lm_gemma3_1b train", lambda: step_fn(
+            model, ostate, LM_TRAIN_STEPS, batch), steps_per_call=1)
+        del ostate, step_fn
+
+        prefill = steps.make_prefill(cfg, device=self.dev)
+        pre = self.loop_ms(lambda: prefill(model, {"tokens": batch["tokens"]}), 3)
+        last = prefill(model, {"tokens": batch["tokens"]})
+        _require(bool(torch.isfinite(last.float()).all())
+                 and tuple(last.shape) == (LM_BATCH, cfg.vocab_size),
+                 f"lm_gemma3_1b: prefill gave {tuple(last.shape)} or non-finite logits")
+        serve = steps.make_serve_step(cfg, LM_BATCH, LM_SEQ + LM_DECODE, device=self.dev)
+        cache = lm.init_cache(cfg, LM_BATCH, LM_SEQ + LM_DECODE, device=self.dev)
+        tok = torch.from_numpy(batch["tokens"][:, :1]).to(self.dev)
+        dec_times = []
+        for _ in range(LM_DECODE):
+            t0 = time.perf_counter()
+            lg, cache = serve(model, cache, tok)
+            tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
+            self.sync()
+            dec_times.append(time.perf_counter() - t0)
+        _require(cache["index"] == LM_DECODE and bool(torch.isfinite(lg.float()).all()),
+                 "lm_gemma3_1b: decode gave non-finite logits")
+        decode_ms = float(np.median(dec_times[1:])) * 1e3
+        decode_prof = self.profile("lm_gemma3_1b decode", lambda: serve(model, cache, tok),
+                                   steps_per_call=1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del cache, lg, last
+        check = self.lm_f32_check(cfg, model)
+        row = dict(path="lm_gemma3_1b", params=sum(p.numel() for p in model.parameters()),
+                   layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+                   dtype=cfg.dtype, remat=cfg.remat, microbatches=cfg.microbatches,
+                   batch=LM_BATCH, seq=LM_SEQ, init_s=init_s, train_steps=LM_TRAIN_STEPS,
+                   losses=losses, train_ms_per_step=train_ms,
+                   train_tokens_per_s=LM_BATCH * LM_SEQ / (train_ms * 1e-3),
+                   train_peak_gib=train_peak, prefill_ms=pre,
+                   prefill_tokens_per_s=LM_BATCH * LM_SEQ / (pre * 1e-3),
+                   decode_ms_per_token=decode_ms, decode_batch=LM_BATCH,
+                   decode_cache=LM_SEQ + LM_DECODE, peak_gib=peak, f32_check=check,
+                   train_profile=train_prof, decode_profile=decode_prof, card=self.card)
+        _log(f"[lm_gemma3_1b] {json.dumps(row)}")
+        self.paths.append(row)
+        del model
+        torch.cuda.empty_cache()
+
+    def lm_f32_check(self, cfg, model):
+        """The weights cast to f32: loss and logits on 1 × 128 tokens against
+        the CPU port, and 16 decode steps against the forward."""
+        from repro_torch.models import model as lm
+
+        torch = self.torch
+        cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+        m32 = lm.DecoderLM(cfg32, seed=0, device=self.dev)
+        m32.load_state_dict(model.state_dict())  # copy_ widens bf16 exactly
+        rs = np.random.default_rng(SEED)
+        toks = torch.from_numpy(rs.integers(0, cfg.vocab_size, (1, LM_CHECK_SEQ)))
+        labels = torch.roll(toks, -1, dims=1)
+        with torch.no_grad():
+            card_loss = float(lm.loss_fn(m32, toks.to(self.dev), labels.to(self.dev)))
+            card_logits, _ = lm.forward(m32, toks.to(self.dev))
+            cache = lm.init_cache(cfg32, 1, LM_DECODE, device=self.dev)
+            dec = torch.cat([lm.decode_step(m32, toks[:, t:t + 1].to(self.dev), cache)[0]
+                             for t in range(LM_DECODE)], dim=1)
+            dec_err = float((dec - card_logits[:, :LM_DECODE]).abs().max())
+            card_logits = card_logits.cpu()
+            del cache, dec
+            m32.to("cpu")
+            torch.cuda.empty_cache()
+            cpu_loss = float(lm.loss_fn(m32, toks, labels))
+            cpu_logits, _ = lm.forward(m32, toks)
+        scale = float(cpu_logits.abs().max())
+        logits_err = float((card_logits - cpu_logits).abs().max())
+        loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+        _require(loss_rel <= 1e-4, f"lm_gemma3_1b f32: loss {card_loss} on the card, "
+                                   f"{cpu_loss} on the CPU")
+        _require(logits_err <= 1e-4 * scale,
+                 f"lm_gemma3_1b f32: logits differ by {logits_err:.3g} (scale {scale:.3g})")
+        _require(dec_err <= 3e-3, f"lm_gemma3_1b f32: decode differs from forward by {dec_err:.3g}")
+        return dict(tokens=LM_CHECK_SEQ, card_loss=card_loss, cpu_loss=cpu_loss,
+                    loss_rel_err=loss_rel, logits_max_abs_err=logits_err, logits_scale=scale,
+                    logits_bound=1e-4 * scale, decode_vs_forward_max_abs_err=dec_err,
+                    decode_bound=3e-3)
 
     # -- the run ------------------------------------------------------------
 
@@ -2023,6 +2274,11 @@ class Smoke:
         seg["opaque_rows"] = self.segments_vs_cpu("segments opaque", g, opaque, "its_select")
         self.stream_path(g)
         self.shard_pl_path(g)
+        del g
+        self._cpu_graphs.clear()
+        self.mt.clear_plan_cache()
+        torch.cuda.empty_cache()
+        self.lm_paths()
 
         for k in KERNELS:
             row = self.kernel_rows[k]
@@ -2054,6 +2310,16 @@ def _step_kernels(methods: tuple, n_buckets: int) -> set:
     per_method = {"rejection": "reject_step", "alias": "alias_step"}
     want = {per_method[m] for m in methods if m in per_method}
     return want | ({"walk_step"} if "its" in methods[:n_buckets] else set())
+
+
+def _example_module():
+    """``examples/walk_corpus_lm_torch.py`` (its scales, corpus and optimizer
+    settings), loaded from the checkout."""
+    spec = importlib.util.spec_from_file_location(
+        "walk_corpus_lm_torch", ROOT / "examples" / "walk_corpus_lm_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _max_sm_clock_mhz() -> float:

@@ -3,6 +3,7 @@ from repro_torch.graph.csr import (
     CSRGraph,
     csr_from_arrays,
     csr_from_edges,
+    degrees,
     neighbors_padded,
     resolve_device,
 )
@@ -19,6 +20,7 @@ __all__ = [
     "CSRGraph",
     "csr_from_arrays",
     "csr_from_edges",
+    "degrees",
     "neighbors_padded",
     "resolve_device",
     "rmat_graph",

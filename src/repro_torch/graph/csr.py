@@ -116,6 +116,11 @@ def csr_from_edges(
     return csr_from_arrays(indptr, dst, w, device=device)
 
 
+def degrees(graph: CSRGraph) -> torch.Tensor:
+    """Each vertex's out-degree, (V,) int32 on the graph's device."""
+    return graph.indptr[1:] - graph.indptr[:-1]
+
+
 def neighbors_padded(
     graph: CSRGraph, vertices: torch.Tensor, max_degree: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -12,6 +12,8 @@ PyTorch version.
   (``its_select_pallas``): a warp kernel for K <= 32 and P <= 4096, a wide
   kernel for any other K and P
 - ``ref``              — the plain versions, and the scan rule
+- ``ops``              — ``its_select`` and ``walk_step`` drawing their own
+  uniforms from a key, as ``repro.kernels.ops``
 - ``threefry``         — the counted-RNG hash the step kernels run per
   walker, in PyTorch; ``hash_uniform``, the device hash alone; and
   ``derive_keys``, the per-row keys of a batch of rows (``RowKeys``)

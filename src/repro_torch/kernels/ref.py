@@ -419,20 +419,24 @@ def walk_step_ref(
     use_chunked: bool,
     methods: tuple,
     out: torch.Tensor | None = None,
+    key_path: tuple = (0,),
 ) -> torch.Tensor:
     """One flat-bias ITS step for the walkers of every bucket planned as
     ``"its"`` (``walk_step`` kernel; the ITS tail is the chunked scan, not
     this step).
 
-    The uniform is ``uniform(fold_in(key, 0), (W,))``, walker ``i`` at
-    counter ``i``; each cohort's rows are capped at its segment and picked
-    by :func:`walk_step_block_ref`, in blocks of :data:`ROW_BLOCK` walkers.
+    The uniform is ``uniform(fold_in(key, 0), (W,))`` (``key`` folded with
+    each entry of ``key_path`` in turn), walker ``i`` at counter ``i``;
+    each cohort's rows are capped at its segment and picked by
+    :func:`walk_step_block_ref`, in blocks of :data:`ROW_BLOCK` walkers.
     Writes those walkers' next vertices (-1 for a dead end) into ``out``
     and leaves its other entries as they are; ``out=None`` starts from all
     -1.  Returns ``out``.
     """
     _, starts, deg, out, groups = _served(cur, indptr, buckets, use_chunked, methods, "its", out)
-    r = uniform(fold_in(key, 0), (cur.shape[0],), device=cur.device)
+    for d in key_path:
+        key = fold_in(key, d)
+    r = uniform(key, (cur.shape[0],), device=cur.device)
     for _, seg, rows in groups:
         if seg is None:
             continue

@@ -130,13 +130,15 @@ def walk_step(
     use_chunked: bool,
     methods: tuple,
     out: torch.Tensor | None = None,
+    key_path: tuple = (0,),
 ) -> torch.Tensor:
     """One flat-bias ITS step (``walk_step_pallas`` behind the JAX
     package's ``kernels.ops.walk_step``) for every bucket cohort planned as
     ``"its"``, in one launch.
 
     key: the step's key (the uniform is ``fold_in(key, 0)`` at the
-    walker's index in ``cur``), or :class:`~repro_torch.kernels.threefry.RowKeys`
+    walker's index in ``cur``; ``key_path`` names the ``fold_in`` data from
+    ``key`` to the uniform's key, ``()`` for ``key`` itself), or :class:`~repro_torch.kernels.threefry.RowKeys`
     for a batch of rows (each row's key, at the walker's index in its
     row), or :class:`~repro_torch.kernels.threefry.EntryKeys` for a batch of
     queue entries (each entry's depth's key, at its instance); indptr (V+1,) int32, indices (E,) int32
@@ -154,13 +156,14 @@ def walk_step(
             _check_seg(int(buckets[k]))
     if cur.device.type == "cpu":
         return ref.walk_step_ref(key, indptr, indices, bias, cur, buckets=buckets,
-                                 use_chunked=use_chunked, methods=methods, out=out)
+                                 use_chunked=use_chunked, methods=methods, out=out,
+                                 key_path=key_path)
     out = _step_operands("walk_step", cur, out, indptr,
                          ((indices, torch.int32), (bias, torch.float32)))
     w = cur.shape[0]
     if w == 0 or ladder[2] == 0:
         return out
-    words, table, width, entries = _launch_keys("walk_step", key, cur, (0,))
+    words, table, width, entries = _launch_keys("walk_step", key, cur, key_path)
     lib = _build.load()
     code = lib.walk_step_launch(
         cur.data_ptr(), indptr.data_ptr(), indices.data_ptr(), bias.data_ptr(), out.data_ptr(),

@@ -1020,3 +1020,46 @@ def test_cuda_mesh_pins_each_shard_to_a_card(cuda_device):
 
     mesh = ShardMesh.on("cuda", 4)
     assert mesh.size == 4 and all(d.type == "cuda" and d.index is not None for d in mesh.devices)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_seg", [128, 512])
+def test_ops_helpers_match_plain_versions(cuda_device, max_seg):
+    """``kernels.ops``: ``walk_step`` and ``its_select`` drawing their own
+    uniforms from a key, on the card and on the CPU."""
+    from repro_torch.kernels import ops
+
+    g = powerlaw_graph(3000, seed=4, weighted=True, max_degree=max_seg, device="cpu")
+    rng = np.random.default_rng(max_seg)
+    cur = torch.from_numpy(rng.integers(-1, g.num_vertices, 5000).astype(np.int32))
+    key = PRNGKey(max_seg)
+    card = ops.walk_step(key, g.to(cuda_device), cur.to(cuda_device), max_seg=max_seg)
+    assert torch.equal(card.cpu(), ops.walk_step(key, g, cur, max_seg=max_seg))
+    b = torch.from_numpy((rng.random((300, max_seg)) * (rng.random((300, max_seg)) > 0.2))
+                         .astype(np.float32))
+    card = ops.its_select(key, b.to(cuda_device), 8, iters=8)
+    assert torch.equal(card.cpu(), ops.its_select(key, b, 8, iters=8))
+
+
+@pytest.mark.cuda
+def test_lm_step_runs_on_the_card(cuda_device):
+    """A dense smoke decoder's train step, prefill and decode on the card
+    agree with the CPU's on the same weights (f32, TF32 off)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import DecoderLM, forward, init_cache
+    from repro_torch.train.train_step import make_serve_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("gemma3_1b")
+    cpu = DecoderLM(cfg, seed=3, device="cpu")
+    card = DecoderLM(cfg, seed=3, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24)))
+    with torch.no_grad():
+        want, _ = forward(cpu, toks)
+        got, _ = forward(card, toks.to(cuda_device))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-5)
+    serve = make_serve_step(cfg, 2, 32, device=cuda_device)
+    cache = init_cache(cfg, 2, 32, device=cuda_device)
+    dec = torch.cat([serve(card, cache, toks[:, t:t + 1])[0] for t in range(24)], dim=1)
+    np.testing.assert_allclose(dec.cpu().numpy(), want.numpy(), rtol=3e-3, atol=3e-3)

@@ -155,6 +155,21 @@ parallel = instance_parallel_walk(mesh, g, list(range(16)), PRNGKey(1), depth=3,
 shard_svc = SamplingService(g, mesh=mesh, key=PRNGKey(4))
 shard_svc.submit([0, 1], depth=3, spec=alg.deepwalk())
 shard_served = len(shard_svc.drain())
+from repro_torch.configs import get_smoke_config
+from repro_torch.data import TokenPipeline, build_walk_corpus
+from repro_torch.kernels import ops
+from repro_torch.models import DecoderLM, loss_fn
+from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.fault import StepMonitor
+from repro_torch.train.optimizer import OptConfig, opt_init
+from repro_torch.train.train_step import make_train_step
+lm_cfg = get_smoke_config("internlm2_1_8b")
+lm = DecoderLM(lm_cfg, device="cpu")
+corpus = build_walk_corpus(g, num_walks=4, walk_length=8, vocab_size=lm_cfg.vocab_size,
+                           device="cpu")
+lm_step = make_train_step(lm_cfg, OptConfig(), device="cpu")
+_, _, lm_metrics = lm_step(lm, opt_init(OptConfig(), dict(lm.named_parameters())), 0,
+                           TokenPipeline(lm_cfg.vocab_size, 4, 8, corpus=corpus).next())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"bad": bad, "walked": walked, "sampled": int(sample.num_edges.sum()),
@@ -162,7 +177,7 @@ print(json.dumps({"bad": bad, "walked": walked, "sampled": int(sample.num_edges.
                   "served": sorted(served) == ids, "launches": drained_launches,
                   "streamed": streamed.sampled_edges,
                   "sharded": int(sharded.sampled_edges), "parallel": int(parallel.sampled_edges),
-                  "shard_served": shard_served}))
+                  "shard_served": shard_served, "lm_loss": float(lm_metrics["loss"])}))
 """
 
 
@@ -180,3 +195,4 @@ def test_port_imports_neither_jax_nor_repro():
     assert res["streamed"] > 0  # and the streaming service delivered one
     assert res["sharded"] > 0 and res["parallel"] > 0  # the sharded and instance-parallel walks
     assert res["shard_served"] == 1  # and the sharded service
+    assert 0 < res["lm_loss"] < 10  # and the LM harness took a step on a walk corpus
