@@ -114,9 +114,23 @@ comes out.  One walk per vertex, depth 40 (DeepWalk's walk length):
    positions (3e-3).  Each prints ms a step, tokens/s, peak GiB (and the
    corpus's seconds, the prefill's ms and the decode's ms a token) and a
    torch.profiler trace of one train step (gemma3_1b: and of one decode
-   token): device busy ms, idle share, top kernels.  No new kernel: the LM
-   path's products and attention are torch ops.  ``scripts/lm_steps.py``
-   runs this phase alone.
+   token): device busy ms, idle share, top kernels.  Then the expert and
+   recurrent cells, each with the same steps, checks and row (the cuts in
+   its ``cut``): ``lm_xlstm_350m`` (the full config, 24 layers, d_model
+   1,024, bf16, ``reduce_dtype="bf16"``; 6 AdamW steps on one batch of the
+   launcher's ``--data walks`` corpus, 4,096 walks of 1,024 drawn on the
+   card, ``reject_step`` launched; its train trace the card's events
+   alone), ``lm_recurrentgemma_9b`` (serving at all 38 layers, 9.4B
+   parameters; training 5 layers at full width) and ``lm_arctic_480b`` (one
+   layer: serving with its 128 experts, 14.1B parameters, on tokens drawn
+   from the vocabulary, with the share of (token, choice) pairs that
+   capacity dropped in prefill; training with 16 experts, Adafactor, 4
+   microbatches).  The f32 check's bounds are the larger of the fixed ones
+   and four times what the CPU's result moves under a 1e-7 jitter of the
+   weights; an expert config's decode is held against a forward whose
+   capacity drops nothing.  No new kernel: the LM path's products,
+   attention, experts and recurrent cells are torch ops.
+   ``scripts/lm_steps.py`` runs this phase alone.
 
 Each path runs with the kernels' launch counts set to 0 just before and read
 just after; a kernel its path never launched fails the run, and a flat
@@ -184,6 +198,9 @@ TELEPORT_PROB = 0.15
 SELECT_K, SELECT_ITERS = 8, 32
 TIMING_REPS = 20
 PROFILE_MIN_S = 0.02  # the shortest trace
+#: a trace of at most this many device events is also summed through
+#: ``key_averages`` (half a millisecond an event), as a cross-check
+PROFILE_CROSSCHECK_EVENTS = 5000
 PLAIN_CHUNK = 1 << 18  # walkers per plain-version call (bounds its temporaries)
 #: traversal sampling: the paper's count of sampling instances
 #: (benchmarks/fig09_seps.py), the instances rerun on the CPU, the retry
@@ -237,6 +254,15 @@ WIDE_PHASES = {"totals": "its_select_chunk_kernel", "prefixes": "its_select_pref
 LM_WALK_SCALE, LM_WALK_BATCH, LM_WALK_SEQ, LM_WALK_STEPS = "100m", 8, 64, 60
 LM_WALK_CKPT, LM_WALK_REPLAY, LM_WARMUP_STEPS = 30, 10, 5
 LM_BATCH, LM_SEQ, LM_TRAIN_STEPS, LM_DECODE, LM_CHECK_SEQ = 8, 1024, 6, 16, 128
+#: the f32 check's weight jitters, and its bound for a recurrent cell alone
+LM_JITTERS, LM_CELL_TOL = 3, 1e-4
+#: the expert and recurrent LM phases: xLSTM's corpus (the launcher's
+#: ``--data walks``: a power-law graph of up to 20,000 vertices, 4,096 walks
+#: of LM_SEQ), recurrentgemma's training depth (one pattern repetition and
+#: the two tail RG-LRU layers), arctic's depth and its training experts
+XLSTM_GRAPH_VERTICES, XLSTM_WALKS = 20_000, 4096
+RGEMMA_TRAIN_LAYERS = 5
+ARCTIC_LAYERS, ARCTIC_TRAIN_EXPERTS = 1, 16
 KERNELS = ("reject_step", "alias_step", "walk_step", "walk_step_window", "its_select",
            "its_select_wide", "reject_step_rows", "alias_step_rows", "walk_step_rows",
            "derive_keys", "reject_step_entries", "alias_step_entries", "walk_step_entries")
@@ -1959,7 +1985,10 @@ class Smoke:
         fraction of a millisecond); device time from the card's own events.
         ``host_events=False`` traces the card alone: a long host-bound call
         (the OOM drain's thousands of chunks) then costs seconds, not
-        minutes, to summarize."""
+        minutes, to summarize.  The device events are summed raw
+        (``key_averages`` takes minutes over a step of 150k launches); a
+        trace of at most ``PROFILE_CROSSCHECK_EVENTS`` of them is summed
+        through ``key_averages`` as well."""
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
@@ -1974,39 +2003,54 @@ class Smoke:
                 walks += 1
             wall = time.perf_counter() - t0
         # device-side events only: the aten ops on the host carry their
-        # kernels' time too, and would count it twice
-        rows = [
-            (e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total
-            and not e.key.startswith("Activity Buffer")
-        ]
-        rows.sort(key=lambda x: -x[1])
+        # kernels' time too, and would count it twice.  Summed from the raw
+        # events: ``key_averages`` parses each event into Python first, which
+        # takes minutes for a step of 150k launches and more (the xLSTM's)
+        agg: dict = {}
+        for e in prof.profiler.kineto_results.events():
+            us = e.duration_ns() / 1e3
+            if (e.device_type() == torch.autograd.DeviceType.CUDA and us > 0
+                    and not e.name().startswith("Activity Buffer")):
+                total, count = agg.get(e.name(), (0.0, 0))
+                agg[e.name()] = (total + us, count + 1)
+        rows = sorted(((k, us, c) for k, (us, c) in agg.items()), key=lambda x: -x[1])
         busy_ms = sum(r[1] for r in rows) / 1e3
         if busy_ms <= 0:
             kinds = sorted({str(e.device_type) for e in prof.key_averages()})
             _log(f"[{name}] trace of {walks} walks: {len(prof.key_averages())} keys, {kinds}")
         _require(busy_ms > 0, f"{name}: the trace shows no device time")
-        return dict(
+        out = dict(
             profile_steps=steps_per_call * walks, profile_wall_ms=wall * 1e3, profile_device_busy_ms=busy_ms,
             device_idle_share=1 - busy_ms / (wall * 1e3),
             profile_top=[[k[:60], us / 1e3, c] for k, us, c in rows[:8]],
         )
+        if sum(r[2] for r in rows) <= PROFILE_CROSSCHECK_EVENTS:
+            out["profile_device_busy_ms_key_averages"] = sum(
+                e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.key.startswith("Activity Buffer")) / 1e3
+        return out
 
     # -- the LM harness ------------------------------------------------------
 
     def lm_paths(self):
-        """Phase 13: ``lm_walk`` and ``lm_gemma3_1b``."""
+        """Phase 13: ``lm_walk``, ``lm_gemma3_1b``, then the expert and
+        recurrent cells ``lm_xlstm_350m``, ``lm_recurrentgemma_9b`` and
+        ``lm_arctic_480b``."""
         torch = self.torch
         torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32
         from repro_torch.configs import get_config
 
         self.lm_walk_path()
         self.lm_gemma_path(get_config("gemma3_1b"))
+        self.lm_xlstm_path(get_config("xlstm_350m"))
+        self.lm_rgemma_path(get_config("recurrentgemma_9b"))
+        self.lm_arctic_path(get_config("arctic_480b"))
 
-    def lm_train(self, model, step_fn, ostate, step, batches, times=None):
+    def lm_train(self, model, step_fn, ostate, step, batches, times=None, norms=None):
         """Run ``step_fn`` over ``batches``; each step's loss (a float: the
-        step waits for the card), its seconds into ``times``."""
+        step waits for the card), its seconds into ``times``, its gradient's
+        global norm into ``norms``."""
         losses = []
         for b in batches:
             t0 = time.perf_counter()
@@ -2014,6 +2058,8 @@ class Smoke:
             losses.append(float(m["loss"]))
             if times is not None:
                 times.append(time.perf_counter() - t0)
+            if norms is not None:
+                norms.append(float(m["grad_norm"]))
         return ostate, step, losses
 
     def lm_walk_path(self):
@@ -2109,6 +2155,126 @@ class Smoke:
     def lm_gemma_path(self, cfg):
         """``lm_gemma3_1b``: the full config's train, prefill and decode
         steps in bf16, then its f32 cross-checks."""
+        from repro_torch.train import optimizer
+
+        ocfg = optimizer.OptConfig(kind="adamw", lr=1e-3, warmup_steps=2)
+        self.lm_decoder_path("lm_gemma3_1b", cfg, cfg, ocfg, [_learnable_batch()] * LM_TRAIN_STEPS)
+
+    def lm_xlstm_path(self, cfg):
+        """``lm_xlstm_350m``: the full config on the launcher's ``--data
+        walks`` corpus, drawn on the card by the walk kernels."""
+        from repro_torch.data import TokenPipeline, build_walk_corpus
+        from repro_torch.train import optimizer
+
+        kernels = self.kernels
+        t0 = time.perf_counter()
+        g = self.gen.powerlaw_graph(min(cfg.vocab_size, XLSTM_GRAPH_VERTICES), seed=0,
+                                    weighted=True, device=self.dev)
+        graph_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        corpus = build_walk_corpus(g, num_walks=XLSTM_WALKS, walk_length=LM_SEQ,
+                                   vocab_size=cfg.vocab_size,
+                                   max_degree=min(g.max_degree(), 512), device=self.dev)
+        corpus_s = time.perf_counter() - t0
+        _log(f"[lm_xlstm_350m] corpus {corpus.shape} in {corpus_s:.2f} s")
+        launches = kernels.launch_counts()
+        step_launches = {k: launches[k] for k in ("reject_step", "alias_step", "walk_step")}
+        _require(launches["reject_step"] > 0,
+                 f"lm_xlstm_350m: the corpus launched no reject_step: {launches}")
+        _require(corpus.shape == (XLSTM_WALKS, LM_SEQ + 1) and corpus.min() >= 0
+                 and corpus.max() < g.num_vertices,
+                 f"lm_xlstm_350m: corpus of shape {corpus.shape}, ids {corpus.min()}..{corpus.max()}")
+        del g
+        # one batch of walks, repeated (a memorizable corpus, as
+        # test_feeds_lm_training's), and no global-norm clip: at these widths
+        # the sLSTM's gradient grows with the sequence, in ``repro`` as in the
+        # port (test_torch_recurrent.py's test_gradient_at_1024_tokens_...:
+        # the cell's norm 1.3e5 at 1,024 tokens on both sides, 1.1e4 at 128),
+        # and the row's ``grad_norms`` read the model's; a clip to 1 scales
+        # most entries below Adam's eps, and six steps do not move the loss
+        batch = TokenPipeline(cfg.vocab_size, LM_BATCH, LM_SEQ, corpus=corpus).next()
+        ocfg = optimizer.OptConfig(kind=cfg.optimizer, lr=1e-3, warmup_steps=2,
+                                   grad_clip=float("inf"))
+        # the sLSTM loop launches over 150k kernels a step: its trace keeps
+        # the card's events alone, as the OOM drain's does (recording each
+        # host op as well adds to a step of that many launches)
+        self.lm_decoder_path("lm_xlstm_350m", cfg, cfg, ocfg, [batch] * LM_TRAIN_STEPS,
+                             trace_host=False,
+                             extra=dict(graph_s=graph_s, corpus_s=corpus_s,
+                                        corpus_shape=list(corpus.shape),
+                                        corpus_launches=step_launches))
+
+    def lm_rgemma_path(self, cfg):
+        """``lm_recurrentgemma_9b``: serving at full depth; training at
+        ``RGEMMA_TRAIN_LAYERS`` (one pattern repetition and the two tail
+        RG-LRU layers), every width kept."""
+        from repro_torch.train import optimizer
+
+        train_cfg = dataclasses.replace(cfg, num_layers=RGEMMA_TRAIN_LAYERS)
+        ocfg = optimizer.OptConfig(kind=cfg.optimizer, lr=1e-3, warmup_steps=2)
+        self.lm_decoder_path("lm_recurrentgemma_9b", cfg, train_cfg, ocfg,
+                             [_learnable_batch()] * LM_TRAIN_STEPS,
+                             cut=[f"train depth {RGEMMA_TRAIN_LAYERS} of {cfg.num_layers}"])
+
+    def lm_arctic_path(self, cfg):
+        """``lm_arctic_480b``: serving one layer with all its experts;
+        training one layer of ``ARCTIC_TRAIN_EXPERTS`` experts (Adafactor, 4
+        microbatches).  Prints the share of (token, choice) pairs that
+        capacity dropped in prefill."""
+        from repro_torch.train import optimizer
+
+        serve_cfg = dataclasses.replace(cfg, num_layers=ARCTIC_LAYERS)
+        train_cfg = dataclasses.replace(serve_cfg, num_experts=ARCTIC_TRAIN_EXPERTS)
+        ocfg = optimizer.OptConfig(kind=cfg.optimizer, lr=1e-3, warmup_steps=2)
+        # serving takes tokens drawn from the vocabulary: the learnable
+        # pattern's 7 distinct tokens route to a few experts, and capacity
+        # then drops most choices (87.7 % of them at one layer)
+        tokens = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (LM_BATCH, LM_SEQ))
+        self.lm_decoder_path("lm_arctic_480b", serve_cfg, train_cfg, ocfg,
+                             [_learnable_batch()] * LM_TRAIN_STEPS, serve_tokens=tokens,
+                             cut=[f"depth {ARCTIC_LAYERS} of {cfg.num_layers}",
+                                  f"train experts {ARCTIC_TRAIN_EXPERTS} of {cfg.num_experts}"])
+
+    @contextlib.contextmanager
+    def route_spy(self):
+        """Records each ``moe._route`` call's picks ``idx`` and group length
+        while the block is open."""
+        moe = importlib.import_module("repro_torch.models.moe")
+        real, calls = moe._route, []
+
+        def spy(params, cfg, x, key):
+            out = real(params, cfg, x, key)
+            calls.append((out[1].detach(), x.shape[1]))
+            return out
+
+        moe._route = spy
+        try:
+            yield calls
+        finally:
+            moe._route = real
+
+    def drop_share(self, cfg, calls) -> float:
+        """The share of (token, choice) pairs past their expert's capacity
+        over the recorded routes, reckoned as ``moe_apply`` places them."""
+        moe = importlib.import_module("repro_torch.models.moe")
+        torch = self.torch
+        dropped = total = 0
+        for idx, s in calls:
+            g = idx.shape[0]
+            counts = torch.zeros((g, cfg.num_experts), dtype=torch.int64, device=idx.device)
+            counts.scatter_add_(1, idx.reshape(g, -1), torch.ones_like(idx.reshape(g, -1)))
+            dropped += int(torch.clamp(counts - moe.capacity(cfg, s), min=0).sum())
+            total += idx.numel()
+        return dropped / total
+
+    def lm_decoder_path(self, name, cfg, train_cfg, ocfg, batches, cut=(), extra=None,
+                        trace_host=True, serve_tokens=None):
+        """One LM cell: ``len(batches)`` train steps of ``train_cfg`` (loss
+        finite and falling), its f32 cross-checks, then prefill of 8 ×
+        1,024 ``serve_tokens`` (the learnable pattern by default) and 16
+        decode tokens of ``cfg`` (the same model where the two configs are
+        one).  Each model is freed before the next is built."""
         from repro_torch.models import model as lm
         from repro_torch.train import optimizer
         from repro_torch.train import train_step as steps
@@ -2116,34 +2282,45 @@ class Smoke:
         torch = self.torch
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        model = lm.DecoderLM(cfg, seed=0, device=self.dev)
+        model = lm.DecoderLM(train_cfg, seed=0, device=self.dev)
         init_s = time.perf_counter() - t0
-        ocfg = optimizer.OptConfig(kind="adamw", lr=1e-3, warmup_steps=2)
+        train_params = sum(p.numel() for p in model.parameters())
         ostate = optimizer.opt_init(ocfg, dict(model.named_parameters()))
-        base = np.arange(LM_SEQ + 1) % 7 + 1  # the reference's learnable pattern
-        batch = {"tokens": np.tile(base[:-1], (LM_BATCH, 1)).astype(np.int32),
-                 "labels": np.tile(base[1:], (LM_BATCH, 1)).astype(np.int32)}
         times: list = []
-        step_fn = steps.make_train_step(cfg, ocfg, device=self.dev)
-        ostate, _, losses = self.lm_train(model, step_fn, ostate, 0,
-                                          [batch] * LM_TRAIN_STEPS, times)
+        norms: list = []
+        step_fn = steps.make_train_step(train_cfg, ocfg, device=self.dev)
+        ostate, _, losses = self.lm_train(model, step_fn, ostate, 0, batches, times, norms)
+        _log(f"[{name}] {len(batches)} train steps: {[round(t, 3) for t in times]} s, "
+             f"losses {losses}, gradient norms {norms}")
         _require(np.isfinite(losses).all() and losses[-1] < losses[0],
-                 f"lm_gemma3_1b: the loss is not finite or did not fall: {losses}")
+                 f"{name}: the loss is not finite or did not fall: {losses}")
         train_ms = float(np.median(times[2:])) * 1e3
         train_peak = torch.cuda.max_memory_allocated() / 2**30
-        train_prof = self.profile("lm_gemma3_1b train", lambda: step_fn(
-            model, ostate, LM_TRAIN_STEPS, batch), steps_per_call=1)
+        train_prof = self.profile(f"{name} train", lambda: step_fn(
+            model, ostate, len(batches), batches[-1]), host_events=trace_host, steps_per_call=1)
+        _log(f"[{name}] train traced: idle {train_prof['device_idle_share']:.3f}")
         del ostate, step_fn
+        if train_cfg != cfg:
+            check = self.lm_f32_check(name, train_cfg, model)
+            _log(f"[{name}] f32 check: {check}")
+            del model
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model = lm.DecoderLM(cfg, seed=0, device=self.dev)
+            init_s += time.perf_counter() - t0
 
+        tokens = _learnable_batch()["tokens"] if serve_tokens is None else serve_tokens
         prefill = steps.make_prefill(cfg, device=self.dev)
-        pre = self.loop_ms(lambda: prefill(model, {"tokens": batch["tokens"]}), 3)
-        last = prefill(model, {"tokens": batch["tokens"]})
+        pre = self.loop_ms(lambda: prefill(model, {"tokens": tokens}), 3)
+        with self.route_spy() as calls:
+            last = prefill(model, {"tokens": tokens})
         _require(bool(torch.isfinite(last.float()).all())
                  and tuple(last.shape) == (LM_BATCH, cfg.vocab_size),
-                 f"lm_gemma3_1b: prefill gave {tuple(last.shape)} or non-finite logits")
+                 f"{name}: prefill gave {tuple(last.shape)} or non-finite logits")
         serve = steps.make_serve_step(cfg, LM_BATCH, LM_SEQ + LM_DECODE, device=self.dev)
         cache = lm.init_cache(cfg, LM_BATCH, LM_SEQ + LM_DECODE, device=self.dev)
-        tok = torch.from_numpy(batch["tokens"][:, :1]).to(self.dev)
+        tok = torch.from_numpy(tokens[:, :1]).to(self.dev)
         dec_times = []
         for _ in range(LM_DECODE):
             t0 = time.perf_counter()
@@ -2151,37 +2328,64 @@ class Smoke:
             tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
             self.sync()
             dec_times.append(time.perf_counter() - t0)
-        _require(cache["index"] == LM_DECODE and bool(torch.isfinite(lg.float()).all()),
-                 "lm_gemma3_1b: decode gave non-finite logits")
+        _require(cache["index"] == LM_DECODE and bool(torch.isfinite(lg.float()).all())
+                 and tuple(lg.shape) == (LM_BATCH, 1, cfg.vocab_size),
+                 f"{name}: decode gave {tuple(lg.shape)} or non-finite logits")
         decode_ms = float(np.median(dec_times[1:])) * 1e3
-        decode_prof = self.profile("lm_gemma3_1b decode", lambda: serve(model, cache, tok),
+        _log(f"[{name}] prefill {pre:.1f} ms, decode {decode_ms:.2f} ms a token")
+        decode_prof = self.profile(f"{name} decode", lambda: serve(model, cache, tok),
                                    steps_per_call=1)
         peak = torch.cuda.max_memory_allocated() / 2**30
         del cache, lg, last
-        check = self.lm_f32_check(cfg, model)
-        row = dict(path="lm_gemma3_1b", params=sum(p.numel() for p in model.parameters()),
+        if train_cfg == cfg:
+            check = self.lm_f32_check(name, cfg, model)
+        row = dict(path=name, params=sum(p.numel() for p in model.parameters()),
                    layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
                    dtype=cfg.dtype, remat=cfg.remat, microbatches=cfg.microbatches,
-                   batch=LM_BATCH, seq=LM_SEQ, init_s=init_s, train_steps=LM_TRAIN_STEPS,
-                   losses=losses, train_ms_per_step=train_ms,
+                   batch=LM_BATCH, seq=LM_SEQ, init_s=init_s, train_steps=len(batches),
+                   losses=losses, grad_norms=norms,
+                   grad_clip=ocfg.grad_clip if np.isfinite(ocfg.grad_clip) else None,
+                   train_ms_per_step=train_ms,
                    train_tokens_per_s=LM_BATCH * LM_SEQ / (train_ms * 1e-3),
                    train_peak_gib=train_peak, prefill_ms=pre,
                    prefill_tokens_per_s=LM_BATCH * LM_SEQ / (pre * 1e-3),
                    decode_ms_per_token=decode_ms, decode_batch=LM_BATCH,
                    decode_cache=LM_SEQ + LM_DECODE, peak_gib=peak, f32_check=check,
                    train_profile=train_prof, decode_profile=decode_prof, card=self.card)
-        _log(f"[lm_gemma3_1b] {json.dumps(row)}")
+        if train_cfg != cfg:
+            row.update(cut=list(cut), train_layers=train_cfg.num_layers,
+                       train_experts=train_cfg.num_experts, train_params=train_params,
+                       optimizer=ocfg.kind)
+        if cfg.num_experts:
+            row.update(experts=cfg.num_experts, prefill_drop_share=self.drop_share(cfg, calls))
+        row.update(extra or {})
+        _log(f"[{name}] {json.dumps(row)}")
         self.paths.append(row)
         del model
         torch.cuda.empty_cache()
 
-    def lm_f32_check(self, cfg, model):
+    def lm_f32_check(self, name, cfg, model):
         """The weights cast to f32: loss and logits on 1 × 128 tokens against
-        the CPU port, and 16 decode steps against the forward."""
+        the CPU port, and 16 decode steps against the forward.  A decode step
+        routes one token a group, which never drops a choice, so for an
+        expert config the forward it is held against has room for every
+        choice too.  Each bound is the larger of a fixed one (loss 1e-4
+        relative, logits 1e-4 of their scale, decode 3e-3) and twice the
+        most the CPU's own result moves over ``LM_JITTERS`` jitters of the
+        weights by 1e-7 relative (last bits, as the card's association moves
+        them; one jitter where it moves the logits by less than a tenth of
+        the fixed bound): an ill-conditioned model (the xLSTM's sLSTM at full
+        width) moves by more than the fixed bounds.  Where that widens the logits'
+        bound, the card's logits with TF32 products, a control, must fall
+        outside it.  The recurrent cells are then held alone under the fixed
+        bound (:meth:`lm_cell_check`)."""
         from repro_torch.models import model as lm
 
         torch = self.torch
-        cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+        # all f32: the sLSTM's bf16 recurrent product (``reduce_dtype``) would
+        # round card and CPU values that differ in their last bits apart
+        cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                                    reduce_dtype="f32")
         m32 = lm.DecoderLM(cfg32, seed=0, device=self.dev)
         m32.load_state_dict(model.state_dict())  # copy_ widens bf16 exactly
         rs = np.random.default_rng(SEED)
@@ -2190,28 +2394,109 @@ class Smoke:
         with torch.no_grad():
             card_loss = float(lm.loss_fn(m32, toks.to(self.dev), labels.to(self.dev)))
             card_logits, _ = lm.forward(m32, toks.to(self.dev))
+            with self.tf32():
+                tf32_logits = lm.forward(m32, toks.to(self.dev))[0].cpu()
+            full = card_logits
+            if cfg.num_experts:
+                wide = lm.DecoderLM(dataclasses.replace(
+                    cfg32, capacity_factor=float(cfg.num_experts)), device=self.dev)
+                wide.load_state_dict(m32.state_dict())
+                full, _ = lm.forward(wide, toks.to(self.dev))
+                del wide
             cache = lm.init_cache(cfg32, 1, LM_DECODE, device=self.dev)
             dec = torch.cat([lm.decode_step(m32, toks[:, t:t + 1].to(self.dev), cache)[0]
                              for t in range(LM_DECODE)], dim=1)
-            dec_err = float((dec - card_logits[:, :LM_DECODE]).abs().max())
+            dec_err = float((dec - full[:, :LM_DECODE]).abs().max())
             card_logits = card_logits.cpu()
-            del cache, dec
+            del cache, dec, full
             m32.to("cpu")
             torch.cuda.empty_cache()
             cpu_loss = float(lm.loss_fn(m32, toks, labels))
             cpu_logits, _ = lm.forward(m32, toks)
-        scale = float(cpu_logits.abs().max())
+            ce = lambda lg: float(torch.nn.functional.cross_entropy(lg[0], labels[0]))
+            scale = float(cpu_logits.abs().max())
+            params = list(m32.parameters())
+            weights = [p.clone() for p in params]
+            spreads, loss_spreads = [], []
+            for seed in range(LM_JITTERS):
+                gen = torch.Generator().manual_seed(SEED + seed)
+                for p, w in zip(params, weights):
+                    p.copy_(w * (1 + 1e-7 * torch.randn(p.shape, generator=gen)))
+                jit_logits, _ = lm.forward(m32, toks)
+                spreads.append(float((jit_logits - cpu_logits).abs().max()))
+                loss_spreads.append(abs(ce(jit_logits) - ce(cpu_logits)) / abs(ce(cpu_logits)))
+                if 2 * spreads[-1] < 1e-5 * scale:  # a tenth of the fixed bound: well conditioned
+                    break
+        del m32, params, weights
+        spread = max(spreads)
         logits_err = float((card_logits - cpu_logits).abs().max())
+        tf32_err = float((tf32_logits - cpu_logits).abs().max())
         loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
-        _require(loss_rel <= 1e-4, f"lm_gemma3_1b f32: loss {card_loss} on the card, "
-                                   f"{cpu_loss} on the CPU")
-        _require(logits_err <= 1e-4 * scale,
-                 f"lm_gemma3_1b f32: logits differ by {logits_err:.3g} (scale {scale:.3g})")
-        _require(dec_err <= 3e-3, f"lm_gemma3_1b f32: decode differs from forward by {dec_err:.3g}")
+        bounds = dict(loss_bound=max(1e-4, 2 * max(loss_spreads)),
+                      logits_bound=max(1e-4 * scale, 2 * spread),
+                      decode_bound=max(3e-3, 2 * spread))
+        _require(loss_rel <= bounds["loss_bound"],
+                 f"{name} f32: loss {card_loss} on the card, {cpu_loss} on the CPU")
+        _require(logits_err <= bounds["logits_bound"],
+                 f"{name} f32: logits differ by {logits_err:.3g} (scale {scale:.3g}, "
+                 f"jitter spreads {spreads})")
+        _require(dec_err <= bounds["decode_bound"],
+                 f"{name} f32: decode differs from forward by {dec_err:.3g}")
+        _require(bounds["logits_bound"] == 1e-4 * scale or tf32_err > bounds["logits_bound"],
+                 f"{name} f32: TF32 logits differ by {tf32_err:.3g}, inside the widened "
+                 f"bound {bounds['logits_bound']:.3g}: the check cannot see a TF32 product")
         return dict(tokens=LM_CHECK_SEQ, card_loss=card_loss, cpu_loss=cpu_loss,
                     loss_rel_err=loss_rel, logits_max_abs_err=logits_err, logits_scale=scale,
-                    logits_bound=1e-4 * scale, decode_vs_forward_max_abs_err=dec_err,
-                    decode_bound=3e-3)
+                    jitter_logits_spreads=spreads, jitter_loss_spreads=loss_spreads,
+                    tf32_logits_max_abs_err=tf32_err,
+                    decode_vs_forward_max_abs_err=dec_err, cells=self.lm_cell_check(name, cfg),
+                    **bounds)
+
+    @contextlib.contextmanager
+    def tf32(self):
+        """f32 products in TF32 while the block is open (a control)."""
+        matmul = self.torch.backends.cuda.matmul
+        matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            matmul.allow_tf32 = False
+
+    def lm_cell_check(self, name, cfg) -> dict:
+        """Each recurrent cell kind of ``cfg`` alone, at its full widths in
+        f32 on weights of the port's init: its train form on 1 × 128 inputs
+        on the card against the CPU, within ``LM_CELL_TOL`` of the output's
+        scale; and with TF32 products, the control, read beside it."""
+        from repro_torch.models import layers
+        from repro_torch.models import recurrent as rec
+
+        torch = self.torch
+        cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                                    reduce_dtype="f32")
+        x = np.random.default_rng(SEED).standard_normal((1, LM_CHECK_SEQ, cfg.d_model))
+        x = torch.from_numpy((x * 0.5).astype(np.float32))
+        out = {}
+        for kind in ("rglru", "mlstm", "slstm"):
+            if kind not in cfg.layer_kinds():
+                continue
+            cell = layers.ParamTree(getattr(rec, f"{kind}_defs")(cfg32), torch.float32,
+                                    torch.device("cpu"))
+            cell.init_from(torch.Generator().manual_seed(SEED))
+            params = cell.tree()
+            card_params = {k: v.to(self.dev) for k, v in params.items()}
+            train = getattr(rec, f"{kind}_train")
+            with torch.no_grad():
+                want = train(params, cfg32, x)
+                got = train(card_params, cfg32, x.to(self.dev)).cpu()
+                with self.tf32():
+                    tf32 = train(card_params, cfg32, x.to(self.dev)).cpu()
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            out[kind] = dict(max_abs_err=err, scale=scale, bound=LM_CELL_TOL * scale,
+                             tf32_max_abs_err=float((tf32 - want).abs().max()))
+            _require(err <= LM_CELL_TOL * scale,
+                     f"{name} f32 {kind} cell: card and CPU differ by {err:.3g} (scale {scale:.3g})")
+        return out
 
     # -- the run ------------------------------------------------------------
 
@@ -2301,6 +2586,13 @@ def traversal_cases(alg, g) -> list:
         ("layer", alg.layer_sampling(8, 8), one, 3, POOL_CAPACITY, v),
         ("mdrw", alg.multi_dimensional_random_walk(), pools, MDRW_DEPTH, MDRW_CAPACITY, 0),
     ]
+
+
+def _learnable_batch() -> dict:
+    """``repro``'s learnable pattern (``arange % 7 + 1``), LM_BATCH × LM_SEQ."""
+    base = np.arange(LM_SEQ + 1) % 7 + 1
+    return {"tokens": np.tile(base[:-1], (LM_BATCH, 1)).astype(np.int32),
+            "labels": np.tile(base[1:], (LM_BATCH, 1)).astype(np.int32)}
 
 
 def _step_kernels(methods: tuple, n_buckets: int) -> set:

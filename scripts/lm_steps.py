@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """The LM harness's phases on the card, alone: ``chip_smoke.py``'s ``lm``.
 
-Builds the walk kernels (the walk corpus runs them), then runs the smoke's
+Builds the walk kernels (the walk corpora run them), then runs the smoke's
 ``lm_walk`` (the walk-corpus LM at ``--scale 100m``: corpus, 60 steps,
-checkpoint restore and replay) and ``lm_gemma3_1b`` (the full config's
-train, prefill and decode steps, its f32 cross-checks) with every check of
-the smoke, in about a minute instead of the smoke's quarter hour.
+checkpoint restore and replay), ``lm_gemma3_1b`` (the full config's train,
+prefill and decode steps, its f32 cross-checks) and the expert and
+recurrent cells ``lm_xlstm_350m``, ``lm_recurrentgemma_9b`` and
+``lm_arctic_480b`` with every check of the smoke, in a few minutes instead
+of the smoke's quarter hour.
 
     python3 scripts/lm_steps.py
 

@@ -5,9 +5,7 @@ from the assignment) and ``SMOKE`` (reduced same-family config for CPU
 tests).  ``--arch <id>`` resolves through :func:`get_config`.
 
 A copy of ``repro.configs`` (the same ``CONFIG`` and ``SMOKE`` for all ten
-architectures); the port's models run the dense ones and raise
-``NotImplementedError`` for the layer kinds they do not have yet (experts,
-recurrent cells).
+architectures); the port's models run all ten.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Decoder LM zoo: the port of ``repro.models`` for the dense architectures
-(layer kinds "global", "local" and "global_dense" without experts)."""
+"""Decoder LM zoo: the port of ``repro.models`` (attention with and without
+experts, RG-LRU, mLSTM and sLSTM layers: all ten architectures)."""
 from repro_torch.models.model import (
     DecoderLM,
     decode_step,

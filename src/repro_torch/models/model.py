@@ -47,9 +47,9 @@ class DecoderLM(ParamTree):
     """The decoder of ``cfg`` on ``device`` (``cuda`` unless the caller asks
     for the CPU), its weights in ``cfg.param_dtype`` drawn from ``seed``.
     Parameters are named as ``repro``'s tree with the stacking undone:
-    ``embed``, ``final_norm``, ``layers.<i>.attn.wq``, ``head``, ...
-    Raises ``NotImplementedError`` for a config with expert or recurrent
-    layers."""
+    ``embed``, ``final_norm``, ``layers.<i>.attn.wq``,
+    ``layers.<i>.moe.wi`` (experts first: ``(e, d, f)``),
+    ``layers.<i>.rnn.lam``, ``layers.<i>.cell.r``, ``head``, ..."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device="cuda"):
         dev = resolve_device(device)
@@ -152,8 +152,9 @@ def forward(
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> dict:
-    """Decode cache: one ``{"k", "v"}`` a layer (a ring buffer of the window
-    for a local layer) and ``index``, the tokens already in it."""
+    """Decode cache: one entry a layer (an attention layer's ``{"k", "v"}``,
+    a ring buffer of the window for a local layer; a recurrent layer's
+    state) and ``index``, the tokens already in it."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     return {
@@ -165,13 +166,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> 
 
 def decode_step(model: DecoderLM, tokens: torch.Tensor, cache: dict) -> Tuple[torch.Tensor, dict]:
     """One-token decode. tokens: (B, 1). Returns (logits (B, 1, V), cache),
-    the cache updated in place."""
+    the cache updated in place: the attention layers' buffers written, the
+    recurrent layers' new states stored in ``cache["layers"]``."""
     cfg = model.cfg
     params = model.tree()
     x = _embed(params, cfg, tokens, None)
     index = cache["index"]
     for i, kind in enumerate(cfg.layer_kinds()):
-        x, _ = blocks.block_decode(params["layers"][i], cfg, kind, x, cache["layers"][i], index)
+        x, cache["layers"][i] = blocks.block_decode(params["layers"][i], cfg, kind, x,
+                                                    cache["layers"][i], index)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     cache["index"] = index + 1
     return logits_of(model, x), cache

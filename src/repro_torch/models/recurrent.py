@@ -1,0 +1,339 @@
+"""Recurrent blocks: RG-LRU (Griffin / RecurrentGemma) and xLSTM (mLSTM,
+sLSTM), the port of ``repro.models.recurrent``.
+
+The time-parallel forms are ``repro``'s:
+  - RG-LRU: a log-depth scan over the ``(a, b)`` affine pairs.  ``repro``
+    runs ``jax.lax.associative_scan``; :func:`affine_scan` is the same
+    recursion (pairs combined, the half-length scan, the even positions
+    filled in) in torch ops, so the products associate as there.
+  - mLSTM: the blocked quadratic form with the cumulative log-forget bias
+    and an online max stabilizer, blocked as attention (``pick_chunk``).
+  - sLSTM: sequential by construction, a Python loop over time steps.
+    ``repro``'s ``SLSTM_TIME_CHUNK`` unrolls its ``lax.scan`` to cut XLA's
+    all-reduces and changes no value, so the port has no counterpart.
+
+Each block also has a one-token decode step carrying O(1) state.  The gates
+and the recurrent states are f32 whatever the activations' dtype, as in
+``repro``.  ``rp_einsum``'s ``reduce_dtype`` changes values in one place
+only, the sLSTM's recurrent product, where ``"bf16"`` casts the state and
+``r`` to bf16 first; everywhere else it names the dtype the product has
+anyway.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import pick_chunk
+from repro_torch.models.layers import ParamDef, _gelu, causal_conv1d, einsum_f32
+
+NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin)
+# ---------------------------------------------------------------------------
+
+
+def rglru_defs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    w = cfg.rnn_width or d
+    k = cfg.conv1d_width
+    return {
+        "wx": ParamDef((d, w)),
+        "wgate": ParamDef((d, w)),
+        "conv_w": ParamDef((w, k), scale=0.5),
+        "wa": ParamDef((w, w)),
+        "ba": ParamDef((w,), init="zeros"),
+        "wi": ParamDef((w, w)),
+        "bi": ParamDef((w,), init="zeros"),
+        "lam": ParamDef((w,), init="lru_lambda"),
+        "wout": ParamDef((w, d)),
+    }
+
+
+def _rglru_gates(params, u):
+    c = 8.0
+    r = torch.sigmoid(torch.einsum("...w,wv->...v", u, params["wa"]) + params["ba"])
+    i = torch.sigmoid(torch.einsum("...w,wv->...v", u, params["wi"]) + params["bi"])
+    log_a = -c * F.softplus(params["lam"]).float() * r.float()
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    b = mult * (i.float() * u.float())
+    return a, b
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """``even`` at positions 0, 2, ... and ``odd`` at 1, 3, ... of axis 1
+    (``even`` as long as ``odd`` or one longer)."""
+    n = odd.shape[1]
+    both = torch.stack([even[:, :n], odd], dim=2).flatten(1, 2)
+    return torch.cat([both, even[:, n:]], dim=1)
+
+
+def affine_scan(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan along axis 1 of the affine maps ``h -> a·h + b``
+    composed in time order: returns ``(A, H)`` with ``H[t] = a[t]·H[t-1] +
+    b[t]`` from ``H[-1] = 0``.  The recursion of ``jax.lax.associative_scan``
+    (log2 S levels, O(S) work): combine adjacent pairs, scan the half-length
+    sequence, then fill in the even positions."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    a1, b1, a2, b2 = a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2]
+    odd_a, odd_b = affine_scan(a1 * a2, a2 * b1 + b2)
+    pa, pb = (odd_a[:, :-1], odd_b[:, :-1]) if n % 2 == 0 else (odd_a, odd_b)
+    ea, eb = a[:, 2::2], b[:, 2::2]
+    even_a = torch.cat([a[:, :1], pa * ea], dim=1)
+    even_b = torch.cat([b[:, :1], ea * pb + eb], dim=1)
+    return _interleave(even_a, odd_a), _interleave(even_b, odd_b)
+
+
+def rglru_train(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D)."""
+    gate = _gelu(torch.einsum("bsd,dw->bsw", x, params["wgate"]))
+    u = torch.einsum("bsd,dw->bsw", x, params["wx"])
+    u, _ = causal_conv1d(u, params["conv_w"])
+    a, b = _rglru_gates(params, u)
+    _, h = affine_scan(a, b)
+    h = h.to(x.dtype)
+    return torch.einsum("bsw,wd->bsd", gate * h, params["wout"])
+
+
+def rglru_decode(
+    params: dict, cfg: ModelConfig, x: torch.Tensor, state: dict
+) -> Tuple[torch.Tensor, dict]:
+    """x: (B, 1, D); state: {'h': (B, W) f32, 'conv': (B, K-1, W)}."""
+    gate = _gelu(torch.einsum("bsd,dw->bsw", x, params["wgate"]))
+    u = torch.einsum("bsd,dw->bsw", x, params["wx"])
+    u, conv_state = causal_conv1d(u, params["conv_w"], state["conv"])
+    a, b = _rglru_gates(params, u)
+    h = a[:, 0] * state["h"] + b[:, 0]
+    y = gate * h[:, None].to(x.dtype)
+    return torch.einsum("bsw,wd->bsd", y, params["wout"]), {"h": h, "conv": conv_state}
+
+
+def rglru_init_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    w = cfg.rnn_width or cfg.d_model
+    return {
+        "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.conv1d_width - 1, w), dtype=dtype, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM matrix-memory block)
+# ---------------------------------------------------------------------------
+
+
+def mlstm_defs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    p = int(d * cfg.mlstm_proj_factor)
+    k = cfg.conv1d_width
+    return {
+        "wup": ParamDef((d, p)),
+        "wz": ParamDef((d, p)),
+        "conv_w": ParamDef((p, k), scale=0.5),
+        "wq": ParamDef((p, p)),
+        "wk": ParamDef((p, p)),
+        "wv": ParamDef((p, p)),
+        "wif": ParamDef((p, 2 * cfg.num_heads), scale=0.1),
+        "bif": ParamDef((2 * cfg.num_heads,), init="zeros"),
+        "skip": ParamDef((p,), init="ones"),
+        "wdown": ParamDef((p, d)),
+    }
+
+
+def _mlstm_qkv_gates(params, cfg, x):
+    """q, k, v (B, S, H, hd), the input and forget gates' pre-activations
+    (B, S, H) f32, the output gate ``z`` and the conv branch ``uc``."""
+    h = cfg.num_heads
+    u = torch.einsum("bsd,dp->bsp", x, params["wup"])
+    z = torch.einsum("bsd,dp->bsp", x, params["wz"])
+    uc, _ = causal_conv1d(u, params["conv_w"])
+    uc = F.silu(uc)
+    q = torch.einsum("bsp,pr->bsr", uc, params["wq"])
+    k = torch.einsum("bsp,pr->bsr", uc, params["wk"])
+    v = torch.einsum("bsp,pr->bsr", u, params["wv"])
+    gif = torch.einsum("bsp,pg->bsg", uc, params["wif"]) + params["bif"]
+    ig, fg = gif[..., :h].float(), gif[..., h:].float()
+    b, s, p = q.shape
+    shp = (b, s, h, p // h)
+    return q.reshape(shp), k.reshape(shp), v.reshape(shp), ig, fg, z, uc
+
+
+def mlstm_train(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Blocked parallel mLSTM. x: (B, S, D)."""
+    q, k, v, ig, fg, z, uc = _mlstm_qkv_gates(params, cfg, x)
+    b, s, h, hd = q.shape
+    scale = hd**-0.5
+    big_f = torch.cumsum(F.logsigmoid(fg), dim=1)  # F_t = sum_{tau<=t} log f
+    c = pick_chunk(s, cfg.attn_chunk)
+    n = s // c
+    qg, kg, vg = (t.reshape(b, n, c, h, hd) for t in (q, k, v))
+    # (B, n, H, C): each chunk's F and input gate, heads before time
+    fg_ = big_f.reshape(b, n, c, h).transpose(2, 3)
+    ig_ = ig.reshape(b, n, c, h).transpose(2, 3)
+    dev = x.device
+    outs = []
+    for qi in range(n):
+        m = torch.full((b, h, c), NEG_INF, dtype=torch.float32, device=dev)
+        num = torch.zeros((b, h, c, hd), dtype=torch.float32, device=dev)
+        den = torch.zeros((b, h, c), dtype=torch.float32, device=dev)
+        q_blk, fq = qg[:, qi], fg_[:, qi]
+        q_idx = qi * c + torch.arange(c, device=dev)
+        for ki in range(qi + 1):
+            kc, vc = kg[:, ki], vg[:, ki]
+            # decay bias D_ij = F_i - F_j + i_j  (j <= i)
+            dmat = fq[..., :, None] - fg_[:, ki][..., None, :] + ig_[:, ki][..., None, :]
+            k_idx = ki * c + torch.arange(c, device=dev)
+            msk = k_idx[None, :] <= q_idx[:, None]
+            dmat = torch.where(msk, dmat, NEG_INF)
+            m_new = torch.maximum(m, torch.amax(dmat, dim=-1))
+            w = torch.exp(dmat - m_new[..., None])
+            sw = einsum_f32("bqhd,bchd->bhqc", q_blk, kc) * scale * w
+            corr = torch.exp(m - m_new)
+            num = num * corr[..., None] + einsum_f32("bhqc,bchd->bhqd", sw.to(vc.dtype), vc)
+            den = den * corr + torch.sum(sw, dim=-1)
+            m = m_new
+        hout = num / torch.maximum(torch.abs(den), torch.exp(-m))[..., None]
+        outs.append(hout.transpose(1, 2))  # (B, C, H, hd)
+    y = torch.cat(outs, dim=1).reshape(b, s, h * hd).to(x.dtype)
+    y = y + params["skip"] * uc
+    y = y * F.silu(z)
+    return torch.einsum("bsp,pd->bsd", y, params["wdown"])
+
+
+def mlstm_decode(params, cfg: ModelConfig, x: torch.Tensor, state: dict
+                 ) -> Tuple[torch.Tensor, dict]:
+    """x: (B,1,D); state: {'C': (B,H,hd,hd), 'n': (B,H,hd), 'm': (B,H), 'conv': ...}."""
+    hn = cfg.num_heads
+    u = torch.einsum("bsd,dp->bsp", x, params["wup"])
+    z = torch.einsum("bsd,dp->bsp", x, params["wz"])
+    uc, conv_state = causal_conv1d(u, params["conv_w"], state["conv"])
+    uc = F.silu(uc)
+    q = torch.einsum("bsp,pr->bsr", uc, params["wq"])
+    k = torch.einsum("bsp,pr->bsr", uc, params["wk"])
+    v = torch.einsum("bsp,pr->bsr", u, params["wv"])
+    gif = torch.einsum("bsp,pg->bsg", uc, params["wif"]) + params["bif"]
+    ig, fg = gif[..., :hn].float(), gif[..., hn:].float()
+    b = x.shape[0]
+    hd = q.shape[-1] // hn
+    q, k, v = (t.reshape(b, hn, hd) for t in (q[:, 0], k[:, 0], v[:, 0]))
+    scale = hd**-0.5
+    logf = F.logsigmoid(fg[:, 0])  # (B,H)
+    m_new = torch.maximum(logf + state["m"], ig[:, 0])
+    f_s = torch.exp(logf + state["m"] - m_new)
+    i_s = torch.exp(ig[:, 0] - m_new)
+    kf = k.float() * scale
+    cmat = (f_s[..., None, None] * state["C"]
+            + i_s[..., None, None] * v.float()[..., :, None] * kf[..., None, :])
+    nvec = f_s[..., None] * state["n"] + i_s[..., None] * kf
+    qf = q.float()
+    num = torch.einsum("bhvk,bhk->bhv", cmat, qf)
+    den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", nvec, qf)), torch.exp(-m_new))
+    hout = (num / den[..., None]).reshape(b, 1, hn * hd).to(x.dtype)
+    y = hout + params["skip"] * uc
+    y = y * F.silu(z)
+    return torch.einsum("bsp,pd->bsd", y, params["wdown"]), {
+        "C": cmat, "n": nvec, "m": m_new, "conv": conv_state,
+    }
+
+
+def mlstm_init_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    p = int(cfg.d_model * cfg.mlstm_proj_factor)
+    h = cfg.num_heads
+    hd = p // h
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "C": torch.zeros((batch, h, hd, hd), **f32),
+        "n": torch.zeros((batch, h, hd), **f32),
+        "m": torch.full((batch, h), -1e9, **f32),
+        "conv": torch.zeros((batch, cfg.conv1d_width - 1, p), dtype=dtype, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (xLSTM scalar-memory block) — sequential by construction
+# ---------------------------------------------------------------------------
+
+
+def slstm_defs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    h = cfg.num_heads
+    hd = d // h
+    up = int(d * cfg.slstm_proj_factor)
+    return {
+        "wx": ParamDef((d, 4 * d), scale=0.5),
+        "bx": ParamDef((4 * d,), init="zeros"),
+        "r": ParamDef((h, hd, 4 * hd), scale=0.5),
+        "wup": ParamDef((d, up)),
+        "wgate": ParamDef((d, up)),
+        "wdown": ParamDef((up, d)),
+    }
+
+
+def _rec_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The dtype of the recurrent product: ``repro`` casts the f32 state and
+    ``r`` to bf16 under ``reduce_dtype="bf16"``, which changes values; else
+    the product is the f32 state's (``r`` widened exactly)."""
+    return torch.bfloat16 if cfg.reduce_dtype == "bf16" else torch.float32
+
+
+def _slstm_cell(cfg, r, xt, state):
+    """One sLSTM step. xt: (B, 4D) pre-activations; ``r`` already in
+    :func:`_rec_dtype`; the state is f32."""
+    h, c, n, m = state["h"], state["c"], state["n"], state["m"]
+    b = xt.shape[0]
+    nh = cfg.num_heads
+    hd = cfg.d_model // nh
+    # recurrent contribution (block-diagonal per head)
+    rec = torch.einsum("bhk,hkg->bhg", h.reshape(b, nh, hd).to(r.dtype), r)
+    z, i, f, o = torch.split(xt.float() + rec.reshape(b, 4 * cfg.d_model).float(),
+                             cfg.d_model, dim=-1)
+    m_new = torch.maximum(f + m, i)  # exponential i, sigmoid-exp f stabilizer
+    i_s = torch.exp(i - m_new)
+    f_s = torch.exp(f + m - m_new)
+    c_new = f_s * c + i_s * torch.tanh(z)
+    n_new = f_s * n + i_s
+    h_new = torch.sigmoid(o) * (c_new / torch.clamp(n_new, min=1e-6))
+    return {"h": h_new, "c": c_new, "n": n_new, "m": m_new}
+
+
+def _slstm_mlp(params, hs: torch.Tensor) -> torch.Tensor:
+    """The post up / gate / down MLP (xLSTM pf 4/3)."""
+    up = torch.einsum("bsd,du->bsu", hs, params["wup"])
+    gate = _gelu(torch.einsum("bsd,du->bsu", hs, params["wgate"]))
+    return torch.einsum("bsu,ud->bsd", up * gate, params["wdown"])
+
+
+def slstm_train(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    b, s, d = x.shape
+    xa = torch.einsum("bsd,dg->bsg", x, params["wx"]) + params["bx"]
+    state = slstm_init_state(cfg, b, x.dtype, x.device)
+    r = params["r"].to(_rec_dtype(cfg))
+    hs = []
+    for t in range(s):
+        state = _slstm_cell(cfg, r, xa[:, t], state)
+        hs.append(state["h"])
+    return _slstm_mlp(params, torch.stack(hs, dim=1).to(x.dtype))
+
+
+def slstm_decode(params, cfg: ModelConfig, x: torch.Tensor, state: dict
+                 ) -> Tuple[torch.Tensor, dict]:
+    xa = torch.einsum("bsd,dg->bsg", x, params["wx"]) + params["bx"]
+    new = _slstm_cell(cfg, params["r"].to(_rec_dtype(cfg)), xa[:, 0], state)
+    return _slstm_mlp(params, new["h"][:, None].to(x.dtype)), new
+
+
+def slstm_init_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    d = cfg.d_model
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "h": torch.zeros((batch, d), **f32),
+        "c": torch.zeros((batch, d), **f32),
+        "n": torch.ones((batch, d), **f32) * 1e-6,
+        "m": torch.zeros((batch, d), **f32),
+    }

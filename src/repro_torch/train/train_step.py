@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.graph.csr import resolve_device
+from repro_torch.models import blocks
 from repro_torch.models import model as m
 from repro_torch.train import optimizer as opt
 
@@ -113,9 +114,11 @@ def make_serve_step(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"
         tokens = torch.as_tensor(tokens).to(dev)
         if tuple(tokens.shape) != (batch, 1):
             raise ValueError(f"serve step takes tokens ({batch}, 1), got {tuple(tokens.shape)}")
-        longest = max(c["k"].shape[1] for c in cache["layers"])
-        if cache["layers"][0]["k"].shape[0] != batch or longest != max_len:
-            raise ValueError(f"serve step takes a cache of {batch} × {max_len} tokens")
+        for kind, c in zip(cfg.layer_kinds(), cache["layers"]):
+            rows = next(iter(c.values())).shape[0]
+            if rows != batch or ("k" in c and c["k"].shape[1]
+                                 != blocks.cache_len(cfg, kind, max_len)):
+                raise ValueError(f"serve step takes a cache of {batch} × {max_len} tokens")
         return m.decode_step(model, tokens, cache)
 
     return serve

@@ -134,14 +134,13 @@ def test_ops_walk_step_equals_reference(seed, max_seg):
 
 
 def test_feeds_lm_training():
-    """End-to-end: C-SAW walks -> pipeline -> LM loss drops.  The reference
-    test trains ``xlstm_350m``'s smoke config, whose recurrent cells are the
-    port's next slice; this one trains the dense ``gemma3_1b`` smoke config
-    (vocabulary 512) on the same memorizable corpus of 8 fixed walks."""
+    """End-to-end: C-SAW walks -> pipeline -> LM loss drops, as the
+    reference test runs it: ``xlstm_350m``'s smoke config (vocabulary 256)
+    on a memorizable corpus of 8 fixed walks."""
     g = powerlaw_graph(200, seed=7, device="cpu")
     corpus = build_walk_corpus(g, num_walks=8, walk_length=16, seed=2, vocab_size=256,
                                device="cpu")
-    cfg = get_smoke_config("gemma3_1b")
+    cfg = get_smoke_config("xlstm_350m")
     pipe = TokenPipeline(cfg.vocab_size, 8, 16, corpus=corpus)
     ocfg = OptConfig(kind="adamw", lr=3e-3, warmup_steps=2)
     model = tm.DecoderLM(cfg, device="cpu")

@@ -1,9 +1,9 @@
 """The port's decoder LMs against ``repro``'s, architecture by architecture.
 
-For each of the six dense ``SMOKE`` configs (the port does not run experts
-or recurrent cells yet), ``repro``'s weights are carried across by
-``params_from_jax`` and the same numpy-seeded tokens go through both:
-``forward``'s logits, ``loss_fn`` and its gradient (autograd against
+For each of the ten ``SMOKE`` configs (dense, mixture-of-experts and
+recurrent), ``repro``'s weights are carried across by ``params_from_jax``
+and the same numpy-seeded tokens go through both: ``forward``'s logits and
+aux loss, ``loss_fn`` and its gradient (autograd against
 ``jax.value_and_grad``), three ``opt_update`` steps under AdamW and under
 Adafactor fed the same gradients, and a 12-token decode, all in f32.  Then
 ``gemma3_1b``'s smoke config with the full config's numerics (bf16,
@@ -12,11 +12,21 @@ against ``repro``'s, and its gradient with and without remat.
 
 Tolerances (max abs difference over the reference's max abs, per leaf),
 each set from the measured worst case on these inputs with headroom:
-logits 1e-4 (measured 2.1e-5, internvl2); loss 1e-6 relative (1.4e-7);
-gradient 1e-3 (3.5e-4: internvl2's embedding, float association through
-the backward of attention and the chunked CE); optimizer parameters and
-state 1e-5 (the same gradients in, so only the update's own rounding);
-decode logits 1e-4.
+logits 1e-4 (measured 2.1e-5, internvl2); aux loss 1e-5 (2.3e-7, arctic);
+loss 1e-6 relative (1.4e-7); gradient 1e-3 (3.5e-4: internvl2's
+embedding, float association through the backward of attention and the
+chunked CE); optimizer parameters and state 1e-5 (the same gradients in,
+so only the update's own rounding); decode logits 1e-4.
+
+``xlstm_350m``'s smoke stack is ill-conditioned on ``repro``'s own tree:
+``repro``'s init draws a stacked leaf with the fan-in of the stacking axis
+(``repro/models/layers.py:35`` reads ``shape[0]``, here n_rep = 1, so std
+1; ROADMAP queue 3), and its logits then move by up to 4.5e-4 of their
+scale under a 1e-7 relative jitter of the weights (three seeds,
+:func:`test_xlstm_reference_spread`).  Its case therefore loads
+``repro``'s tree with each stacked leaf rescaled to the layer's own fan-in,
+as the port's init draws it, and keeps the tolerances above (measured on
+it: logits 2.0e-7, gradient 3.2e-6, decode 2.1e-7).
 """
 import dataclasses
 
@@ -30,15 +40,27 @@ torch = pytest.importorskip("torch")
 from repro.configs import get_smoke_config as ref_smoke_config  # noqa: E402
 from repro.models import model as ref_model  # noqa: E402
 from repro.train import optimizer as ref_opt  # noqa: E402
+from repro.models.layers import set_activation_mesh  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.models.convert import params_from_jax, params_to_numpy  # noqa: E402
 from repro_torch.train import optimizer as topt  # noqa: E402
 
-DENSE = ("gemma3_1b", "internlm2_1_8b", "gemma_7b", "starcoder2_3b", "musicgen_medium",
-         "internvl2_26b")
-WAITING = tuple(a for a in ARCH_IDS if a not in DENSE)
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_activation_mesh():
+    """``repro``'s layers read a module-global activation mesh, which a test
+    file run earlier in the same process may have left set (with
+    ``Explicit`` axes, which ``ashard`` refuses): this file's reference calls
+    run without one."""
+    set_activation_mesh(None)
+
+
+NEW = ("arctic_480b", "llama4_maverick_400b_a17b", "recurrentgemma_9b", "xlstm_350m")
 B, S, DECODE = 2, 32, 12
+LOGITS_TOL, GRAD_TOL, DECODE_TOL = 1e-4, 1e-3, 1e-4
+# the stacked leaves of these archs' cases are rescaled to the layer's fan-in
+PER_LAYER_FAN_IN = ("xlstm_350m",)
 
 
 def _close(ref, got, tol, what):
@@ -57,6 +79,22 @@ def _close_trees(ref_tree, got_tree, tol, what):
         _close(a, b, tol, f"{what}{jax.tree_util.keystr(path)}")
 
 
+def _per_layer_fan_in(rparams, rcfg):
+    """``repro``'s tree with each stacked leaf drawn from a normal rescaled
+    from the stacking axis's fan-in (n_rep) to the layer's own."""
+    def fix(p, d):
+        if d.init != "normal":
+            return p
+        layer = d.shape[1:]
+        fan_in = layer[0] if len(layer) >= 2 else max(layer[0], 1)
+        return p * np.float32(np.sqrt(d.shape[0] / fan_in))
+
+    out = dict(rparams)
+    out["blocks"] = jax.tree_util.tree_map(fix, rparams["blocks"],
+                                           ref_model.model_defs(rcfg)["blocks"])
+    return out
+
+
 class Case:
     """One architecture: ``repro``'s params and the port's model on the
     same weights, the tokens and the frontend embeddings."""
@@ -65,6 +103,8 @@ class Case:
         self.arch = arch
         self.rcfg, self.cfg = ref_smoke_config(arch), get_smoke_config(arch)
         self.rparams = ref_model.init_params(jax.random.PRNGKey(0), self.rcfg)
+        if arch in PER_LAYER_FAN_IN:
+            self.rparams = _per_layer_fan_in(self.rparams, self.rcfg)
         self.np_params = jax.tree_util.tree_map(np.asarray, self.rparams)
         self.model = tm.DecoderLM(self.cfg, device="cpu")
         self.model.load_state_dict(params_from_jax(self.np_params, self.cfg), strict=True)
@@ -87,7 +127,7 @@ class Case:
                                  jnp.asarray(self.labels), self.jfe())
 
 
-@pytest.fixture(scope="module", params=DENSE)
+@pytest.fixture(scope="module", params=ARCH_IDS)
 def case(request) -> Case:
     """One architecture's case, built once: pytest runs its tests together."""
     return Case(request.param)
@@ -95,12 +135,14 @@ def case(request) -> Case:
 
 def test_forward_logits_match_reference(case):
     c, arch = case, case.arch
-    want, _ = ref_model.forward(c.rparams, c.rcfg, jnp.asarray(c.tokens), c.jfe())
+    want, want_aux = ref_model.forward(c.rparams, c.rcfg, jnp.asarray(c.tokens), c.jfe())
     with torch.no_grad():
         got, aux = tm.forward(c.model, torch.from_numpy(c.tokens), c.tfe())
     total = S + (c.cfg.frontend_tokens if c.cfg.frontend != "none" else 0)
-    assert got.shape == (B, total, c.cfg.vocab_size) and float(aux) == 0.0
-    _close(want, got.numpy(), 1e-4, f"{arch} logits")
+    assert got.shape == (B, total, c.cfg.vocab_size) and aux.dtype == torch.float32
+    _close(want, got.numpy(), LOGITS_TOL, f"{arch} logits")
+    _close(want_aux, aux.numpy(), 1e-5, f"{arch} aux")
+    assert (float(aux) > 0) == bool(c.cfg.num_experts)
 
 
 def test_loss_and_gradient_match_reference(case):
@@ -111,7 +153,8 @@ def test_loss_and_gradient_match_reference(case):
     got = torch.autograd.grad(loss, params)
     _close(want, loss.detach().numpy(), 1e-6, f"{arch} loss")
     _close_trees(jax.tree_util.tree_map(np.asarray, grads),
-                 params_to_numpy(dict(zip(names, got)), c.cfg), 1e-3, f"{arch} grad")
+                 params_to_numpy(dict(zip(names, got)), c.cfg), GRAD_TOL,
+                 f"{arch} grad")
 
 
 def _port_state_tree(state, cfg):
@@ -156,7 +199,9 @@ def test_optimizer_steps_match_reference(case, kind):
 
 def test_decode_matches_reference_and_forward(case):
     """12 decode steps from an empty cache: the logits equal ``repro``'s
-    decode and the port's own full forward at those positions."""
+    decode and the port's own full forward at those positions.  A decode
+    step routes one token a group, which never drops a choice, so the
+    forward it is held against runs with room for every choice too."""
     c, arch = case, case.arch
     toks = c.tokens[:, :DECODE]
     rcache = ref_model.init_cache(c.rcfg, B, 16)
@@ -169,10 +214,45 @@ def test_decode_matches_reference_and_forward(case):
             want.append(np.asarray(lg[:, 0]))
             lg, cache = tm.decode_step(c.model, torch.from_numpy(toks[:, t:t + 1]), cache)
             got.append(lg[:, 0].numpy())
-        full, _ = tm.forward(c.model, torch.from_numpy(toks))
+        full, _ = tm.forward(_no_drops(c.model), torch.from_numpy(toks))
     assert cache["index"] == DECODE == int(rcache["index"])
-    _close(np.stack(want, 1), np.stack(got, 1), 1e-4, f"{arch} decode")
+    _close(np.stack(want, 1), np.stack(got, 1), DECODE_TOL, f"{arch} decode")
     np.testing.assert_allclose(full.numpy(), np.stack(got, 1), rtol=3e-3, atol=3e-3)
+
+
+def _jitter_spread(fwd, params, seed=0):
+    """How far ``fwd``'s output moves, over its scale, when every weight is
+    jittered by 1e-7 relative."""
+    rs = np.random.default_rng(seed)
+    jitter = jax.tree_util.tree_map(
+        lambda a: a * (1 + 1e-7 * rs.standard_normal(a.shape).astype(np.float32)), params)
+    a, b = np.asarray(fwd(params)), np.asarray(fwd(jitter))
+    return float(np.abs(a - b).max() / np.abs(a).max())
+
+
+def test_xlstm_reference_spread():
+    """Why the xLSTM case rescales ``repro``'s tree: on ``repro``'s own
+    smoke weights its logits move by up to more than three times the logits
+    tolerance under a 1e-7 relative jitter of those weights (measured
+    1.2e-4, 1.3e-4 and 4.5e-4 over three seeds), on the rescaled tree by
+    less than a tenth of it (measured 2.0e-7 for each seed)."""
+    c = Case("xlstm_350m")
+    fwd = jax.jit(lambda p: ref_model.forward(p, c.rcfg, jnp.asarray(c.tokens))[0])
+    own = ref_model.init_params(jax.random.PRNGKey(0), c.rcfg)
+    assert max(_jitter_spread(fwd, own, seed) for seed in range(3)) > 3 * LOGITS_TOL
+    assert max(_jitter_spread(fwd, c.rparams, seed) for seed in range(3)) < LOGITS_TOL / 10
+
+
+def _no_drops(model):
+    """``model``, or for an expert config a copy on the same weights whose
+    capacity holds every (token, choice) of a group."""
+    cfg = model.cfg
+    if not cfg.num_experts:
+        return model
+    wide = tm.DecoderLM(dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts)),
+                        device="cpu")
+    wide.load_state_dict(model.state_dict())
+    return wide
 
 
 # -- the timed numerics: bf16, remat="full" ----------------------------------
@@ -297,15 +377,6 @@ def test_bf16_optimizer_steps_match_reference(bf16_case, kind):
                      _port_state_tree(state, c.cfg), 1e-5, f"bf16 {kind} state")
 
 
-@pytest.mark.parametrize("arch", WAITING)
-def test_expert_and_recurrent_configs_raise(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="3a"):
-        tm.DecoderLM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm.init_cache(cfg, 1, 8, device="cpu")
-
-
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_configs_are_repro_s(arch):
     """Every ``CONFIG`` and ``SMOKE`` is a field-for-field copy."""
@@ -319,15 +390,21 @@ def test_configs_are_repro_s(arch):
         assert mine.active_param_count() == theirs.active_param_count()
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_state_dict_holds_param_count(arch):
-    """The port's modules hold ``param_count()`` parameters (the formula
-    counts no norms or qk-norms; those are the remainder)."""
+    """The port's modules hold as many parameters as ``repro``'s tree, and
+    for the attention-only configs ``param_count()`` of them (the formula
+    counts no norms or qk-norms; those are the remainder; for the recurrent
+    cells it is an approximation, in ``repro`` too)."""
     cfg = get_smoke_config(arch)
     model = tm.DecoderLM(cfg, device="cpu")
-    norms = sum(p.numel() for n, p in model.named_parameters() if "norm" in n)
-    proj = model.frontend_proj.numel() if cfg.frontend != "none" else 0
-    assert sum(p.numel() for p in model.parameters()) - norms - proj == cfg.param_count()
+    total = sum(p.numel() for p in model.parameters())
+    ref = ref_model.abstract_params(ref_smoke_config(arch))
+    assert total == sum(int(np.prod(a.shape)) for a in jax.tree_util.tree_leaves(ref))
+    if set(cfg.layer_kinds()) <= {"global", "local", "global_dense"}:
+        norms = sum(p.numel() for n, p in model.named_parameters() if "norm" in n)
+        proj = model.frontend_proj.numel() if cfg.frontend != "none" else 0
+        assert total - norms - proj == cfg.param_count()
 
 
 @pytest.mark.parametrize("arch", ["gemma3_1b", "internvl2_26b"])
@@ -350,10 +427,39 @@ def test_bf16_weights_carry_across_bit_for_bit(arch):
                                       err_msg=jax.tree_util.keystr(path))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", NEW)
+def test_weights_round_trip(arch, dtype):
+    """The expert (``moe``) and recurrent (``rnn``, ``cell``) subtrees carry
+    across and back leaf for leaf, bit for bit, in ``repro``'s stacked
+    layout; the port's forward on them equals ``repro``'s."""
+    rcfg = dataclasses.replace(ref_smoke_config(arch), param_dtype=dtype)
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype=dtype)
+    rparams = ref_model.init_params(jax.random.PRNGKey(5), rcfg)
+    model = tm.DecoderLM(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, rparams), cfg),
+                          strict=True)
+    subtree = {"arctic_480b": "moe", "llama4_maverick_400b_a17b": "moe",
+               "recurrentgemma_9b": "rnn", "xlstm_350m": "cell"}[arch]
+    assert any(f".{subtree}." in n for n, _ in model.named_parameters())
+    want = jax.tree_util.tree_flatten_with_path(rparams)[0]
+    got = jax.tree_util.tree_leaves(params_to_numpy(model.state_dict(), cfg))
+    assert len(want) == len(got)
+    for (path, a), b in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(a.astype(jnp.float32)), b,
+                                      err_msg=jax.tree_util.keystr(path))
+    if dtype == "float32":
+        toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 16)).astype(np.int32)
+        ref_logits, _ = ref_model.forward(rparams, rcfg, jnp.asarray(toks))
+        with torch.no_grad():
+            logits, _ = tm.forward(model, torch.from_numpy(toks))
+        _close(ref_logits, logits.numpy(), 1e-4, f"{arch} round-trip logits")
+
+
 # -- the port's own contracts (tests/test_arch_smoke.py) ---------------------
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_arch_smoke_train_and_decode_finite(arch):
     """One loss, gradient and AdamW step, and two decode steps from a cache
     of 64, all finite, with the shapes ``test_arch_smoke.py`` asks for."""

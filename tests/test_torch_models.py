@@ -19,6 +19,7 @@ from repro.models import attention as ref_attn  # noqa: E402
 from repro.models import blocks as ref_blocks  # noqa: E402
 from repro.models import ffn as ref_ffn  # noqa: E402
 from repro.models import layers as ref_layers  # noqa: E402
+from repro.models.layers import set_activation_mesh  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
@@ -26,6 +27,16 @@ from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models import ffn  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_activation_mesh():
+    """``repro``'s layers read a module-global activation mesh, which a test
+    file run earlier in the same process may have left set (with
+    ``Explicit`` axes, which ``ashard`` refuses): this file's reference calls
+    run without one."""
+    set_activation_mesh(None)
+
 
 KEY = jax.random.PRNGKey(0)
 
@@ -193,22 +204,53 @@ def test_block_train(kind):
     _close(want, got, 1e-5)
 
 
-@pytest.mark.parametrize("kind", ["rglru", "mlstm", "slstm"])
-def test_recurrent_blocks_raise(kind):
+BLOCK_CASES = {
+    "rglru": dict(),
+    "mlstm": dict(),
+    "slstm": dict(),
+    "global+moe": dict(num_experts=4, num_experts_per_tok=2, moe_dense_ff=96,
+                       capacity_factor=1.0),
+    "global_dense+moe": dict(num_experts=4, num_experts_per_tok=1),
+}
+
+
+@pytest.mark.parametrize("case", list(BLOCK_CASES))
+def test_block_train_and_decode_of_the_other_kinds(case):
+    """The recurrent blocks and the attention blocks of an expert config
+    ("global" with experts and a dense FFN beside them, capacity 8 at S =
+    16, so choices drop; "global_dense", the dense layer of an MoE config):
+    ``block_train``'s output and aux loss, then 6 tokens of
+    ``block_decode`` from ``block_cache_init`` and the cache left behind."""
+    kind = case.split("+")[0]
+    kw = dict(BLOCK_CASES[case], rnn_width=64)
+    rcfg, cfg = base(RefConfig, **kw), base(ModelConfig, **kw)
+    tree, params = _weights(ref_blocks.block_defs(rcfg, kind), seed=9)
+    assert sorted(blocks.block_defs(cfg, kind)) == sorted(tree)
+    x, pos = _rand(14, 2, 16, 64), np.arange(16)[None]
+    want, want_aux = ref_blocks.block_train(tree, rcfg, kind, jnp.asarray(x), jnp.asarray(pos))
+    got, aux = blocks.block_train(params, cfg, kind, torch.from_numpy(x), torch.from_numpy(pos))
+    _close(want, got, 1e-5)
+    _close(want_aux, aux, 1e-5)
+    assert (float(aux) > 0) == (case == "global+moe")
+    rcache = ref_blocks.block_cache_init(rcfg, kind, 2, 8, jnp.float32)
+    cache = blocks.block_cache_init(cfg, kind, 2, 8, torch.float32, torch.device("cpu"))
+    for t in range(6):
+        want, rcache = ref_blocks.block_decode(tree, rcfg, kind, jnp.asarray(x[:, t:t + 1]),
+                                               rcache, jnp.asarray(t))
+        got, cache = blocks.block_decode(params, cfg, kind, torch.from_numpy(x[:, t:t + 1]),
+                                         cache, t)
+        _close(want, got, 1e-5)
+    assert set(rcache) == set(cache)
+    for name, leaf in rcache.items():
+        _close(leaf, cache[name], 1e-5)
+
+
+def test_unknown_block_kind_raises():
     cfg = base(ModelConfig)
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        blocks.block_defs(cfg, kind)
-    with pytest.raises(NotImplementedError):
-        blocks.block_cache_init(cfg, kind, 1, 8, torch.float32, torch.device("cpu"))
-
-
-def test_expert_blocks_raise_but_dense_layers_of_an_moe_config_build():
-    cfg = base(ModelConfig, num_experts=4, num_experts_per_tok=1)
-    with pytest.raises(NotImplementedError, match="expert"):
-        blocks.block_defs(cfg, "global")
-    assert "ffn" in blocks.block_defs(cfg, "global_dense")
     with pytest.raises(ValueError, match="unknown"):
-        blocks.block_defs(base(ModelConfig), "conv")
+        blocks.block_defs(cfg, "conv")
+    with pytest.raises(ValueError, match="unknown"):
+        blocks.block_cache_init(cfg, "conv", 1, 8, torch.float32, torch.device("cpu"))
 
 
 # -- the port's own contracts (tests/test_models.py's dense tests) ----------
