@@ -131,6 +131,23 @@ comes out.  One walk per vertex, depth 40 (DeepWalk's walk length):
    capacity drops nothing.  No new kernel: the LM path's products,
    attention, experts and recurrent cells are torch ops.
    ``scripts/lm_steps.py`` runs this phase alone.
+14. the user entry points, last: ``launch_gemma3_1b`` runs
+   ``python -m repro_torch.launch.train`` in child processes as users run
+   it (``LAUNCH_ARGS``: the full gemma3_1b config, batch 8 × 1,024 on the
+   ``--data walks`` corpus, whose ``reject_step`` launches the child
+   prints): 4 steps, then in another directory 2 steps and a rerun that
+   restarts at 2, whose losses at steps 2-3 must be within
+   ``LAUNCH_RESTART_RTOL`` of the straight run's (ms a step: the median of
+   a process's steps after its first; tokens/s, peak GiB); ``graphsaint``
+   trains ``examples/graphsaint_gcn_torch.py``'s GCN for 40 rounds at 16
+   and 2,000 instances (accuracy above 0.6; the first 3 rounds' sampled
+   vertex sets equal to the CPU port's); ``quickstart`` runs
+   ``examples/quickstart_torch.py`` (the first 256 walks of each algorithm
+   and the neighbor sample equal to the CPU port's); ``serve_batch`` runs
+   ``examples/serve_batch_torch.py``'s five modes (in memory, ``--oom`` and
+   ``--sharded`` equal to the CPU port's service request for request; no
+   streamed request fails; ``--lm`` decodes).  Each records its kernels'
+   launches.  ``scripts/entry_steps.py`` runs this phase alone.
 
 Each path runs with the kernels' launch counts set to 0 just before and read
 just after; a kernel its path never launched fails the run, and a flat
@@ -159,11 +176,17 @@ printing no result, without a CUDA device or outside a checkout.
 """
 from __future__ import annotations
 
+import ast
 import contextlib
 import dataclasses
+import gc
 import importlib
 import importlib.util
+import io
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -263,6 +286,19 @@ LM_JITTERS, LM_CELL_TOL = 3, 1e-4
 XLSTM_GRAPH_VERTICES, XLSTM_WALKS = 20_000, 4096
 RGEMMA_TRAIN_LAYERS = 5
 ARCTIC_LAYERS, ARCTIC_TRAIN_EXPERTS = 1, 16
+#: the user entry points: the launcher's arguments (the full gemma3_1b
+#: config on the walk corpus), its straight run's steps and the step the
+#: restarted run resumes at, and the bound on the restarted run's losses
+#: against the straight run's (relative; the log prints four decimals);
+#: GraphSAINT's instance counts (the example's default and fig09's count),
+#: the rounds and the first rounds held against the CPU; the walkers and
+#: the neighbor-sampling pools of the quickstart held against the CPU
+LAUNCH_BATCH, LAUNCH_SEQ = 8, 1024
+LAUNCH_ARGS = ("--arch", "gemma3-1b", "--batch", str(LAUNCH_BATCH), "--seq", str(LAUNCH_SEQ),
+               "--data", "walks", "--ckpt-every", "2", "--log-every", "1")
+LAUNCH_STEPS, LAUNCH_RESUME, LAUNCH_RESTART_RTOL = 4, 2, 1e-3
+SAINT_INSTANCES, SAINT_ROUNDS, SAINT_CHECK_ROUNDS = (16, 2000), 40, 3
+QUICK_CHECK_WALKERS, QUICK_POOLS = 256, 512
 KERNELS = ("reject_step", "alias_step", "walk_step", "walk_step_window", "its_select",
            "its_select_wide", "reject_step_rows", "alias_step_rows", "walk_step_rows",
            "derive_keys", "reject_step_entries", "alias_step_entries", "walk_step_entries")
@@ -2069,7 +2105,7 @@ class Smoke:
         from repro_torch.train import checkpoint, optimizer, train_step
 
         torch, kernels = self.torch, self.kernels
-        ex = _example_module()
+        ex = _load_example("walk_corpus_lm_torch")
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         g = ex.corpus_graph(self.dev)
@@ -2498,6 +2534,205 @@ class Smoke:
                      f"{name} f32 {kind} cell: card and CPU differ by {err:.3g} (scale {scale:.3g})")
         return out
 
+    # -- the user entry points --------------------------------------------------
+
+    def entry_paths(self):
+        """Phase 14: the training launcher as users run it, then the
+        GraphSAINT, quickstart and batched-serving examples."""
+        gc.collect()
+        self.torch.cuda.empty_cache()
+        self.launch_path()
+        self.graphsaint_path()
+        self.quickstart_path()
+        self.serve_batch_path()
+
+    def entry_launches(self) -> dict:
+        """Each kernel wrapper's launches since the last reset, and the wide
+        ``its_select`` kernels' among them."""
+        return dict(self.kernels.launch_counts(),
+                    its_select_wide=self.kernels.its_select.wide_launches)
+
+    def launcher(self, ckpt_dir, steps: int) -> dict:
+        """``python -m repro_torch.launch.train`` with ``LAUNCH_ARGS`` in a
+        child process; what its log says: each step's loss, the last median
+        ms a step, the corpus's kernel launches, the restart and the peak."""
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (str(SRC), os.environ.get("PYTHONPATH")) if p))
+        argv = [sys.executable, "-m", "repro_torch.launch.train", *LAUNCH_ARGS,
+                "--steps", str(steps), "--ckpt-dir", str(ckpt_dir)]
+        t0 = time.perf_counter()
+        out = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True,
+                             timeout=600)
+        secs = time.perf_counter() - t0
+        _log(f"[launch] {' '.join(argv[3:])}: exit {out.returncode} in {secs:.1f} s\n"
+             + out.stdout.strip())
+        _require(out.returncode == 0, f"launcher exited {out.returncode}: {out.stderr[-3000:]}")
+        log = out.stdout
+        steps_seen = re.findall(r"^step\s+(\d+) loss (\S+) gnorm (\S+) \((\d+) ms/step\)$",
+                                log, re.M)
+        restarted = re.search(r"^restarted from step (\d+)$", log, re.M)
+        corpus = re.search(r"^walk corpus: .* in (\S+) s, kernel launches (\{.*\})$", log, re.M)
+        times = re.search(r"^step times \(ms\): (.*)$", log, re.M)
+        finished = re.search(r"^finished at step (\d+), loss (\S+?)(, peak (\S+) GiB)?$", log,
+                             re.M)
+        _require(steps_seen and corpus and times and finished,
+                 f"launcher log not understood:\n{log}")
+        return dict(seconds=secs, losses={int(i): float(x) for i, x, _, _ in steps_seen},
+                    grad_norms=[float(g) for _, _, g, _ in steps_seen],
+                    median_ms=float(steps_seen[-1][3]),
+                    step_ms=[float(t) for t in times.group(1).split(", ")],
+                    restarted=int(restarted.group(1)) if restarted else None,
+                    corpus_s=float(corpus.group(1)),
+                    corpus_launches=ast.literal_eval(corpus.group(2)),
+                    peak_gib=float(finished.group(4)) if finished.group(4) else None)
+
+    def launch_path(self):
+        """``launch_gemma3_1b``: the launcher at the full gemma3_1b config,
+        4 steps straight; then 2 steps and a restart that runs steps 2-3,
+        whose losses must follow the straight run's."""
+        with tempfile.TemporaryDirectory() as tmp:
+            straight = self.launcher(Path(tmp) / "straight", LAUNCH_STEPS)
+            shutil.rmtree(Path(tmp) / "straight")  # 10 GB a checkpoint
+            first = self.launcher(Path(tmp) / "restart", LAUNCH_RESUME)
+            resumed = self.launcher(Path(tmp) / "restart", LAUNCH_STEPS)
+        _require(straight["corpus_launches"].get("reject_step", 0) > 0,
+                 f"launch: the walk corpus launched no reject_step: {straight}")
+        want = [straight["losses"][i] for i in range(LAUNCH_RESUME, LAUNCH_STEPS)]
+        got = [resumed["losses"].get(i) for i in range(LAUNCH_RESUME, LAUNCH_STEPS)]
+        _require(resumed["restarted"] == LAUNCH_RESUME and None not in got,
+                 f"launch: the second run did not restart at {LAUNCH_RESUME}: {resumed}")
+        err = float(np.max(np.abs(np.array(got) - want) / np.abs(want)))
+        _require(np.isfinite(list(straight["losses"].values())).all()
+                 and err <= LAUNCH_RESTART_RTOL,
+                 f"launch: the restarted losses {got} differ from {want} by {err:.3g}")
+        # the first step of a process loads the card's kernels and grows the
+        # allocator's pool: the steady step is the median of the others
+        ms = float(np.median(straight["step_ms"][1:]))
+        row = dict(path="launch_gemma3_1b", argv=list(LAUNCH_ARGS), steps=LAUNCH_STEPS,
+                   ms_per_step=ms, tokens_per_s=LAUNCH_BATCH * LAUNCH_SEQ / (ms * 1e-3),
+                   step_ms=straight["step_ms"], log_median_ms=straight["median_ms"],
+                   peak_gib=straight["peak_gib"], losses=straight["losses"],
+                   grad_norms=straight["grad_norms"], corpus_s=straight["corpus_s"],
+                   launches=straight["corpus_launches"], seconds=straight["seconds"],
+                   restart=dict(resumed_at=resumed["restarted"], losses=got, straight=want,
+                                max_rel_err=err, bound=LAUNCH_RESTART_RTOL,
+                                seconds=[first["seconds"], resumed["seconds"]],
+                                step_ms=[first["step_ms"], resumed["step_ms"]],
+                                peak_gib=resumed["peak_gib"]),
+                   card=self.card)
+        _log(f"[launch_gemma3_1b] {json.dumps(row)}")
+        self.paths.append(row)
+
+    def graphsaint_path(self):
+        """``graphsaint``: the example's GCN training at 16 and 2,000
+        instances; accuracy above 0.6, the first rounds' sampled vertex sets
+        equal to the CPU port's."""
+        kernels = self.kernels
+        ex = _load_example("graphsaint_gcn_torch")
+        g, labels = ex.sbm_graph(device=self.dev)
+        cpu_g, k = g.to("cpu"), int(labels.max() + 1)
+        runs = []
+        for instances in SAINT_INSTANCES:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                res = ex.train(g, labels, ex.init_params(k), rounds=SAINT_ROUNDS,
+                               instances=instances, device=self.dev)
+            secs = time.perf_counter() - t0
+            launches = self.entry_launches()
+            _require(launches["its_select"] > 0,
+                     f"graphsaint: MDRW launched no its_select: {launches}")
+            _require(res["acc"] > 0.6, f"graphsaint at {instances}: accuracy {res['acc']}")
+            for r in range(SAINT_CHECK_ROUNDS):
+                cpu = ex.sample_nodes(cpu_g, instances, r, "cpu")
+                _require(np.array_equal(cpu, res["nodes"][r]),
+                         f"graphsaint at {instances}: round {r}'s sampled vertices differ")
+            runs.append(dict(instances=instances, seconds=secs,
+                             ms_per_round=secs / SAINT_ROUNDS * 1e3, accuracy=res["acc"],
+                             first_loss=res["loss"][0], last_loss=res["loss"][-1],
+                             mean_sampled_nodes=float(np.mean([len(x) for x in res["nodes"]])),
+                             launches=launches, cpu_equal_rounds=SAINT_CHECK_ROUNDS))
+        row = dict(path="graphsaint", vertices=g.num_vertices, edges=g.num_edges,
+                   rounds=SAINT_ROUNDS, runs=runs, card=self.card)
+        _log(f"[graphsaint] {json.dumps(row)}")
+        self.paths.append(row)
+
+    def quickstart_path(self):
+        """``quickstart``: the example at its defaults; the first walks of
+        each algorithm and the neighbor sampling equal to the CPU port's."""
+        torch, kernels = self.torch, self.kernels
+        ex = _load_example("quickstart_torch")
+        printed = io.StringIO()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            card = ex.run(self.dev)
+        secs = time.perf_counter() - t0
+        launches = self.entry_launches()
+        _log("[quickstart]\n" + printed.getvalue().strip())
+        with contextlib.redirect_stdout(sys.stderr):
+            cpu = ex.run("cpu", num_seeds=QUICK_CHECK_WALKERS, num_pools=QUICK_POOLS)
+        for name in (*ex.BUILT_IN, "custom_hot"):
+            a = card[name].walks[:QUICK_CHECK_WALKERS].cpu()
+            _require(torch.equal(a, cpu[name].walks),
+                     f"quickstart: {name}'s first walks differ from the CPU's")
+        for field in ("edges_src", "edges_dst", "num_edges", "iters", "searches"):
+            _require(torch.equal(getattr(card["neighbor"], field).cpu(),
+                                 getattr(cpu["neighbor"], field)),
+                     f"quickstart: neighbor sampling's {field} differs from the CPU's")
+        for name in ("reject_step", "walk_step_window", "its_select"):
+            _require(launches[name] > 0, f"quickstart: no {name} launch: {launches}")
+        seps = {m.group(1): float(m.group(2)) for m in
+                re.finditer(r"^(\S+)\s+SEPS=(\S+)$", printed.getvalue(), re.M)}
+        row = dict(path="quickstart", seconds=secs, seps=seps,
+                   neighbor_iters=int(card["neighbor"].iters),
+                   neighbor_searches=int(card["neighbor"].searches),
+                   custom_edges=int(card["custom_hot"].sampled_edges),
+                   cpu_equal_walkers=QUICK_CHECK_WALKERS, launches=launches, card=self.card)
+        _log(f"[quickstart] {json.dumps(row)}")
+        self.paths.append(row)
+
+    def serve_batch_path(self):
+        """``serve_batch``: the example's five modes at their defaults; in
+        the in-memory, OOM and sharded modes every request's walks equal the
+        CPU port's service on the same requests; no streamed request fails."""
+        kernels = self.kernels
+        ex = _load_example("serve_batch_torch")
+        modes = {}
+        for mode in ("memory", "oom", "sharded", "stream", "lm"):
+            flags = [] if mode == "memory" else [f"--{mode}"]
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                out = ex.main(["--device", str(self.dev), *flags])
+            entry = dict(seconds=time.perf_counter() - t0, launches=self.entry_launches())
+            if mode in ("memory", "oom", "sharded"):
+                svc, results, tickets = out
+                with contextlib.redirect_stdout(sys.stderr):
+                    _, want, _ = ex.main(["--device", "cpu", *flags])
+                _require(sorted(results) == sorted(want) and all(
+                    np.array_equal(results[r].walks, want[r].walks) for r in want),
+                    f"serve_batch {mode}: the card's walks differ from the CPU's")
+                entry.update(requests=len(results), service_launches=getattr(
+                    svc.stats, {"memory": "launches", "oom": "oom_launches",
+                                "sharded": "sharded_launches"}[mode]),
+                    padded_slots=svc.stats.padded_walker_slots, cpu_equal=True)
+            elif mode == "stream":
+                failed = sum(f.exception(timeout=60) is not None for f in out)
+                _require(failed == 0, f"serve_batch stream: {failed} requests failed")
+                totals = [f.latency.total_ms for f in out]
+                entry.update(requests=len(out), failed=failed,
+                             p50_ms=self.percentile(totals, 50),
+                             p99_ms=self.percentile(totals, 99))
+            else:
+                _require(out.shape == (8, 32) and (out >= 0).all(),
+                         f"serve_batch lm: decoded {out.shape}")
+                entry.update(tokens=list(out.shape))
+            modes[mode] = entry
+        row = dict(path="serve_batch", modes=modes, card=self.card)
+        _log(f"[serve_batch] {json.dumps(row)}")
+        self.paths.append(row)
+
     # -- the run ------------------------------------------------------------
 
     def run(self):
@@ -2564,6 +2799,7 @@ class Smoke:
         self.mt.clear_plan_cache()
         torch.cuda.empty_cache()
         self.lm_paths()
+        self.entry_paths()
 
         for k in KERNELS:
             row = self.kernel_rows[k]
@@ -2604,11 +2840,9 @@ def _step_kernels(methods: tuple, n_buckets: int) -> set:
     return want | ({"walk_step"} if "its" in methods[:n_buckets] else set())
 
 
-def _example_module():
-    """``examples/walk_corpus_lm_torch.py`` (its scales, corpus and optimizer
-    settings), loaded from the checkout."""
-    spec = importlib.util.spec_from_file_location(
-        "walk_corpus_lm_torch", ROOT / "examples" / "walk_corpus_lm_torch.py")
+def _load_example(name: str):
+    """``examples/<name>.py``, loaded from the checkout."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod

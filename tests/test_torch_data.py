@@ -9,6 +9,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+
 from repro.data.pipeline import TokenPipeline as RefPipeline  # noqa: E402
 from repro.data.walk_corpus import build_walk_corpus as ref_build_walk_corpus  # noqa: E402
 from repro.graph import degrees as ref_degrees  # noqa: E402

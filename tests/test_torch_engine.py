@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+
 from repro.core import algorithms as jalg  # noqa: E402
 from repro.core.engine import random_walk as j_random_walk  # noqa: E402
 from repro.graph import csr_from_edges as j_csr_from_edges  # noqa: E402
@@ -170,6 +172,12 @@ corpus = build_walk_corpus(g, num_walks=4, walk_length=8, vocab_size=lm_cfg.voca
 lm_step = make_train_step(lm_cfg, OptConfig(), device="cpu")
 _, _, lm_metrics = lm_step(lm, opt_init(OptConfig(), dict(lm.named_parameters())), 0,
                            TokenPipeline(lm_cfg.vocab_size, 4, 8, corpus=corpus).next())
+import tempfile
+from repro_torch.launch import train as launch_train
+with tempfile.TemporaryDirectory() as ckpt:
+    launched = launch_train.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu",
+                                  "--steps", "1", "--batch", "2", "--seq", "8",
+                                  "--ckpt-dir", ckpt])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"bad": bad, "walked": walked, "sampled": int(sample.num_edges.sum()),
@@ -177,7 +185,8 @@ print(json.dumps({"bad": bad, "walked": walked, "sampled": int(sample.num_edges.
                   "served": sorted(served) == ids, "launches": drained_launches,
                   "streamed": streamed.sampled_edges,
                   "sharded": int(sharded.sampled_edges), "parallel": int(parallel.sampled_edges),
-                  "shard_served": shard_served, "lm_loss": float(lm_metrics["loss"])}))
+                  "shard_served": shard_served, "lm_loss": float(lm_metrics["loss"]),
+                  "launched": launched["losses"]}))
 """
 
 
@@ -196,3 +205,4 @@ def test_port_imports_neither_jax_nor_repro():
     assert res["sharded"] > 0 and res["parallel"] > 0  # the sharded and instance-parallel walks
     assert res["shard_served"] == 1  # and the sharded service
     assert 0 < res["lm_loss"] < 10  # and the LM harness took a step on a walk corpus
+    assert len(res["launched"]) == 1 and 0 < res["launched"][0] < 10  # and the launcher

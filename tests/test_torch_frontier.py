@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+
 from repro.core import frontier as jfr  # noqa: E402
 from repro.core.oom import _plan as j_plan  # noqa: E402
 from repro_torch.core import frontier  # noqa: E402

@@ -15,6 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+
 from repro.core import backend as jbk  # noqa: E402
 from repro.core import methods as jmt  # noqa: E402
 from repro.core import select as jsel  # noqa: E402

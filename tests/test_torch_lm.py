@@ -1,34 +1,21 @@
-"""The port's decoder LMs against ``repro``'s, architecture by architecture.
+"""The port's decoder LMs against ``repro``'s, architecture by architecture:
+the six dense architectures, then ``gemma3_1b``'s smoke config with the full
+config's numerics, and the configs' and weights' contracts of all ten.
 
-For each of the ten ``SMOKE`` configs (dense, mixture-of-experts and
-recurrent), ``repro``'s weights are carried across by ``params_from_jax``
-and the same numpy-seeded tokens go through both: ``forward``'s logits and
-aux loss, ``loss_fn`` and its gradient (autograd against
-``jax.value_and_grad``), three ``opt_update`` steps under AdamW and under
-Adafactor fed the same gradients, and a 12-token decode, all in f32.  Then
-``gemma3_1b``'s smoke config with the full config's numerics (bf16,
-``remat="full"``, 2 microbatches): its loss, gradient and optimizer steps
-against ``repro``'s, and its gradient with and without remat.
-
-Tolerances (max abs difference over the reference's max abs, per leaf),
-each set from the measured worst case on these inputs with headroom:
-logits 1e-4 (measured 2.1e-5, internvl2); aux loss 1e-5 (2.3e-7, arctic);
-loss 1e-6 relative (1.4e-7); gradient 1e-3 (3.5e-4: internvl2's
-embedding, float association through the backward of attention and the
-chunked CE); optimizer parameters and state 1e-5 (the same gradients in,
-so only the update's own rounding); decode logits 1e-4.
-
-``xlstm_350m``'s smoke stack is ill-conditioned on ``repro``'s own tree:
-``repro``'s init draws a stacked leaf with the fan-in of the stacking axis
-(``repro/models/layers.py:35`` reads ``shape[0]``, here n_rep = 1, so std
-1; ROADMAP queue 3), and its logits then move by up to 4.5e-4 of their
-scale under a 1e-7 relative jitter of the weights (three seeds,
-:func:`test_xlstm_reference_spread`).  Its case therefore loads
-``repro``'s tree with each stacked leaf rescaled to the layer's own fan-in,
-as the port's init draws it, and keeps the tolerances above (measured on
-it: logits 2.0e-7, gradient 3.2e-6, decode 2.1e-7).
+For each ``SMOKE`` config, ``repro``'s weights are carried across by
+``params_from_jax`` and the same numpy-seeded tokens go through both:
+``forward``'s logits and aux loss, ``loss_fn`` and its gradient (autograd
+against ``jax.value_and_grad``), three ``opt_update`` steps under AdamW and
+under Adafactor fed the same gradients, and a 12-token decode, all in f32
+(the four tests and their tolerances: ``lm_reference.py``; the expert and
+recurrent architectures run them in ``test_torch_lm_moe.py`` and
+``test_torch_lm_recurrent.py``).  Then ``gemma3_1b``'s smoke config with the
+full config's numerics (bf16, ``remat="full"``, 2 microbatches): its loss,
+gradient and optimizer steps against ``repro``'s, and its gradient with and
+without remat.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -37,222 +24,21 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+
+from lm_reference import (  # noqa: E402,F401 (the shared tests and autouse fixture)
+    NEW, S, _close, _close_trees, _port_state_tree, case_fixture, no_activation_mesh,
+    test_decode_matches_reference_and_forward, test_forward_logits_match_reference,
+    test_loss_and_gradient_match_reference, test_optimizer_steps_match_reference)
 from repro.configs import get_smoke_config as ref_smoke_config  # noqa: E402
 from repro.models import model as ref_model  # noqa: E402
 from repro.train import optimizer as ref_opt  # noqa: E402
-from repro.models.layers import set_activation_mesh  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.models.convert import params_from_jax, params_to_numpy  # noqa: E402
 from repro_torch.train import optimizer as topt  # noqa: E402
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _no_activation_mesh():
-    """``repro``'s layers read a module-global activation mesh, which a test
-    file run earlier in the same process may have left set (with
-    ``Explicit`` axes, which ``ashard`` refuses): this file's reference calls
-    run without one."""
-    set_activation_mesh(None)
-
-
-NEW = ("arctic_480b", "llama4_maverick_400b_a17b", "recurrentgemma_9b", "xlstm_350m")
-B, S, DECODE = 2, 32, 12
-LOGITS_TOL, GRAD_TOL, DECODE_TOL = 1e-4, 1e-3, 1e-4
-# the stacked leaves of these archs' cases are rescaled to the layer's fan-in
-PER_LAYER_FAN_IN = ("xlstm_350m",)
-
-
-def _close(ref, got, tol, what):
-    ref, got = np.asarray(ref, np.float32), np.asarray(got, np.float32)
-    assert ref.shape == got.shape, (what, ref.shape, got.shape)
-    err = float(np.abs(ref - got).max()) if ref.size else 0.0
-    scale = max(float(np.abs(ref).max()) if ref.size else 0.0, 1e-30)
-    assert err <= tol * scale, f"{what}: max abs diff {err:.3g} over scale {scale:.3g}"
-
-
-def _close_trees(ref_tree, got_tree, tol, what):
-    ref_l = jax.tree_util.tree_flatten_with_path(ref_tree)[0]
-    got_l = jax.tree_util.tree_leaves(got_tree)
-    assert len(ref_l) == len(got_l)
-    for (path, a), b in zip(ref_l, got_l):
-        _close(a, b, tol, f"{what}{jax.tree_util.keystr(path)}")
-
-
-def _per_layer_fan_in(rparams, rcfg):
-    """``repro``'s tree with each stacked leaf drawn from a normal rescaled
-    from the stacking axis's fan-in (n_rep) to the layer's own."""
-    def fix(p, d):
-        if d.init != "normal":
-            return p
-        layer = d.shape[1:]
-        fan_in = layer[0] if len(layer) >= 2 else max(layer[0], 1)
-        return p * np.float32(np.sqrt(d.shape[0] / fan_in))
-
-    out = dict(rparams)
-    out["blocks"] = jax.tree_util.tree_map(fix, rparams["blocks"],
-                                           ref_model.model_defs(rcfg)["blocks"])
-    return out
-
-
-class Case:
-    """One architecture: ``repro``'s params and the port's model on the
-    same weights, the tokens and the frontend embeddings."""
-
-    def __init__(self, arch):
-        self.arch = arch
-        self.rcfg, self.cfg = ref_smoke_config(arch), get_smoke_config(arch)
-        self.rparams = ref_model.init_params(jax.random.PRNGKey(0), self.rcfg)
-        if arch in PER_LAYER_FAN_IN:
-            self.rparams = _per_layer_fan_in(self.rparams, self.rcfg)
-        self.np_params = jax.tree_util.tree_map(np.asarray, self.rparams)
-        self.model = tm.DecoderLM(self.cfg, device="cpu")
-        self.model.load_state_dict(params_from_jax(self.np_params, self.cfg), strict=True)
-        rs = np.random.default_rng(sum(map(ord, arch)))
-        self.tokens = rs.integers(0, self.cfg.vocab_size, (B, S)).astype(np.int32)
-        self.labels = np.roll(self.tokens, -1, axis=1)
-        self.labels[:, -1] = -100  # a masked position
-        self.fe = (rs.standard_normal((B, self.cfg.frontend_tokens, self.cfg.d_model))
-                   .astype(np.float32) if self.cfg.frontend != "none" else None)
-        self.ref_value_and_grad = jax.jit(jax.value_and_grad(self.ref_loss))
-
-    def jfe(self):
-        return None if self.fe is None else jnp.asarray(self.fe)
-
-    def tfe(self):
-        return None if self.fe is None else torch.from_numpy(self.fe)
-
-    def ref_loss(self, params):
-        return ref_model.loss_fn(params, self.rcfg, jnp.asarray(self.tokens),
-                                 jnp.asarray(self.labels), self.jfe())
-
-
-@pytest.fixture(scope="module", params=ARCH_IDS)
-def case(request) -> Case:
-    """One architecture's case, built once: pytest runs its tests together."""
-    return Case(request.param)
-
-
-def test_forward_logits_match_reference(case):
-    c, arch = case, case.arch
-    want, want_aux = ref_model.forward(c.rparams, c.rcfg, jnp.asarray(c.tokens), c.jfe())
-    with torch.no_grad():
-        got, aux = tm.forward(c.model, torch.from_numpy(c.tokens), c.tfe())
-    total = S + (c.cfg.frontend_tokens if c.cfg.frontend != "none" else 0)
-    assert got.shape == (B, total, c.cfg.vocab_size) and aux.dtype == torch.float32
-    _close(want, got.numpy(), LOGITS_TOL, f"{arch} logits")
-    _close(want_aux, aux.numpy(), 1e-5, f"{arch} aux")
-    assert (float(aux) > 0) == bool(c.cfg.num_experts)
-
-
-def test_loss_and_gradient_match_reference(case):
-    c, arch = case, case.arch
-    want, grads = c.ref_value_and_grad(c.rparams)
-    loss = tm.loss_fn(c.model, torch.from_numpy(c.tokens), torch.from_numpy(c.labels), c.tfe())
-    names, params = zip(*c.model.named_parameters())
-    got = torch.autograd.grad(loss, params)
-    _close(want, loss.detach().numpy(), 1e-6, f"{arch} loss")
-    _close_trees(jax.tree_util.tree_map(np.asarray, grads),
-                 params_to_numpy(dict(zip(names, got)), c.cfg), GRAD_TOL,
-                 f"{arch} grad")
-
-
-def _port_state_tree(state, cfg):
-    """The port's optimizer state in ``repro``'s tree layout."""
-    if "mu" in state:
-        return {k: params_to_numpy(state[k], cfg) for k in ("mu", "nu")}
-    leaves = {}
-    for name, v in state["v"].items():
-        for sub, t in v.items():
-            leaves[f"{name}.{sub}"] = t
-    # params_to_numpy nests by the dotted names: "<param>.v" / ".vr" / ".vc"
-    return {"v": params_to_numpy(leaves, cfg)}
-
-
-@pytest.mark.parametrize("kind", ["adamw", "adafactor"])
-def test_optimizer_steps_match_reference(case, kind):
-    """Three updates, both sides fed ``repro``'s gradient at ``repro``'s
-    current parameters; the parameters and the state after each."""
-    c, arch = case, case.arch
-    # factor matrices of 16 or more a side, so the smoke widths reach
-    # Adafactor's factored moments; every smoke n_rep is below 16, so a
-    # stacked (n_rep, d) norm stays unfactored like the port's (d,) ones
-    ocfg = dict(kind=kind, lr=1e-2, warmup_steps=2, min_dim_factored=16)
-    rcfg_o, tcfg_o = ref_opt.OptConfig(**ocfg), topt.OptConfig(**ocfg)
-    model = tm.DecoderLM(c.cfg, device="cpu")
-    model.load_state_dict(c.model.state_dict())
-    params = dict(model.named_parameters())
-    rparams, rstate = c.rparams, ref_opt.opt_init(rcfg_o, c.rparams)
-    state = topt.opt_init(tcfg_o, params)
-    for step in range(3):
-        _, g = c.ref_value_and_grad(rparams)
-        tg = params_from_jax(jax.tree_util.tree_map(np.asarray, g), c.cfg)
-        rparams, rstate, rnorm = ref_opt.opt_update(rcfg_o, g, rstate, rparams,
-                                                    jnp.asarray(step, jnp.int32))
-        state, norm = topt.opt_update(tcfg_o, tg, state, params, step, model.update_groups())
-        _close(rnorm, norm.numpy(), 1e-5, f"{arch} grad norm")
-        _close_trees(jax.tree_util.tree_map(np.asarray, rparams),
-                     params_to_numpy(model.state_dict(), c.cfg), 1e-5, f"{arch} params")
-        _close_trees(jax.tree_util.tree_map(np.asarray, rstate),
-                     _port_state_tree(state, c.cfg), 1e-5, f"{arch} {kind} state")
-
-
-def test_decode_matches_reference_and_forward(case):
-    """12 decode steps from an empty cache: the logits equal ``repro``'s
-    decode and the port's own full forward at those positions.  A decode
-    step routes one token a group, which never drops a choice, so the
-    forward it is held against runs with room for every choice too."""
-    c, arch = case, case.arch
-    toks = c.tokens[:, :DECODE]
-    rcache = ref_model.init_cache(c.rcfg, B, 16)
-    cache = tm.init_cache(c.cfg, B, 16, device="cpu")
-    step = jax.jit(lambda p, t, ch: ref_model.decode_step(p, c.rcfg, t, ch))
-    want, got = [], []
-    with torch.no_grad():
-        for t in range(DECODE):
-            lg, rcache = step(c.rparams, jnp.asarray(toks[:, t:t + 1]), rcache)
-            want.append(np.asarray(lg[:, 0]))
-            lg, cache = tm.decode_step(c.model, torch.from_numpy(toks[:, t:t + 1]), cache)
-            got.append(lg[:, 0].numpy())
-        full, _ = tm.forward(_no_drops(c.model), torch.from_numpy(toks))
-    assert cache["index"] == DECODE == int(rcache["index"])
-    _close(np.stack(want, 1), np.stack(got, 1), DECODE_TOL, f"{arch} decode")
-    np.testing.assert_allclose(full.numpy(), np.stack(got, 1), rtol=3e-3, atol=3e-3)
-
-
-def _jitter_spread(fwd, params, seed=0):
-    """How far ``fwd``'s output moves, over its scale, when every weight is
-    jittered by 1e-7 relative."""
-    rs = np.random.default_rng(seed)
-    jitter = jax.tree_util.tree_map(
-        lambda a: a * (1 + 1e-7 * rs.standard_normal(a.shape).astype(np.float32)), params)
-    a, b = np.asarray(fwd(params)), np.asarray(fwd(jitter))
-    return float(np.abs(a - b).max() / np.abs(a).max())
-
-
-def test_xlstm_reference_spread():
-    """Why the xLSTM case rescales ``repro``'s tree: on ``repro``'s own
-    smoke weights its logits move by up to more than three times the logits
-    tolerance under a 1e-7 relative jitter of those weights (measured
-    1.2e-4, 1.3e-4 and 4.5e-4 over three seeds), on the rescaled tree by
-    less than a tenth of it (measured 2.0e-7 for each seed)."""
-    c = Case("xlstm_350m")
-    fwd = jax.jit(lambda p: ref_model.forward(p, c.rcfg, jnp.asarray(c.tokens))[0])
-    own = ref_model.init_params(jax.random.PRNGKey(0), c.rcfg)
-    assert max(_jitter_spread(fwd, own, seed) for seed in range(3)) > 3 * LOGITS_TOL
-    assert max(_jitter_spread(fwd, c.rparams, seed) for seed in range(3)) < LOGITS_TOL / 10
-
-
-def _no_drops(model):
-    """``model``, or for an expert config a copy on the same weights whose
-    capacity holds every (token, choice) of a group."""
-    cfg = model.cfg
-    if not cfg.num_experts:
-        return model
-    wide = tm.DecoderLM(dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts)),
-                        device="cpu")
-    wide.load_state_dict(model.state_dict())
-    return wide
+case = case_fixture(tuple(a for a in ARCH_IDS if a not in NEW))
 
 
 # -- the timed numerics: bf16, remat="full" ----------------------------------
@@ -291,6 +77,8 @@ class Bf16Case:
         self.labels = np.roll(self.tokens, -1, axis=1)
         self.labels[:, -1] = -100
         self.ref_value_and_grad = jax.jit(jax.value_and_grad(self.ref_loss))
+        self.ref_grad_at_init = functools.cache(
+            lambda: self.ref_value_and_grad(self.rparams))
 
     def ref_loss(self, params):
         return ref_model.loss_fn(params, self.rcfg, jnp.asarray(self.tokens),
@@ -316,7 +104,7 @@ def test_bf16_remat_loss_and_gradient_match_reference(bf16_case):
     """The loss, every leaf of the gradient and the whole gradient against
     ``repro``'s in bf16."""
     c = bf16_case
-    want, grads = c.ref_value_and_grad(c.rparams)
+    want, grads = c.ref_grad_at_init()
     loss, got = c.port_grads(c.model)
     assert loss.dtype == torch.float32
     np.testing.assert_allclose(float(loss), float(want), rtol=BF16_LOSS_RTOL)
@@ -363,7 +151,7 @@ def test_bf16_optimizer_steps_match_reference(bf16_case, kind):
     rparams, rstate = c.rparams, ref_opt.opt_init(rcfg_o, c.rparams)
     state = topt.opt_init(tcfg_o, params)
     for step in range(3):
-        _, g = c.ref_value_and_grad(rparams)
+        _, g = c.ref_grad_at_init() if step == 0 else c.ref_value_and_grad(rparams)
         tg = params_from_jax(jax.tree_util.tree_map(np.asarray, g), c.cfg)
         rparams, rstate, rnorm = ref_opt.opt_update(rcfg_o, g, rstate, rparams,
                                                     jnp.asarray(step, jnp.int32))

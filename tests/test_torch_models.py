@@ -14,6 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+
 from repro.configs.base import ModelConfig as RefConfig  # noqa: E402
 from repro.models import attention as ref_attn  # noqa: E402
 from repro.models import blocks as ref_blocks  # noqa: E402

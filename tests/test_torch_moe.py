@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+
 from repro.configs import get_smoke_config as ref_smoke_config  # noqa: E402
 from repro.models import layers as ref_layers  # noqa: E402
 from repro.models import moe as ref_moe  # noqa: E402

@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+
 from repro.core import algorithms as jalg  # noqa: E402
 from repro.core.oom import oom_random_walk as j_oom  # noqa: E402
 from repro.graph import csr_from_edges as j_csr_from_edges  # noqa: E402

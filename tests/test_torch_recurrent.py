@@ -28,6 +28,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+
 from repro.configs.base import ModelConfig as RefConfig  # noqa: E402
 from repro.models import layers as ref_layers  # noqa: E402
 from repro.models import recurrent as ref_rec  # noqa: E402

@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+
 from repro_torch.core import rng  # noqa: E402
 from repro_torch.kernels.ref import rejection_randoms  # noqa: E402
 

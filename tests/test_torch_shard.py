@@ -33,6 +33,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+
 from conftest import MULTIDEVICE_HEADER, run_multidevice_child  # noqa: E402
 from repro.core import algorithms as jalg  # noqa: E402
 from repro.core.api import SamplingSpec as JSamplingSpec  # noqa: E402

@@ -22,6 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+
 from repro.core import algorithms as jalg  # noqa: E402
 from repro.graph import powerlaw_graph as j_powerlaw_graph  # noqa: E402
 from repro.graph.partition import partition_by_vertex_range as j_partition  # noqa: E402

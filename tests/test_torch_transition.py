@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+
 from repro.core import algorithms as jalg  # noqa: E402
 from repro.core import transition as jtp  # noqa: E402
 from repro.core.engine import random_walk as j_random_walk  # noqa: E402

@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+
 from repro.core import algorithms as jalg  # noqa: E402
 from repro.core import backend as jbk  # noqa: E402
 from repro.core import engine as jeng  # noqa: E402
@@ -62,16 +64,24 @@ def _assert_same(want, got):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=field)
 
 
+def _kw(method, max_vertices, depth):
+    return dict(depth=depth, max_degree=_graphs()[2], pool_capacity=24, method=method,
+                max_vertices=max_vertices)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(name, method, max_vertices, backend, depth):
+    """``repro``'s sample, computed once for the module's tests."""
+    return jeng.traversal_sample(_graphs()[0], jnp.asarray(_pools()), jax.random.PRNGKey(5),
+                                 spec=jalg.ALGORITHMS[name](), backend=backend,
+                                 **_kw(method, max_vertices, depth))
+
+
 def _run_both(name, method, max_vertices, backend, depth):
-    g, tg, md = _graphs()
-    pools = _pools()
-    key = jax.random.PRNGKey(5)
-    kw = dict(depth=depth, max_degree=md, pool_capacity=24, method=method,
-              max_vertices=max_vertices)
-    want = jeng.traversal_sample(g, jnp.asarray(pools), key, spec=jalg.ALGORITHMS[name](),
-                                 backend=backend, **kw)
-    got = teng.traversal_sample(tg, pools, _kd(key), spec=talg.ALGORITHMS[name](),
-                                device="cpu", **kw)
+    want = _reference(name, method, max_vertices, backend, depth)
+    got = teng.traversal_sample(_graphs()[1], _pools(), _kd(jax.random.PRNGKey(5)),
+                                spec=talg.ALGORITHMS[name](), device="cpu",
+                                **_kw(method, max_vertices, depth))
     return want, got
 
 

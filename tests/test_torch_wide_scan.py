@@ -14,6 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+
 from repro_torch.kernels import ref  # noqa: E402
 
 WIDTHS = [4095, 4096, 4097, 65_535, 65_537, 102_784, 821_376]
