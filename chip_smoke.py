@@ -85,8 +85,8 @@ comes out.  One walk per vertex, depth 40 (DeepWalk's walk length):
    against the CPU;
 12. oom — ``oom_random_walk`` at ``benchmarks/fig13_oom.py``'s settings on
    the R-MAT graph (8 vertex-range partitions, ``biased_random_walk``,
-   2,000 instances, depth 16, two partitions resident, two streams, chunks
-   of 1,024): the four Fig. 13 configurations (base, +BA, +BA+WS,
+   2,000 instances, depth ``OOM_DEPTH`` (fig13's 16, cut to 8), two
+   partitions resident, two streams, chunks of 1,024): the four Fig. 13 configurations (base, +BA, +BA+WS,
    +BA+WS+BAL), then node2vec at 256 instances and depth 4, after a
    one-instance warm-up that builds the partitions' host plan and alias
    tables (``plan_s``).  Each reports
@@ -131,12 +131,29 @@ comes out.  One walk per vertex, depth 40 (DeepWalk's walk length):
    capacity drops nothing.  No new kernel: the LM path's products,
    attention, experts and recurrent cells are torch ops.
    ``scripts/lm_steps.py`` runs this phase alone.
-14. the user entry points, last: ``launch_gemma3_1b`` runs
+14. the device mesh: ``make_host_mesh()`` on the card (NCCL, a world of
+   one, mesh (1, 1)); ``make_production_mesh()`` must refuse one card,
+   naming its 256 ranks.  ``mesh_gemma3_1b``: ``lm_gemma3_1b``'s config and
+   shapes (bf16, remat, 2 microbatches, 8 × 1,024): a fresh seed-0 model's
+   prefill of 8 × 1,024 and 16 greedy decode tokens at batch 8, then
+   ``MESH_GEMMA_STEPS`` AdamW steps, once without a mesh and once with the
+   model placed on the mesh (``shard_model``, ``shard_cache``, the steps
+   built with the mesh): losses, gradient norms, the prefill's argmax and
+   the decoded tokens must be equal; ms a step and peak GiB both ways (the
+   difference is DTensor's dispatch on the host).  ``mesh_arctic_480b``:
+   ``lm_arctic_480b``'s training layer (1 layer, 16 experts, Adafactor, 4
+   microbatches), ``MESH_ARCTIC_STEPS`` steps both ways, equal; it runs the
+   experts' local dispatch region on the card.  The world of one is
+   destroyed after them.  ``scripts/mesh_steps.py`` runs this phase and the
+   launcher alone.
+15. the user entry points, last: ``launch_gemma3_1b`` runs
    ``python -m repro_torch.launch.train`` in child processes as users run
-   it (``LAUNCH_ARGS``: the full gemma3_1b config, batch 8 × 1,024 on the
+   it, without a mesh (a single process; a mesh needs ``torchrun`` or
+   ``--production-mesh``;
+   ``LAUNCH_ARGS``: the full gemma3_1b config, batch 8 × 1,024 on the
    ``--data walks`` corpus, whose ``reject_step`` launches the child
-   prints): 4 steps, then in another directory 2 steps and a rerun that
-   restarts at 2, whose losses at steps 2-3 must be within
+   prints): 4 steps, whose checkpoints after step 2 are then removed, and a
+   rerun in the same directory that restarts at 2, whose losses at steps 2-3 must be within
    ``LAUNCH_RESTART_RTOL`` of the straight run's (ms a step: the median of
    a process's steps after its first; tokens/s, peak GiB); ``graphsaint``
    trains ``examples/graphsaint_gcn_torch.py``'s GCN for 40 rounds at 16
@@ -213,7 +230,7 @@ RMAT_SCALE = 21
 POWERLAW_VERTICES = 1_000_000
 SEED = 7
 DEPTH = 40
-NODE2VEC_DEPTH = 5  # cut from 40 (10 until the segment and OOM paths came)
+NODE2VEC_DEPTH = 3  # cut from 40 (10 until the segment and OOM paths came, 5 until the mesh)
 EPILOGUE_DEPTH = 40
 CHECK_WALKERS = 4096
 TELEPORT_PROB = 0.15
@@ -260,7 +277,7 @@ STREAM_REQUESTS, STREAM_DEPTH, STREAM_WIDTH = 150, 8, 16
 STREAM_MAX_COHORT, STREAM_WINDOW_MS = 16, 10.0
 #: the out-of-memory walk at ``benchmarks/fig13_oom.py``'s settings, and the
 #: instances rerun on the CPU
-OOM_PARTITIONS, OOM_INSTANCES, OOM_DEPTH = 8, 2000, 16
+OOM_PARTITIONS, OOM_INSTANCES, OOM_DEPTH = 8, 2000, 8  # fig13's depth 16, cut for the mesh
 OOM_CHECK, OOM_WINDOW_DEPTH = 256, 4
 OOM_CONFIGS = {
     "base": dict(batched=False, workload_aware=False, balance=False),
@@ -286,6 +303,12 @@ LM_JITTERS, LM_CELL_TOL = 3, 1e-4
 XLSTM_GRAPH_VERTICES, XLSTM_WALKS = 20_000, 4096
 RGEMMA_TRAIN_LAYERS = 5
 ARCTIC_LAYERS, ARCTIC_TRAIN_EXPERTS = 1, 16
+#: the mesh phases: train steps of gemma3_1b and arctic's training layer on
+#: the host mesh (a world of one) and without it; both must give equal
+#: losses, gradient norms and greedy tokens (on a mesh of one every
+#: placement is whole, and the mesh step runs the same kernels in the same
+#: order: bit-equal is the bound)
+MESH_GEMMA_STEPS, MESH_ARCTIC_STEPS = 3, 2
 #: the user entry points: the launcher's arguments (the full gemma3_1b
 #: config on the walk corpus), its straight run's steps and the step the
 #: restarted run resumes at, and the bound on the restarted run's losses
@@ -1252,7 +1275,7 @@ class Smoke:
     def oom_paths(self, g):
         """``oom_random_walk`` at ``benchmarks/fig13_oom.py``'s settings on
         the R-MAT graph: 8 vertex-range partitions, ``biased_random_walk``,
-        2,000 instances, depth 16, two partitions resident, two streams,
+        2,000 instances, depth ``OOM_DEPTH``, two partitions resident, two streams,
         chunks of 1,024; the four Fig. 13 configurations, then node2vec."""
         t0 = time.perf_counter()
         parts = self.partition.partition_by_vertex_range(g, OOM_PARTITIONS)
@@ -2536,8 +2559,136 @@ class Smoke:
 
     # -- the user entry points --------------------------------------------------
 
+    # -- the device mesh -----------------------------------------------------
+
+    def mesh_paths(self):
+        """Phase 14: the LM harness on the host mesh (``make_host_mesh()``:
+        NCCL, a world of one, mesh (1, 1)) against the same steps without a
+        mesh: ``mesh_gemma3_1b`` (train, prefill, decode) and
+        ``mesh_arctic_480b`` (train, the experts' local dispatch region).
+        The production mesh must refuse one card, naming its 256 ranks.  The
+        world of one is destroyed at the end."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = make_host_mesh()
+        try:
+            _require(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda",
+                     f"mesh: the host mesh of one card is {mesh}")
+            try:
+                make_production_mesh()
+                refused = None
+            except RuntimeError as e:
+                refused = str(e)
+            _require(refused is not None and "needs 256 ranks" in refused,
+                     f"mesh: the production mesh on one card did not refuse: {refused}")
+            cfg = get_config("gemma3_1b")
+            self.mesh_path("mesh_gemma3_1b", mesh, cfg, MESH_GEMMA_STEPS, serve=True,
+                           extra=dict(production_mesh_refused=refused))
+            arctic = get_config("arctic_480b")
+            train_cfg = dataclasses.replace(arctic, num_layers=ARCTIC_LAYERS,
+                                            num_experts=ARCTIC_TRAIN_EXPERTS)
+            self.mesh_path("mesh_arctic_480b", mesh, train_cfg, MESH_ARCTIC_STEPS,
+                           extra=dict(cut=[f"depth {ARCTIC_LAYERS} of {arctic.num_layers}",
+                                           f"experts {ARCTIC_TRAIN_EXPERTS} of "
+                                           f"{arctic.num_experts}"]))
+        finally:
+            torch.distributed.destroy_process_group()
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    def mesh_run(self, cfg, mesh, steps: int, serve: bool) -> dict:
+        """``steps`` train steps of a seed-0 model of ``cfg`` (placed on
+        ``mesh`` unless it is None) on the learnable batch, after, with
+        ``serve``, the fresh model's prefill of 8 × 1,024 and 16 greedy
+        decode tokens at batch 8: losses, gradient norms, each step's
+        seconds, the prefill's argmax and the decoded tokens, peak GiB."""
+        from repro_torch.models import model as lm
+        from repro_torch.train import optimizer
+        from repro_torch.train import train_step as steps_mod
+
+        torch = self.torch
+        whole = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t  # noqa: E731
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = lm.DecoderLM(cfg, seed=0, device=self.dev)
+        if mesh is not None:
+            model = steps_mod.shard_model(model, mesh)
+        out: dict = {}
+        if serve:
+            tokens = _learnable_batch()["tokens"]
+            prefill = steps_mod.make_prefill(cfg, mesh, device=self.dev)
+            t0 = time.perf_counter()
+            last = whole(prefill(model, {"tokens": tokens}))
+            self.sync()
+            out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            _require(bool(torch.isfinite(last.float()).all())
+                     and tuple(last.shape) == (LM_BATCH, cfg.vocab_size),
+                     f"mesh: prefill gave {tuple(last.shape)} or non-finite logits")
+            out["prefill_argmax"] = torch.argmax(last.float(), dim=-1).tolist()
+            cache = lm.init_cache(cfg, LM_BATCH, LM_SEQ + LM_DECODE, device=self.dev)
+            if mesh is not None:
+                cache = steps_mod.shard_cache(cache, mesh)
+            serve_fn = steps_mod.make_serve_step(cfg, LM_BATCH, LM_SEQ + LM_DECODE, mesh,
+                                                 device=self.dev)
+            tok = torch.from_numpy(tokens[:, :1]).to(self.dev)
+            decoded, dec_times = [], []
+            for _ in range(LM_DECODE):
+                t0 = time.perf_counter()
+                lg, cache = serve_fn(model, cache, tok)
+                tok = torch.argmax(whole(lg)[:, -1], dim=-1, keepdim=True)
+                decoded.append(tok[:, 0].tolist())
+                self.sync()
+                dec_times.append(time.perf_counter() - t0)
+            out["decoded"] = decoded
+            out["decode_ms_per_token"] = float(np.median(dec_times[1:])) * 1e3
+            del cache, lg, last
+        ocfg = optimizer.OptConfig(kind=cfg.optimizer, lr=1e-3, warmup_steps=2)
+        ostate = optimizer.opt_init(ocfg, dict(model.named_parameters()))
+        step_fn = steps_mod.make_train_step(cfg, ocfg, mesh, device=self.dev)
+        times, norms = [], []
+        _, _, losses = self.lm_train(model, step_fn, ostate, 0, [_learnable_batch()] * steps,
+                                     times, norms)
+        out.update(losses=losses, grad_norms=norms, step_s=times,
+                   ms_per_step=float(np.median(times[1:])) * 1e3,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del model, ostate, step_fn
+        return out
+
+    def mesh_path(self, name, mesh, cfg, steps: int, serve=False, extra=None):
+        """One mesh cell: :meth:`mesh_run` without the mesh, then on it;
+        every loss, gradient norm and token equal."""
+        t0 = time.perf_counter()
+        plain = self.mesh_run(cfg, None, steps, serve)
+        meshed = self.mesh_run(cfg, mesh, steps, serve)
+        _require(np.isfinite(plain["losses"]).all(), f"{name}: a loss is not finite: {plain}")
+        for key in ("losses", "grad_norms", "prefill_argmax", "decoded"):
+            _require(plain.get(key) == meshed.get(key),
+                     f"{name}: {key} differ on the mesh: {meshed.get(key)} vs {plain.get(key)}")
+        row = dict(path=name, mesh=list(mesh.shape), params=cfg.param_count(),
+                   layers=cfg.num_layers, experts=cfg.num_experts, dtype=cfg.dtype,
+                   remat=cfg.remat, microbatches=cfg.microbatches, optimizer=cfg.optimizer,
+                   batch=LM_BATCH, seq=LM_SEQ, train_steps=steps, losses=plain["losses"],
+                   grad_norms=plain["grad_norms"], equal=True,
+                   ms_per_step=meshed["ms_per_step"], plain_ms_per_step=plain["ms_per_step"],
+                   step_s=meshed["step_s"], plain_step_s=plain["step_s"],
+                   peak_gib=meshed["peak_gib"], plain_peak_gib=plain["peak_gib"],
+                   seconds=time.perf_counter() - t0, card=self.card)
+        if serve:
+            row.update(decode_tokens=LM_DECODE, prefill_ms=meshed["prefill_ms"],
+                       plain_prefill_ms=plain["prefill_ms"],
+                       decode_ms_per_token=meshed["decode_ms_per_token"],
+                       plain_decode_ms_per_token=plain["decode_ms_per_token"])
+        row.update(extra or {})
+        _log(f"[{name}] {json.dumps(row)}")
+        self.paths.append(row)
+
     def entry_paths(self):
-        """Phase 14: the training launcher as users run it, then the
+        """Phase 15: the training launcher as users run it, then the
         GraphSAINT, quickstart and batched-serving examples."""
         gc.collect()
         self.torch.cuda.empty_cache()
@@ -2588,13 +2739,17 @@ class Smoke:
 
     def launch_path(self):
         """``launch_gemma3_1b``: the launcher at the full gemma3_1b config,
-        4 steps straight; then 2 steps and a restart that runs steps 2-3,
-        whose losses must follow the straight run's."""
+        4 steps straight; then a restart from its checkpoint at step 2 that
+        runs steps 2-3, whose losses must follow the straight run's."""
         with tempfile.TemporaryDirectory() as tmp:
-            straight = self.launcher(Path(tmp) / "straight", LAUNCH_STEPS)
-            shutil.rmtree(Path(tmp) / "straight")  # 10 GB a checkpoint
-            first = self.launcher(Path(tmp) / "restart", LAUNCH_RESUME)
-            resumed = self.launcher(Path(tmp) / "restart", LAUNCH_STEPS)
+            run = Path(tmp) / "run"
+            straight = self.launcher(run, LAUNCH_STEPS)
+            # the restart resumes from the checkpoint the straight run wrote
+            # mid-run at LAUNCH_RESUME (``--ckpt-every``): the later ones go
+            for d in run.glob("step_*"):
+                if int(d.name[len("step_"):].split(".")[0]) > LAUNCH_RESUME:
+                    shutil.rmtree(d)  # 10 GB a checkpoint
+            resumed = self.launcher(run, LAUNCH_STEPS)
         _require(straight["corpus_launches"].get("reject_step", 0) > 0,
                  f"launch: the walk corpus launched no reject_step: {straight}")
         want = [straight["losses"][i] for i in range(LAUNCH_RESUME, LAUNCH_STEPS)]
@@ -2616,8 +2771,7 @@ class Smoke:
                    launches=straight["corpus_launches"], seconds=straight["seconds"],
                    restart=dict(resumed_at=resumed["restarted"], losses=got, straight=want,
                                 max_rel_err=err, bound=LAUNCH_RESTART_RTOL,
-                                seconds=[first["seconds"], resumed["seconds"]],
-                                step_ms=[first["step_ms"], resumed["step_ms"]],
+                                seconds=resumed["seconds"], step_ms=resumed["step_ms"],
                                 peak_gib=resumed["peak_gib"]),
                    card=self.card)
         _log(f"[launch_gemma3_1b] {json.dumps(row)}")
@@ -2799,6 +2953,7 @@ class Smoke:
         self.mt.clear_plan_cache()
         torch.cuda.empty_cache()
         self.lm_paths()
+        self.mesh_paths()
         self.entry_paths()
 
         for k in KERNELS:

@@ -5,6 +5,12 @@ chunks gives each chunk its own loop over exactly the kv chunks it can see
 (the causal prefix, or the sliding window), with the online max and sum of a
 flash-style softmax.  The algorithm, its masks, ``attn_softcap`` and the
 bf16-scores option are ``repro``'s, so the two agree chunk by chunk.
+
+On a device mesh (DTensor activations and weights) the layout constraints
+sit where ``repro`` puts them: q, k, v and the score blocks keep their heads
+on ``model`` where the heads divide it, else the q chunk; the masks and the
+online softmax's accumulators are made in those layouts; a decode step
+writes its KV slot on the rank that holds it.
 """
 from __future__ import annotations
 
@@ -13,7 +19,11 @@ from typing import Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import ParamDef, einsum_f32, rms_norm, rope, softcap
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.models.layers import (
+    ParamDef, ashard, const, einsum_f32, mesh_full, model_divides, rms_norm, rope, rp_einsum,
+    softcap)
 
 NEG_INF = -1e30
 
@@ -29,21 +39,22 @@ def pick_chunk(s: int, chunk: int) -> int:
 def attn_defs(cfg: ModelConfig) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     defs = {
-        "wq": ParamDef((d, h, hd)),
-        "wk": ParamDef((d, kv, hd)),
-        "wv": ParamDef((d, kv, hd)),
-        "wo": ParamDef((h, hd, d)),
+        "wq": ParamDef((d, h, hd), ("embed", "heads", None)),
+        "wk": ParamDef((d, kv, hd), ("embed", "kv_heads", None)),
+        "wv": ParamDef((d, kv, hd), ("embed", "kv_heads", None)),
+        "wo": ParamDef((h, hd, d), ("heads", None, "embed")),
     }
     if cfg.use_qk_norm:
-        defs["qnorm"] = ParamDef((hd,), init="zeros")
-        defs["knorm"] = ParamDef((hd,), init="zeros")
+        defs["qnorm"] = ParamDef((hd,), (None,), init="zeros")
+        defs["knorm"] = ParamDef((hd,), (None,), init="zeros")
     return defs
 
 
 def _qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    heads = ("batch", None, "model", None)
+    q = ashard(torch.einsum("bsd,dhk->bshk", x, params["wq"]), *heads)
+    k = ashard(torch.einsum("bsd,dhk->bshk", x, params["wk"]), *heads)
+    v = ashard(torch.einsum("bsd,dhk->bshk", x, params["wv"]), *heads)
     if cfg.use_qk_norm:
         q = rms_norm(q, params["qnorm"], cfg.norm_eps)
         k = rms_norm(k, params["knorm"], cfg.norm_eps)
@@ -70,16 +81,28 @@ def _block_pair(
     window: int,
     cap: float,
     scores_dtype: torch.dtype,
+    heads_ok: bool = True,
 ) -> torch.Tensor:
     """Online-softmax accumulate a q block against its kv span, one kv
-    chunk at a time (``repro``'s ``lax.scan`` over the span)."""
+    chunk at a time (``repro``'s ``lax.scan`` over the span).  On a mesh
+    the score blocks keep the heads on ``model`` where they divide it
+    (``heads_ok``), else the q chunk: sequence-block parallelism."""
     b, cq, h, dh = q_blk.shape
     dev = q_blk.device
+    if heads_ok:
+        q_ax, s_ax, a_ax = ("batch", None, "model", None), ("batch", "model", None), \
+            ("batch", "model", None, None)
+    else:
+        q_ax, s_ax, a_ax = ("batch", "model", None, None), ("batch", None, "model"), \
+            ("batch", None, "model", None)
+    q_blk = ashard(q_blk, *q_ax)
     neg_big = NEG_INF if scores_dtype == torch.float32 else -3e38 / 1e4
-    m = torch.full((b, h, cq), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, h, cq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, h, cq, dh), dtype=torch.float32, device=dev)
-    scale_t = torch.tensor(scale, dtype=scores_dtype, device=dev)
+    m = mesh_full(q_blk, (b, h, cq), NEG_INF, torch.float32, *s_ax)
+    l = mesh_full(q_blk, (b, h, cq), 0.0, torch.float32, *s_ax)
+    acc = mesh_full(q_blk, (b, h, cq, dh), 0.0, torch.float32, *a_ax)
+    scale_t = const(q_blk, torch.tensor(scale, dtype=scores_dtype, device=dev))
+    neg_t = const(q_blk, torch.tensor(neg_big, dtype=scores_dtype, device=dev))
+    zero_t = const(q_blk, torch.zeros((), dtype=scores_dtype, device=dev))
     for c in range(k_span.shape[1]):
         kc, vc, pos = k_span[:, c], v_span[:, c], kv_pos[c]
         s = _scores(q_blk, kc, scores_dtype) * scale_t
@@ -87,15 +110,23 @@ def _block_pair(
         msk = pos[None, :] <= q_pos[:, None]  # causal (Cq, Ckv)
         if window > 0:
             msk = msk & (pos[None, :] > q_pos[:, None] - window)
-        s = torch.where(msk, s, torch.tensor(neg_big, dtype=scores_dtype, device=dev))
+        msk = const(q_blk, msk)
+        s = torch.where(msk, s, neg_t)
         m_new = torch.maximum(m, torch.amax(s, dim=-1).float())
         p = torch.exp(s.float() - m_new[..., None]).to(scores_dtype)
-        p = torch.where(msk, p, torch.zeros((), dtype=scores_dtype, device=dev))
+        p = torch.where(msk, p, zero_t)
         corr = torch.exp(m - m_new)
         l = l * corr + torch.sum(p, dim=-1, dtype=torch.float32)
         acc = acc * corr[..., None] + einsum_f32("bhqc,bchd->bhqd", p.to(kc.dtype), vc)
         m = m_new
     return acc / torch.clamp(l, min=1e-30)[..., None]  # (B, H, Cq, Dh)
+
+
+def _repeat_heads(t: torch.Tensor, g: int) -> torch.Tensor:
+    """``repeat_interleave(t, g, dim=2)`` as a broadcast and a reshape
+    (the same values; ops a DTensor has layouts for)."""
+    b, s, kvh, dh = t.shape
+    return t[:, :, :, None, :].expand(b, s, kvh, g, dh).reshape(b, s, kvh * g, dh)
 
 
 def blocked_attention(
@@ -114,8 +145,8 @@ def blocked_attention(
     cq = ckv = pick_chunk(s, cfg.attn_chunk)
     nq = s // cq
     if g > 1:  # repeat KV to full heads: q head i uses kv head i // g
-        k = torch.repeat_interleave(k, g, dim=2)
-        v = torch.repeat_interleave(v, g, dim=2)
+        k = ashard(_repeat_heads(k, g), "batch", None, "model", None)
+        v = ashard(_repeat_heads(v, g), "batch", None, "model", None)
     qg = q.reshape(b, nq, cq, h, dh)
     kc = k.reshape(b, s // ckv, ckv, h, dh)
     vc = v.reshape(b, s // ckv, ckv, h, dh)
@@ -131,6 +162,7 @@ def blocked_attention(
         outs.append(_block_pair(
             qg[:, qi], kc[:, ki_lo:ki_hi + 1], vc[:, ki_lo:ki_hi + 1], q_pos, kv_pos,
             scale=scale, window=window, cap=cfg.attn_softcap, scores_dtype=scores_dtype,
+            heads_ok=model_divides(h),
         ))
     out = torch.stack(outs, dim=1)  # (B, nq, H, Cq, Dh)
     out = out.permute(0, 1, 3, 2, 4).reshape(b, s, h, dh)
@@ -143,7 +175,26 @@ def attention_train(
     """Full-sequence attention (train / prefill). x: (B, S, D)."""
     q, k, v = _qkv(params, cfg, x, positions)
     out = blocked_attention(q, k, v, cfg, window=window)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return rp_einsum("bshk,hkd->bsd", out, params["wo"], cfg.reduce_dtype)
+
+
+def _write_slot(cache: torch.Tensor, slot: int, val: torch.Tensor) -> None:
+    """``cache[:, slot] = val`` in place.  A DTensor cache (its sequence
+    maybe split over ranks: split-KV) is written on its local shard, by the
+    rank whose shard holds ``slot``, from ``val`` in the cache's layout."""
+    if not isinstance(cache, DTensor):
+        cache[:, slot] = val.to(cache.dtype)
+        return
+    from torch.distributed.tensor._utils import (  # noqa: PLC0415
+        compute_local_shape_and_global_offset)
+
+    mesh = cache.device_mesh
+    row = [Replicate() if p.is_shard(1) else Shard(p.dim - 1) if p.is_shard() and p.dim > 1
+           else p for p in cache.placements]
+    local_val = val.to(cache.dtype).redistribute(mesh, row).to_local()
+    shape, offset = compute_local_shape_and_global_offset(cache.shape, mesh, cache.placements)
+    if offset[1] <= slot < offset[1] + shape[1]:
+        cache.to_local()[:, slot - offset[1]] = local_val
 
 
 def attention_decode(
@@ -164,8 +215,8 @@ def attention_decode(
     s_max = cache_k.shape[1]
     # a sliding-window layer's cache is a ring buffer: KV footprint O(window)
     slot = cache_index % s_max if window > 0 else min(cache_index, s_max - 1)
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    _write_slot(cache_k, slot, k[:, 0])
+    _write_slot(cache_v, slot, v[:, 0])
     kvh = cache_k.shape[2]
     g = q.shape[2] // kvh
     qh = q.reshape(b, 1, kvh, g, -1)
@@ -177,7 +228,8 @@ def attention_decode(
         msk = kv_pos < min(cache_index + 1, s_max)
     else:
         msk = kv_pos <= cache_index
-    s = torch.where(msk, s, torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+    s = torch.where(const(s, msk), s, const(s, torch.tensor(NEG_INF, dtype=s.dtype,
+                                                             device=x.device)))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqc,bckd->bqkgd", p.to(cache_v.dtype), cache_v)
     out = out.reshape(b, 1, -1, cfg.head_dim)

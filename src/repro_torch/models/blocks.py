@@ -15,7 +15,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec
-from repro_torch.models.layers import ParamDef, rms_norm
+from repro_torch.models.layers import ParamDef, const, rms_norm
 
 ATTN_KINDS = ("global", "local", "global_dense")
 STATES = {"rglru": rec.rglru_init_state, "mlstm": rec.mlstm_init_state,
@@ -28,20 +28,20 @@ def _experts(cfg: ModelConfig, kind: str) -> bool:
 
 def block_defs(cfg: ModelConfig, kind: str) -> dict:
     d = cfg.d_model
-    defs: dict = {"norm1": ParamDef((d,), init="zeros")}
+    defs: dict = {"norm1": ParamDef((d,), (None,), init="zeros")}
     if kind in ATTN_KINDS:
         defs["attn"] = attn.attn_defs(cfg)
         if _experts(cfg, kind):
-            defs["norm2"] = ParamDef((d,), init="zeros")
+            defs["norm2"] = ParamDef((d,), (None,), init="zeros")
             defs["moe"] = moe_mod.moe_defs(cfg)
             if cfg.moe_dense_ff:
                 defs["dense_ffn"] = ffn_mod.ffn_defs(cfg, cfg.moe_dense_ff)
         elif cfg.d_ff:
-            defs["norm2"] = ParamDef((d,), init="zeros")
+            defs["norm2"] = ParamDef((d,), (None,), init="zeros")
             defs["ffn"] = ffn_mod.ffn_defs(cfg)
     elif kind == "rglru":
         defs["rnn"] = rec.rglru_defs(cfg)
-        defs["norm2"] = ParamDef((d,), init="zeros")
+        defs["norm2"] = ParamDef((d,), (None,), init="zeros")
         defs["ffn"] = ffn_mod.ffn_defs(cfg)
     elif kind == "mlstm":
         defs["cell"] = rec.mlstm_defs(cfg)
@@ -63,7 +63,7 @@ def _ffn(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def _mlp(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor):
     """The residual branch after attention: experts (and the dense FFN beside
     them), the FFN, or nothing.  Returns (x, aux)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = const(x, torch.zeros((), dtype=torch.float32, device=x.device))
     if _experts(cfg, kind):
         h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
         y, aux = moe_mod.moe_apply(params["moe"], cfg, h2)
@@ -79,7 +79,7 @@ def block_train(
     params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, positions: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x, aux_loss); the aux loss is the experts' (0 without)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = const(x, torch.zeros((), dtype=torch.float32, device=x.device))
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     if kind in ATTN_KINDS:
         x = x + attn.attention_train(params["attn"], cfg, h, positions,

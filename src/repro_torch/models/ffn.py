@@ -4,27 +4,27 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import ACTIVATIONS, ParamDef
+from repro_torch.models.layers import ACTIVATIONS, ParamDef, ashard, rp_einsum
 
 
 def ffn_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     d = cfg.d_model
     f = cfg.d_ff if d_ff is None else d_ff
     defs = {
-        "wi": ParamDef((d, f)),
-        "wo": ParamDef((f, d)),
+        "wi": ParamDef((d, f), ("embed", "mlp")),
+        "wo": ParamDef((f, d), ("mlp", "embed")),
     }
     if cfg.glu:
-        defs["wg"] = ParamDef((d, f))
+        defs["wg"] = ParamDef((d, f), ("embed", "mlp"))
     return defs
 
 
 def ffn_apply(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     act = ACTIVATIONS[cfg.activation]
-    h = torch.einsum("bsd,df->bsf", x, params["wi"])
+    h = ashard(torch.einsum("bsd,df->bsf", x, params["wi"]), "batch", None, "model")
     if cfg.glu:
-        g = torch.einsum("bsd,df->bsf", x, params["wg"])
+        g = ashard(torch.einsum("bsd,df->bsf", x, params["wg"]), "batch", None, "model")
         h = act(g) * h
     else:
         h = act(h)
-    return torch.einsum("bsf,fd->bsd", h, params["wo"])
+    return rp_einsum("bsf,fd->bsd", h, params["wo"], cfg.reduce_dtype)

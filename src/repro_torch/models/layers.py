@@ -6,13 +6,18 @@ initializers and the weight layouts (``wq`` is ``(d, heads, head_dim)`` and
 applied by einsum), so that a ``repro`` parameter tree maps one to one onto
 the port's modules (``models.convert``).
 
-``repro``'s sharding helpers (``ashard``, ``set_activation_mesh``,
-``model_divides``, ``rp_einsum``'s reduce dtype) constrain the layout of a
-tensor over a device mesh and compute nothing; the port runs on one device
-and has no counterpart for them yet.
+On a device mesh the parameters and activations are DTensors, and
+``repro``'s sharding helpers become placements: ``ashard`` redistributes an
+activation to the layout ``repro``'s constraint names, ``rp_einsum`` reduces
+a row-parallel product's partial sums in its ``reduce_dtype``, and
+:func:`const` / :func:`mesh_full` make the tensors a layer builds for itself
+(positions, masks, pads, accumulators) DTensors too.  Every one of them is
+the identity on a plain tensor, so without a mesh a layer computes what it
+computes on one device, bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional
 
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -29,11 +35,40 @@ def torch_dtype(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, init=False)
 class ParamDef:
+    """A parameter's shape and initializer (the fields), and ``axes``: its
+    logical axis names, one per dim (None = replicated), read by the
+    sharding rules; its layout, not part of its value's recipe."""
+
     shape: tuple
     init: str = "normal"  # normal | zeros | ones | lru_lambda
     scale: float = 1.0
+
+    def __init__(self, shape: tuple, axes: tuple = (), init: str = "normal",
+                 scale: float = 1.0):
+        object.__setattr__(self, "shape", shape)
+        object.__setattr__(self, "init", init)
+        object.__setattr__(self, "scale", scale)
+        object.__setattr__(self, "axes", tuple(axes))
+
+
+def _tree_map(fn, defs):
+    if isinstance(defs, dict):
+        return {k: _tree_map(fn, v) for k, v in defs.items()}
+    if isinstance(defs, list):
+        return [_tree_map(fn, v) for v in defs]
+    return fn(defs)
+
+
+def shape_tree(defs, dtype: torch.dtype):
+    """Meta tensors of the defs' shapes in ``dtype`` (no allocation)."""
+    return _tree_map(lambda d: torch.empty(d.shape, dtype=dtype, device="meta"), defs)
+
+
+def axes_tree(defs):
+    """Logical-axes tree matching the defs' structure."""
+    return _tree_map(lambda d: d.axes, defs)
 
 
 @torch.no_grad()
@@ -97,6 +132,158 @@ class ParamTree(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# the activation mesh
+# ---------------------------------------------------------------------------
+
+# Set by the step builders' steps for the length of a call; None (one
+# device) makes ashard and model_divides no-ops.
+_ACTIVATION_MESH = None
+# logical "batch"/"model" remapped per arch ({"batch": fsdp + ("model",),
+# "model": ()} under tp_mode="dp")
+_ACTIVATION_RULES: dict = {}
+
+
+def set_activation_mesh(mesh, rules: dict | None = None) -> None:
+    global _ACTIVATION_MESH, _ACTIVATION_RULES
+    _ACTIVATION_MESH = mesh
+    _ACTIVATION_RULES = rules or {}
+
+
+@contextlib.contextmanager
+def activation_mesh(mesh, rules: dict | None = None):
+    """:func:`set_activation_mesh` for the block, the previous one restored
+    after it."""
+    old = (_ACTIVATION_MESH, _ACTIVATION_RULES)
+    set_activation_mesh(mesh, rules)
+    try:
+        yield
+    finally:
+        set_activation_mesh(*old)
+
+
+def activation_spec(shape: tuple, logical: tuple) -> tuple:
+    """``repro``'s ``ashard`` layout of a tensor of ``shape`` under the
+    activation mesh: a spec entry per dimension ("batch" → the fsdp axes,
+    "model" → the model axis; dimensions they do not divide stay whole)."""
+    from repro_torch.distributed.sharding import axis_names, mesh_shape  # noqa: PLC0415
+
+    mesh = _ACTIVATION_MESH
+    names, sizes = axis_names(mesh), mesh_shape(mesh)
+    fsdp = tuple(a for a in ("pod", "data") if a in names)
+    default = {"batch": fsdp, "model": ("model",) if "model" in names else ()}
+    parts: list = []
+    used: set = set()
+    for dim, name in zip(shape, logical):
+        cand = _ACTIVATION_RULES.get(name, default.get(name, ()))
+        cand = tuple(a for a in cand if a in names and a not in used)
+        size = 1
+        for a in cand:
+            size *= sizes[a]
+        if cand and dim % size == 0:
+            parts.append(cand if len(cand) > 1 else cand[0])
+            used.update(cand)
+        else:
+            parts.append(None)
+    return tuple(parts)
+
+
+def activation_placements(shape: tuple, *logical) -> tuple:
+    from repro_torch.distributed.sharding import placements  # noqa: PLC0415
+
+    return placements(activation_spec(shape, logical), _ACTIVATION_MESH)
+
+
+def ashard(x: torch.Tensor, *logical) -> torch.Tensor:
+    """``repro``'s activation sharding constraint from logical axis names
+    ("batch", "model", None): ``x`` redistributed to that layout.  The
+    identity without an activation mesh and on a plain tensor."""
+    if _ACTIVATION_MESH is None or not isinstance(x, DTensor):
+        return x
+    want = activation_placements(tuple(x.shape), *logical)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def model_divides(n: int) -> bool:
+    """True iff the active mesh's model axis evenly shards a dim of size n."""
+    from repro_torch.distributed.sharding import axis_names, mesh_shape  # noqa: PLC0415
+
+    mesh = _ACTIVATION_MESH
+    if mesh is None:
+        return False
+    if "model" in _ACTIVATION_RULES and not _ACTIVATION_RULES["model"]:
+        return False  # tp_mode="dp": model axis remapped to data parallelism
+    return "model" in axis_names(mesh) and n % mesh_shape(mesh)["model"] == 0
+
+
+def from_local(t: torch.Tensor, mesh, placements, shape: tuple) -> DTensor:
+    """A DTensor of global ``shape`` (contiguous) from each rank's local
+    ``t`` in ``placements``; nothing is sent."""
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(t, mesh, placements, run_check=False, shape=tuple(shape),
+                              stride=stride)
+
+
+def const(like: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``t``, a tensor a layer computes for itself from no activation
+    (positions, frequencies, masks), replicated over ``like``'s mesh when
+    ``like`` is a DTensor: GSPMD's layout for a constant."""
+    if not isinstance(like, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def mesh_full(like: torch.Tensor, shape: tuple, value, dtype: torch.dtype,
+              *logical) -> torch.Tensor:
+    """``torch.full(shape, value)`` on ``like``'s device; when ``like`` is a
+    DTensor, a DTensor in the layout ``ashard(·, *logical)`` names, or in
+    ``like``'s own placements without ``logical`` (an accumulator or a pad
+    made in place, sharded as the activation it joins)."""
+    if not isinstance(like, DTensor):
+        return torch.full(shape, value, dtype=dtype, device=like.device)
+    from torch.distributed.tensor import full  # noqa: PLC0415
+
+    mesh = like.device_mesh
+    if not logical:
+        pl = like.placements
+    elif _ACTIVATION_MESH is None:
+        pl = [Replicate()] * mesh.ndim
+    else:
+        pl = activation_placements(tuple(shape), *logical)
+    return full(shape, value, dtype=dtype, device_mesh=mesh, placements=pl)
+
+
+def local_rows(fn: Callable, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for a ``fn`` that keeps ``x``'s shape and works along
+    dimensions ``x`` holds whole (elementwise, or a scan along time): on a
+    DTensor, ``fn`` of each rank's shard, in ``x``'s layout."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    mesh = x.device_mesh
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    if pl != list(x.placements):
+        x = x.redistribute(mesh, pl)
+    return DTensor.from_local(fn(x.to_local()), mesh, pl, run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def _contraction_split(spec: str, x: torch.Tensor) -> bool:
+    """Whether ``x`` is split over more than one rank along a dimension the
+    einsum ``spec`` contracts (its product is then partial sums)."""
+    if not isinstance(x, DTensor):
+        return False
+    ins, out = spec.split("->")
+    xs = ins.split(",")[0]
+    mesh = x.device_mesh
+    for i, pl in enumerate(x.placements):
+        if pl.is_shard() and mesh.size(i) > 1 and xs[pl.dim] not in out:
+            return True
+    return False
+
+
+# ---------------------------------------------------------------------------
 # ops
 # ---------------------------------------------------------------------------
 
@@ -107,6 +294,20 @@ def einsum_f32(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     widened first, which is exact (run with TF32 off, an f32 product of two
     widened bf16 values is exact too)."""
     return torch.einsum(spec, a.float(), b.float())
+
+
+def rp_einsum(spec: str, x: torch.Tensor, w: torch.Tensor, reduce_dtype: str = "f32"
+              ) -> torch.Tensor:
+    """Row-parallel einsum: a product that contracts a model-sharded
+    dimension is a sum of per-rank partial sums, reduced in ``reduce_dtype``
+    ("f32": the partials in f32, the sum cast back to ``x``'s dtype;
+    "bf16": the bf16 products' partials).  Where no rank holds a partial sum
+    (one device, or the contraction whole on each rank), ``torch.einsum``."""
+    if not _contraction_split(spec, x) or reduce_dtype == "bf16" or x.dtype == torch.float32:
+        return torch.einsum(spec, x, w)
+    y = einsum_f32(spec, x, w)
+    pl = [Replicate() if p.is_partial() else p for p in y.placements]
+    return y.redistribute(y.device_mesh, pl).to(x.dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -128,8 +329,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     dh = x.shape[-1]
     half = dh // 2
     expo = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), expo)
-    ang = positions[..., None].to(torch.float32) * freq  # (..., S, half)
+    freq = const(x, torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), expo))
+    ang = const(x, positions)[..., None].to(torch.float32) * freq  # (..., S, half)
     cos = torch.cos(ang)[..., None, :]  # (..., S, 1, half)
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -144,7 +345,7 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor
     """
     k = w.shape[-1]
     if state is None:
-        pad = torch.zeros(x.shape[:-2] + (k - 1, x.shape[-1]), dtype=x.dtype, device=x.device)
+        pad = mesh_full(x, x.shape[:-2] + (k - 1, x.shape[-1]), 0, x.dtype)
     else:
         pad = state
     xp = torch.cat([pad, x], dim=-2)  # (B, S+K-1, C)

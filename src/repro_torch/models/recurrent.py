@@ -14,10 +14,14 @@ The time-parallel forms are ``repro``'s:
 
 Each block also has a one-token decode step carrying O(1) state.  The gates
 and the recurrent states are f32 whatever the activations' dtype, as in
-``repro``.  ``rp_einsum``'s ``reduce_dtype`` changes values in one place
+``repro``.  Without a mesh ``reduce_dtype`` changes values in one place
 only, the sLSTM's recurrent product, where ``"bf16"`` casts the state and
-``r`` to bf16 first; everywhere else it names the dtype the product has
-anyway.
+``r`` to bf16 first; on a mesh it is also the dtype in which ``rp_einsum``
+sums a row-parallel product's partial sums.  On a mesh the RG-LRU and mLSTM
+projections keep their width on ``model`` (``ashard``), the mLSTM's
+quadratic form its heads or, where they do not divide the axis, its q
+chunk, as ``repro``'s; the cumulative log-forget bias runs on each rank's
+whole time axis.
 """
 from __future__ import annotations
 
@@ -28,7 +32,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import pick_chunk
-from repro_torch.models.layers import ParamDef, _gelu, causal_conv1d, einsum_f32
+from repro_torch.models.layers import (
+    ParamDef, _gelu, ashard, causal_conv1d, const, einsum_f32, local_rows, mesh_full,
+    model_divides, rp_einsum)
 
 NEG_INF = -1e30
 
@@ -42,15 +48,15 @@ def rglru_defs(cfg: ModelConfig) -> dict:
     w = cfg.rnn_width or d
     k = cfg.conv1d_width
     return {
-        "wx": ParamDef((d, w)),
-        "wgate": ParamDef((d, w)),
-        "conv_w": ParamDef((w, k), scale=0.5),
-        "wa": ParamDef((w, w)),
-        "ba": ParamDef((w,), init="zeros"),
-        "wi": ParamDef((w, w)),
-        "bi": ParamDef((w,), init="zeros"),
-        "lam": ParamDef((w,), init="lru_lambda"),
-        "wout": ParamDef((w, d)),
+        "wx": ParamDef((d, w), ("embed", "rnn")),
+        "wgate": ParamDef((d, w), ("embed", "rnn")),
+        "conv_w": ParamDef((w, k), ("rnn", None), scale=0.5),
+        "wa": ParamDef((w, w), ("rnn", None)),
+        "ba": ParamDef((w,), (None,), init="zeros"),
+        "wi": ParamDef((w, w), ("rnn", None)),
+        "bi": ParamDef((w,), (None,), init="zeros"),
+        "lam": ParamDef((w,), (None,), init="lru_lambda"),
+        "wout": ParamDef((w, d), ("rnn", "embed")),
     }
 
 
@@ -93,13 +99,13 @@ def affine_scan(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.T
 
 def rglru_train(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D)."""
-    gate = _gelu(torch.einsum("bsd,dw->bsw", x, params["wgate"]))
-    u = torch.einsum("bsd,dw->bsw", x, params["wx"])
+    gate = _gelu(ashard(torch.einsum("bsd,dw->bsw", x, params["wgate"]), "batch", None, "model"))
+    u = ashard(torch.einsum("bsd,dw->bsw", x, params["wx"]), "batch", None, "model")
     u, _ = causal_conv1d(u, params["conv_w"])
     a, b = _rglru_gates(params, u)
     _, h = affine_scan(a, b)
     h = h.to(x.dtype)
-    return torch.einsum("bsw,wd->bsd", gate * h, params["wout"])
+    return rp_einsum("bsw,wd->bsd", gate * h, params["wout"], cfg.reduce_dtype)
 
 
 def rglru_decode(
@@ -133,16 +139,16 @@ def mlstm_defs(cfg: ModelConfig) -> dict:
     p = int(d * cfg.mlstm_proj_factor)
     k = cfg.conv1d_width
     return {
-        "wup": ParamDef((d, p)),
-        "wz": ParamDef((d, p)),
-        "conv_w": ParamDef((p, k), scale=0.5),
-        "wq": ParamDef((p, p)),
-        "wk": ParamDef((p, p)),
-        "wv": ParamDef((p, p)),
-        "wif": ParamDef((p, 2 * cfg.num_heads), scale=0.1),
-        "bif": ParamDef((2 * cfg.num_heads,), init="zeros"),
-        "skip": ParamDef((p,), init="ones"),
-        "wdown": ParamDef((p, d)),
+        "wup": ParamDef((d, p), ("embed", "mlp")),
+        "wz": ParamDef((d, p), ("embed", "mlp")),
+        "conv_w": ParamDef((p, k), ("mlp", None), scale=0.5),
+        "wq": ParamDef((p, p), ("mlp", None)),
+        "wk": ParamDef((p, p), ("mlp", None)),
+        "wv": ParamDef((p, p), ("mlp", None)),
+        "wif": ParamDef((p, 2 * cfg.num_heads), ("mlp", None), scale=0.1),
+        "bif": ParamDef((2 * cfg.num_heads,), (None,), init="zeros"),
+        "skip": ParamDef((p,), (None,), init="ones"),
+        "wdown": ParamDef((p, d), ("mlp", "embed")),
     }
 
 
@@ -150,8 +156,8 @@ def _mlstm_qkv_gates(params, cfg, x):
     """q, k, v (B, S, H, hd), the input and forget gates' pre-activations
     (B, S, H) f32, the output gate ``z`` and the conv branch ``uc``."""
     h = cfg.num_heads
-    u = torch.einsum("bsd,dp->bsp", x, params["wup"])
-    z = torch.einsum("bsd,dp->bsp", x, params["wz"])
+    u = ashard(torch.einsum("bsd,dp->bsp", x, params["wup"]), "batch", None, "model")
+    z = ashard(torch.einsum("bsd,dp->bsp", x, params["wz"]), "batch", None, "model")
     uc, _ = causal_conv1d(u, params["conv_w"])
     uc = F.silu(uc)
     q = torch.einsum("bsp,pr->bsr", uc, params["wq"])
@@ -169,7 +175,8 @@ def mlstm_train(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
     q, k, v, ig, fg, z, uc = _mlstm_qkv_gates(params, cfg, x)
     b, s, h, hd = q.shape
     scale = hd**-0.5
-    big_f = torch.cumsum(F.logsigmoid(fg), dim=1)  # F_t = sum_{tau<=t} log f
+    # F_t = sum_{tau<=t} log f, along each rank's whole time axis
+    big_f = local_rows(lambda t: torch.cumsum(F.logsigmoid(t), dim=1), fg)
     c = pick_chunk(s, cfg.attn_chunk)
     n = s // c
     qg, kg, vg = (t.reshape(b, n, c, h, hd) for t in (q, k, v))
@@ -177,20 +184,28 @@ def mlstm_train(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
     fg_ = big_f.reshape(b, n, c, h).transpose(2, 3)
     ig_ = ig.reshape(b, n, c, h).transpose(2, 3)
     dev = x.device
+    # xLSTM head counts (4) rarely divide the model axis: on a mesh the
+    # quadratic form then shards its q-chunk dim instead
+    if model_divides(h):
+        q_ax, s_ax, a_ax = ("batch", None, "model", None), ("batch", "model", None), \
+            ("batch", "model", None, None)
+    else:
+        q_ax, s_ax, a_ax = ("batch", "model", None, None), ("batch", None, "model"), \
+            ("batch", None, "model", None)
     outs = []
     for qi in range(n):
-        m = torch.full((b, h, c), NEG_INF, dtype=torch.float32, device=dev)
-        num = torch.zeros((b, h, c, hd), dtype=torch.float32, device=dev)
-        den = torch.zeros((b, h, c), dtype=torch.float32, device=dev)
-        q_blk, fq = qg[:, qi], fg_[:, qi]
+        q_blk, fq = ashard(qg[:, qi], *q_ax), fg_[:, qi]
+        m = mesh_full(q_blk, (b, h, c), NEG_INF, torch.float32, *s_ax)
+        num = mesh_full(q_blk, (b, h, c, hd), 0.0, torch.float32, *a_ax)
+        den = mesh_full(q_blk, (b, h, c), 0.0, torch.float32, *s_ax)
         q_idx = qi * c + torch.arange(c, device=dev)
         for ki in range(qi + 1):
             kc, vc = kg[:, ki], vg[:, ki]
             # decay bias D_ij = F_i - F_j + i_j  (j <= i)
             dmat = fq[..., :, None] - fg_[:, ki][..., None, :] + ig_[:, ki][..., None, :]
             k_idx = ki * c + torch.arange(c, device=dev)
-            msk = k_idx[None, :] <= q_idx[:, None]
-            dmat = torch.where(msk, dmat, NEG_INF)
+            msk = const(q_blk, k_idx[None, :] <= q_idx[:, None])
+            dmat = torch.where(msk, dmat, const(q_blk, torch.tensor(NEG_INF, device=dev)))
             m_new = torch.maximum(m, torch.amax(dmat, dim=-1))
             w = torch.exp(dmat - m_new[..., None])
             sw = einsum_f32("bqhd,bchd->bhqc", q_blk, kc) * scale * w
@@ -203,7 +218,7 @@ def mlstm_train(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
     y = torch.cat(outs, dim=1).reshape(b, s, h * hd).to(x.dtype)
     y = y + params["skip"] * uc
     y = y * F.silu(z)
-    return torch.einsum("bsp,pd->bsd", y, params["wdown"])
+    return rp_einsum("bsp,pd->bsd", y, params["wdown"], cfg.reduce_dtype)
 
 
 def mlstm_decode(params, cfg: ModelConfig, x: torch.Tensor, state: dict
@@ -266,12 +281,12 @@ def slstm_defs(cfg: ModelConfig) -> dict:
     hd = d // h
     up = int(d * cfg.slstm_proj_factor)
     return {
-        "wx": ParamDef((d, 4 * d), scale=0.5),
-        "bx": ParamDef((4 * d,), init="zeros"),
-        "r": ParamDef((h, hd, 4 * hd), scale=0.5),
-        "wup": ParamDef((d, up)),
-        "wgate": ParamDef((d, up)),
-        "wdown": ParamDef((up, d)),
+        "wx": ParamDef((d, 4 * d), ("embed", "mlp"), scale=0.5),
+        "bx": ParamDef((4 * d,), (None,), init="zeros"),
+        "r": ParamDef((h, hd, 4 * hd), (None, None, None), scale=0.5),
+        "wup": ParamDef((d, up), ("embed", "mlp")),
+        "wgate": ParamDef((d, up), ("embed", "mlp")),
+        "wdown": ParamDef((up, d), ("mlp", "embed")),
     }
 
 
@@ -290,7 +305,7 @@ def _slstm_cell(cfg, r, xt, state):
     nh = cfg.num_heads
     hd = cfg.d_model // nh
     # recurrent contribution (block-diagonal per head)
-    rec = torch.einsum("bhk,hkg->bhg", h.reshape(b, nh, hd).to(r.dtype), r)
+    rec = rp_einsum("bhk,hkg->bhg", h.reshape(b, nh, hd).to(r.dtype), r, cfg.reduce_dtype)
     z, i, f, o = torch.split(xt.float() + rec.reshape(b, 4 * cfg.d_model).float(),
                              cfg.d_model, dim=-1)
     m_new = torch.maximum(f + m, i)  # exponential i, sigmoid-exp f stabilizer
@@ -312,7 +327,9 @@ def _slstm_mlp(params, hs: torch.Tensor) -> torch.Tensor:
 def slstm_train(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     b, s, d = x.shape
     xa = torch.einsum("bsd,dg->bsg", x, params["wx"]) + params["bx"]
-    state = slstm_init_state(cfg, b, x.dtype, x.device)
+    # the state in the activations' batch layout on a mesh
+    state = {k: mesh_full(x, (b, d), v, torch.float32, "batch", None)
+             for k, v in SLSTM_INIT.items()}
     r = params["r"].to(_rec_dtype(cfg))
     hs = []
     for t in range(s):
@@ -328,12 +345,10 @@ def slstm_decode(params, cfg: ModelConfig, x: torch.Tensor, state: dict
     return _slstm_mlp(params, new["h"][:, None].to(x.dtype)), new
 
 
+#: the sLSTM's initial state, each entry filled with its value
+SLSTM_INIT = {"h": 0.0, "c": 0.0, "n": 1e-6, "m": 0.0}
+
+
 def slstm_init_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
-    d = cfg.d_model
-    f32 = dict(dtype=torch.float32, device=device)
-    return {
-        "h": torch.zeros((batch, d), **f32),
-        "c": torch.zeros((batch, d), **f32),
-        "n": torch.ones((batch, d), **f32) * 1e-6,
-        "m": torch.zeros((batch, d), **f32),
-    }
+    return {k: torch.full((batch, cfg.d_model), v, dtype=torch.float32, device=device)
+            for k, v in SLSTM_INIT.items()}

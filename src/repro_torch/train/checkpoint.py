@@ -13,7 +13,11 @@ Guarantees:
   - async: ``save_async`` copies the leaves to host memory synchronously and
     writes in a background thread, one save in flight at a time;
   - a restore checks the fingerprint, and each leaf's shape against the
-    template, and places each leaf on its template leaf's device and dtype.
+    template, and places each leaf on its template leaf's device and dtype;
+  - elastic restore: a DTensor leaf is written whole (every rank gathers it,
+    rank 0 writes), and read on the host and placed on the *target* mesh —
+    the template leaf's, or the ``shardings`` tree's — so a checkpoint
+    written on one mesh restores onto any other.
 
 numpy holds no bfloat16 without ``ml_dtypes`` (which the card's machine
 does not have), so a bf16 leaf is stored as its ``uint16`` words and its
@@ -29,6 +33,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 def flatten(tree) -> list:
@@ -37,6 +43,16 @@ def flatten(tree) -> list:
         return [x for k in sorted(tree) for x in flatten(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in flatten(v)]
+    return [tree]
+
+
+def _leaves_like(tree, template) -> list:
+    """``tree``'s nodes at ``template``'s leaves, in the fixed order (a
+    node there may be anything, a ``(mesh, placements)`` pair too)."""
+    if isinstance(template, dict):
+        return [x for k in sorted(template) for x in _leaves_like(tree[k], template[k])]
+    if isinstance(template, (list, tuple)):
+        return [x for v, t in zip(tree, template) for x in _leaves_like(v, t)]
     return [tree]
 
 
@@ -55,8 +71,17 @@ def _leaf_name(i: int) -> str:
     return f"leaf_{i:05d}.npy"
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or the only
+    process."""
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def _to_host(x) -> tuple[np.ndarray, str]:
-    """A leaf as (host copy, dtype name); bf16 as its 16-bit words."""
+    """A leaf as (host copy, dtype name); bf16 as its 16-bit words; a
+    DTensor whole (a collective: every rank of its mesh calls it)."""
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         t = x.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -77,11 +102,14 @@ class CheckpointManager:
     # -- writing -----------------------------------------------------------
     def save(self, step: int, tree: Any, extra: Optional[dict] = None) -> str:
         host = [_to_host(x) for x in flatten(tree)]
-        return self._write(step, host, extra or {})
+        path = os.path.join(self.directory, f"step_{step:08d}")
+        return self._write(step, host, extra or {}) if _writer() else path
 
     def save_async(self, step: int, tree: Any, extra: Optional[dict] = None) -> None:
         self.wait()  # one in-flight save at a time
         host = [_to_host(x) for x in flatten(tree)]  # snapshot now
+        if not _writer():
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, host, extra or {}), daemon=True
         )
@@ -132,11 +160,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any, step: Optional[int] = None):
+    def restore(self, template: Any, step: Optional[int] = None, shardings: Any = None):
         """Restore into the structure of ``template`` (the latest step by
         default).  A tensor leaf comes back as a tensor on its template
         leaf's device and in its dtype, any other leaf as a numpy array in
-        the template's dtype.  Returns (tree, manifest)."""
+        the template's dtype.  ``shardings``: a tree of the template's
+        structure whose leaves are ``(mesh, placements)`` or None; a leaf
+        with one is placed on that mesh (the elastic rescale), as is a
+        template leaf that is a DTensor.  Returns (tree, manifest)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -152,8 +183,10 @@ class CheckpointManager:
         if len(flat_t) != manifest["num_leaves"]:
             raise ValueError(f"checkpoint has {manifest['num_leaves']} leaves, template "
                              f"{len(flat_t)}")
+        flat_s = (_leaves_like(shardings, template) if shardings is not None
+                  else [None] * len(flat_t))
         leaves = []
-        for i, (t, dt) in enumerate(zip(flat_t, manifest["dtypes"])):
+        for i, (t, dt, sh) in enumerate(zip(flat_t, manifest["dtypes"], flat_s)):
             arr = np.load(os.path.join(d, _leaf_name(i)))
             if tuple(arr.shape) != tuple(np.shape(t)):
                 raise ValueError(f"leaf {i}: checkpoint shape {arr.shape}, template "
@@ -162,7 +195,12 @@ class CheckpointManager:
                 x = torch.from_numpy(arr.view(np.int16) if dt == "bfloat16" else arr)
                 if dt == "bfloat16":
                     x = x.view(torch.bfloat16)
-                leaves.append(x.to(device=t.device, dtype=t.dtype))
+                if sh is None and isinstance(t, DTensor):
+                    sh = (t.device_mesh, t.placements)
+                x = x.to(device=t.device, dtype=t.dtype)
+                if sh is not None:
+                    x = distribute_tensor(x, *sh, src_data_rank=None)
+                leaves.append(x)
             else:
                 leaves.append(arr.astype(np.asarray(t).dtype))
         return _unflatten(template, iter(leaves)), manifest

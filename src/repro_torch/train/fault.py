@@ -8,12 +8,13 @@ The trainer composes three mechanisms:
      early checkpoint so the swap loses nothing).
   2. ``run_with_recovery`` — wraps the step; on failure restores the last
      checkpoint and replays (failures injected in tests).
-  3. ``largest_mesh_shape`` — the (data, model) rectangle to shrink to
-     after node loss.  ``repro``'s ``elastic_remesh``, which builds that
-     mesh from the visible devices, waits for the port's ``launch``
-     package (ROADMAP queue 1, 3b).
+  3. ``elastic_remesh`` — rebuilds the mesh from the ranks of the current
+     process group: the largest full (data, model) rectangle
+     (``largest_mesh_shape``); ``CheckpointManager.restore`` with
+     ``shardings`` on it completes an elastic rescale (node loss → shrink →
+     continue).
 
-The port of ``repro.train.fault`` (numpy only).
+The port of ``repro.train.fault``.
 """
 from __future__ import annotations
 
@@ -82,3 +83,15 @@ def largest_mesh_shape(n_devices: int, model_axis: int) -> tuple:
         model //= 2
     data = n_devices // model
     return (data, model)
+
+
+def elastic_remesh(model_axis: int = 1, device: str = "cuda"):
+    """The best ``(data, model)`` mesh over the ranks of the current process
+    group (``launch.mesh.init_world`` starts one when none is initialized)."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from repro_torch.launch.mesh import init_world, mesh_over  # noqa: PLC0415
+
+    init_world(device)
+    shape = largest_mesh_shape(dist.get_world_size(), model_axis)
+    return mesh_over(device, shape, ("data", "model"))

@@ -9,7 +9,9 @@ parameter in bf16).  Adafactor (β1 = 0) keeps a factored second moment
 
 Parameters, gradients and state are dicts keyed by parameter name
 (``model.named_parameters()``); the update writes the parameters and the
-state in place.  The host computes the step's scalars (learning rate,
+state in place.  On a device mesh they are DTensors: the state takes each
+parameter's layout (:func:`opt_state_specs`), and the global gradient norm
+is a reduction over the whole mesh.  The host computes the step's scalars (learning rate,
 bias corrections) in f32, as ``repro`` traces them.
 """
 from __future__ import annotations
@@ -18,6 +20,9 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import P, placements, spec_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,18 +56,35 @@ def _factored(p, min_dim):
     return p.ndim >= 2 and p.shape[-1] >= min_dim and p.shape[-2] >= min_dim
 
 
+def state_zeros(p, drop: int | None = None):
+    """f32 zeros of ``p``'s shape with dimension ``drop`` removed, on its
+    device; for a DTensor ``p``, in its layout without that dimension."""
+    shape = tuple(p.shape)
+    if drop is not None:
+        shape = shape[:drop] + shape[drop + 1:]
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    from torch.distributed.tensor import zeros  # noqa: PLC0415
+
+    spec = (list(spec_of(p.placements, p.device_mesh)) + [None] * p.ndim)[:p.ndim]
+    if drop is not None:
+        del spec[drop]
+    return zeros(shape, dtype=torch.float32, device_mesh=p.device_mesh,
+                 placements=placements(P(*spec), p.device_mesh))
+
+
 def opt_init(cfg: OptConfig, params: dict) -> dict:
-    """Zero state for ``params`` (name → tensor), f32, on their devices."""
-    zeros = lambda shape, p: torch.zeros(shape, dtype=torch.float32, device=p.device)
+    """Zero state for ``params`` (name → tensor), f32, on their devices (in
+    :func:`opt_state_specs`' layouts for DTensor parameters)."""
     if cfg.kind == "adafactor":
         def init(p):
             if _factored(p, cfg.min_dim_factored):
-                return {"vr": zeros(p.shape[:-1], p), "vc": zeros(p.shape[:-2] + p.shape[-1:], p)}
-            return {"v": zeros(p.shape, p)}
+                return {"vr": state_zeros(p, p.ndim - 1), "vc": state_zeros(p, p.ndim - 2)}
+            return {"v": state_zeros(p)}
 
         return {"v": {n: init(p) for n, p in params.items()}}
-    return {"mu": {n: zeros(p.shape, p) for n, p in params.items()},
-            "nu": {n: zeros(p.shape, p) for n, p in params.items()}}
+    return {"mu": {n: state_zeros(p) for n, p in params.items()},
+            "nu": {n: state_zeros(p) for n, p in params.items()}}
 
 
 @torch.no_grad()
@@ -117,3 +139,19 @@ def opt_update(cfg: OptConfig, grads: dict, state: dict, params: dict, step: int
         delta = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps) + cfg.weight_decay * p32
         p.copy_((p32 - lr * delta).to(p.dtype))
     return state, gnorm
+
+
+def opt_state_specs(cfg: OptConfig, param_specs: dict, params_shape: dict) -> dict:
+    """Specs of the optimizer state from the parameters' (name → spec):
+    AdamW's moments take the parameter's spec; Adafactor's factored ``vr``
+    and ``vc`` drop the factored dimension.  ``params_shape``: name → a
+    tensor of the parameter's shape (meta) to decide the factoring."""
+    if cfg.kind == "adafactor":
+        def derive(spec, p):
+            if _factored(p, cfg.min_dim_factored):
+                parts = list(spec) + [None] * (p.ndim - len(spec))
+                return {"vr": P(*parts[:-1]), "vc": P(*(parts[:-2] + parts[-1:]))}
+            return {"v": spec}
+
+        return {"v": {n: derive(param_specs[n], params_shape[n]) for n in param_specs}}
+    return {"mu": dict(param_specs), "nu": dict(param_specs)}

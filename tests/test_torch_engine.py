@@ -173,7 +173,8 @@ lm_step = make_train_step(lm_cfg, OptConfig(), device="cpu")
 _, _, lm_metrics = lm_step(lm, opt_init(OptConfig(), dict(lm.named_parameters())), 0,
                            TokenPipeline(lm_cfg.vocab_size, 4, 8, corpus=corpus).next())
 import tempfile
-from repro_torch.launch import train as launch_train
+from repro_torch.distributed import sharding
+from repro_torch.launch import mesh as launch_mesh, train as launch_train
 with tempfile.TemporaryDirectory() as ckpt:
     launched = launch_train.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu",
                                   "--steps", "1", "--batch", "2", "--seq", "8",

@@ -9,6 +9,9 @@ wrapped to record each step's loss and gradient norm, and compiled once per
 config for the whole file.  The port's launcher starts from ``repro``'s
 initial tree, carried across by ``models/convert.py`` in place of its
 ``build_model``.
+
+In one process the port's launcher runs the steps without a mesh and starts
+no process group (the 4-rank launcher runs in ``test_torch_mesh_ranks.py``).
 """
 import os
 import shutil
@@ -154,10 +157,27 @@ def test_reference_restart_makes_one_update_more(reference, tmp_path):
 
 @pytest.mark.parametrize("flag", ["--production-mesh", "--multipod", "--compressed"])
 def test_mesh_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="3b-ii"):
-        launch.main(["--arch", "gemma3_1b", "--smoke", "--device", "cpu", flag,
-                     "--ckpt-dir", str(tmp_path)])
-    assert not os.listdir(tmp_path)  # it raised before writing anything
+    """``--production-mesh`` raises without its 256 ranks, and with
+    ``--multipod`` without 512, before writing anything; ``--multipod``
+    alone only shapes the production mesh, and ``--compressed`` without a
+    pod axis is the plain step: each gives the plain run's losses.  No run
+    leaves a process group."""
+    argv = ["--arch", "gemma3_1b", *SMALL, "--device", "cpu", "--steps", "2"]
+    if flag == "--production-mesh":
+        with pytest.raises(RuntimeError, match="needs 256 ranks"):
+            launch.main([*argv, flag, "--ckpt-dir", str(tmp_path)])
+        assert not os.listdir(tmp_path)  # it raised before writing anything
+        return
+    if flag == "--multipod":
+        with pytest.raises(RuntimeError, match="needs 512 ranks"):
+            launch.main([*argv, "--production-mesh", flag, "--ckpt-dir", str(tmp_path)])
+        assert not os.listdir(tmp_path)
+    plain = launch.main([*argv, "--ckpt-dir", str(tmp_path / "plain")])
+    flagged = launch.main([*argv, flag, "--ckpt-dir", str(tmp_path / "flagged")])
+    assert len(plain["losses"]) == 2
+    assert flagged["losses"] == plain["losses"]
+    assert flagged["grad_norms"] == plain["grad_norms"]
+    assert flagged["mesh"] is None and not torch.distributed.is_initialized()
 
 
 def test_launcher_raises_without_a_card(monkeypatch, tmp_path):
