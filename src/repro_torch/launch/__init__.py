@@ -1,2 +1,4 @@
-"""Entry points of the LM harness: the training launcher (the port of
-``repro.launch``; its mesh, shape and dry-run modules are not ported yet)."""
+"""Entry points of the LM harness, the port of ``repro.launch``: the training
+launcher (``train``), the device meshes (``mesh``) and the dry run on the
+production meshes (``dryrun``, with its cells in ``shapes`` and its op
+counter in ``cost``)."""

@@ -22,8 +22,8 @@ from repro_torch.configs.base import ModelConfig
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.layers import (
-    ParamDef, ashard, const, einsum_f32, mesh_full, model_divides, rms_norm, rope, rp_einsum,
-    softcap)
+    ParamDef, ashard, const, einsum_f32, local_span, mesh_full, model_divides, rms_norm, rope,
+    rp_einsum, softcap, splittable)
 
 NEG_INF = -1e30
 
@@ -175,7 +175,10 @@ def attention_train(
     """Full-sequence attention (train / prefill). x: (B, S, D)."""
     q, k, v = _qkv(params, cfg, x, positions)
     out = blocked_attention(q, k, v, cfg, window=window)
-    return rp_einsum("bshk,hkd->bsd", out, params["wo"], cfg.reduce_dtype)
+    # back in the activations' layout (sequence-block attention leaves each
+    # rank a stride of every query chunk)
+    return ashard(rp_einsum("bshk,hkd->bsd", out, params["wo"], cfg.reduce_dtype),
+                  "batch", None, None)
 
 
 def _write_slot(cache: torch.Tensor, slot: int, val: torch.Tensor) -> None:
@@ -185,16 +188,13 @@ def _write_slot(cache: torch.Tensor, slot: int, val: torch.Tensor) -> None:
     if not isinstance(cache, DTensor):
         cache[:, slot] = val.to(cache.dtype)
         return
-    from torch.distributed.tensor._utils import (  # noqa: PLC0415
-        compute_local_shape_and_global_offset)
-
     mesh = cache.device_mesh
     row = [Replicate() if p.is_shard(1) else Shard(p.dim - 1) if p.is_shard() and p.dim > 1
            else p for p in cache.placements]
     local_val = val.to(cache.dtype).redistribute(mesh, row).to_local()
-    shape, offset = compute_local_shape_and_global_offset(cache.shape, mesh, cache.placements)
-    if offset[1] <= slot < offset[1] + shape[1]:
-        cache.to_local()[:, slot - offset[1]] = local_val
+    lo, n = local_span(cache, 1)
+    if lo <= slot < lo + n:
+        cache.to_local()[:, slot - lo] = local_val
 
 
 def attention_decode(
@@ -219,7 +219,7 @@ def attention_decode(
     _write_slot(cache_v, slot, v[:, 0])
     kvh = cache_k.shape[2]
     g = q.shape[2] // kvh
-    qh = q.reshape(b, 1, kvh, g, -1)
+    qh = splittable(q, 2, kvh).reshape(b, 1, kvh, g, -1)
     s = einsum_f32("bqkgd,bckd->bkgqc", qh, cache_k) * (cfg.head_dim**-0.5)
     s = softcap(s, cfg.attn_softcap)
     kv_pos = torch.arange(s_max, device=x.device)

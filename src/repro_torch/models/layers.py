@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -225,6 +225,40 @@ def from_local(t: torch.Tensor, mesh, placements, shape: tuple) -> DTensor:
                               stride=stride)
 
 
+def local_span(t: DTensor, dim: int) -> tuple[int, int]:
+    """``(offset, length)`` of this rank's shard of ``t`` along ``dim``, by
+    arithmetic on the mesh coordinate: DTensor splits a dimension in
+    ``torch.chunk``'s pieces, once for each mesh dimension that shards it,
+    in mesh-dimension order.  Unlike DTensor's own offsets it reads no
+    tensor, so it also holds under ``FakeTensorMode``."""
+    mesh = t.device_mesh
+    coord = mesh.get_coordinate()
+    lo, n = 0, t.shape[dim]
+    for i, p in enumerate(t.placements):
+        if p.is_shard(dim):
+            chunk = -(-n // mesh.size(i))
+            start = min(coord[i] * chunk, n)
+            lo, n = lo + start, min(n, start + chunk) - start
+    return lo, n
+
+
+def splittable(x: torch.Tensor, dim: int, outer: int) -> torch.Tensor:
+    """``x`` in a layout that a reshape of dimension ``dim`` into ``(outer,
+    -1)`` keeps: a DTensor that splits ``dim`` over a number of ranks that
+    does not divide ``outer`` gets ``dim`` whole first (DTensor refuses such
+    a reshape).  The identity otherwise, and on a plain tensor."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    ranks = 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            ranks *= mesh.size(i)
+    if outer % ranks == 0:
+        return x
+    return x.redistribute(mesh, [Replicate() if p.is_shard(dim) else p for p in x.placements])
+
+
 def const(like: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """``t``, a tensor a layer computes for itself from no activation
     (positions, frequencies, masks), replicated over ``like``'s mesh when
@@ -296,6 +330,45 @@ def einsum_f32(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(spec, a.float(), b.float())
 
 
+def _strided_rows(spec: str, x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether ``x`` is a DTensor whose rows are split in strides (the
+    sequence of sequence-block attention's output: each rank's share of
+    every query chunk) along dimensions the einsum keeps in place, and ``w``
+    is whole on every rank.  DTensor's own einsum fails on such rows: it
+    flattens them into one dimension, and its view rules lose the stride."""
+    from torch.distributed.tensor.placement_types import _StridedShard  # noqa: PLC0415
+
+    if not isinstance(x, DTensor) or not isinstance(w, DTensor):
+        return False
+    if not any(isinstance(p, _StridedShard) for p in x.placements):
+        return False
+    xs, out = spec.split("->")[0].split(",")[0], spec.split("->")[1]
+    for p in x.placements:
+        if p.is_partial():
+            return False
+        dim = getattr(p, "dim", None)
+        if dim is not None and (xs[dim] not in out or out.index(xs[dim]) != dim):
+            return False
+    return all(p.is_replicate() for p in w.placements)
+
+
+def _einsum_rows(spec: str, x: DTensor, w: DTensor) -> DTensor:
+    """``einsum(spec, x, w)`` on each rank's own rows of ``x``
+    (:func:`_strided_rows`), in ``x``'s layout; ``w``'s gradient is partial
+    over the ranks that hold other rows."""
+    ins, out = spec.split("->")
+    xs, ws = ins.split(",")
+    mesh = x.device_mesh
+    rows = [i for i, p in enumerate(x.placements) if not p.is_replicate()]
+    wl = w.to_local(grad_placements=[Partial() if i in rows else Replicate()
+                                     for i in range(mesh.ndim)])
+    y = torch.einsum(spec, x.to_local(), wl)
+    sizes = dict(zip(xs, x.shape)) | dict(zip(ws, w.shape))
+    shape = tuple(sizes[c] for c in out)
+    return DTensor.from_local(y, mesh, x.placements, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def rp_einsum(spec: str, x: torch.Tensor, w: torch.Tensor, reduce_dtype: str = "f32"
               ) -> torch.Tensor:
     """Row-parallel einsum: a product that contracts a model-sharded
@@ -303,6 +376,8 @@ def rp_einsum(spec: str, x: torch.Tensor, w: torch.Tensor, reduce_dtype: str = "
     ("f32": the partials in f32, the sum cast back to ``x``'s dtype;
     "bf16": the bf16 products' partials).  Where no rank holds a partial sum
     (one device, or the contraction whole on each rank), ``torch.einsum``."""
+    if _strided_rows(spec, x, w):
+        return _einsum_rows(spec, x, w)
     if not _contraction_split(spec, x) or reduce_dtype == "bf16" or x.dtype == torch.float32:
         return torch.einsum(spec, x, w)
     y = einsum_f32(spec, x, w)

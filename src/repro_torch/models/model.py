@@ -36,8 +36,8 @@ from repro_torch.graph.csr import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.attention import pick_chunk
 from repro_torch.models.layers import (
-    ParamDef, ParamTree, ashard, axes_tree, const, einsum_f32, from_local, rms_norm, shape_tree,
-    softcap, torch_dtype)
+    ParamDef, ParamTree, ashard, axes_tree, const, einsum_f32, from_local, local_span, rms_norm,
+    shape_tree, softcap, torch_dtype)
 
 
 def model_defs(cfg: ModelConfig) -> dict:
@@ -154,17 +154,13 @@ def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     others), and the rows are summed over the slices."""
     if not isinstance(table, DTensor):
         return table[tokens.long()]
-    from torch.distributed.tensor._utils import (  # noqa: PLC0415
-        compute_local_shape_and_global_offset)
-
     mesh = table.device_mesh
     table = table.redistribute(mesh, [p if p.is_shard(0) else Replicate()
                                       for p in table.placements])  # the fsdp dim gathered
     tokens = const(table, tokens)
     split = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
     batch = [i for i, p in enumerate(tokens.placements) if p.is_shard(0)]
-    shape, offset = compute_local_shape_and_global_offset(table.shape, mesh, table.placements)
-    lo, n = offset[0], shape[0]
+    lo, n = local_span(table, 0)
     # the table's gradient is partial over the ranks that hold other rows
     t = table.to_local(grad_placements=[Partial() if i in batch else p
                                         for i, p in enumerate(table.placements)])
@@ -306,10 +302,12 @@ def _chunk_nll_split(xc, lc, head, cap):
     log-sum-exp is the max over the slices, then the sum of each slice's
     exponentials, each reduced over the ranks; the gold logit comes from
     the slice that holds the label (zero from the others), summed."""
-    from torch.distributed.tensor._utils import (  # noqa: PLC0415
-        compute_local_shape_and_global_offset)
-
     mesh = xc.device_mesh
+    # the rows as the batch splits them, each rank's rows whole (after a
+    # tail layer the sequence may still be split, as its attention left it)
+    rows = [p if p.is_shard(0) else Replicate() for p in xc.placements]
+    if rows != list(xc.placements):
+        xc = xc.redistribute(mesh, rows)
     lc = const(xc, lc).redistribute(mesh, xc.placements)
     split = [i for i, p in enumerate(head.placements) if p.is_shard(1)]
     batch = [i for i, p in enumerate(xc.placements) if p.is_shard(0)]
@@ -330,8 +328,7 @@ def _chunk_nll_split(xc, lc, head, cap):
                                        for i, p in enumerate(head.placements)])
     labels = lc.to_local()
     logits = softcap(einsum_f32("bcd,dv->bcv", x, w), cap)
-    shape, offset = compute_local_shape_and_global_offset(head.shape, mesh, head.placements)
-    lo, n = offset[1], shape[1]
+    lo, n = local_span(head, 1)
 
     def reduce(t, op):
         part = [Partial(op) if i in split else p for i, p in enumerate(row)]

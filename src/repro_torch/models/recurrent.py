@@ -34,7 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import pick_chunk
 from repro_torch.models.layers import (
     ParamDef, _gelu, ashard, causal_conv1d, const, einsum_f32, local_rows, mesh_full,
-    model_divides, rp_einsum)
+    model_divides, rp_einsum, splittable)
 
 NEG_INF = -1e30
 
@@ -238,7 +238,7 @@ def mlstm_decode(params, cfg: ModelConfig, x: torch.Tensor, state: dict
     hd = q.shape[-1] // hn
     q, k, v = (t.reshape(b, hn, hd) for t in (q[:, 0], k[:, 0], v[:, 0]))
     scale = hd**-0.5
-    logf = F.logsigmoid(fg[:, 0])  # (B,H)
+    logf = local_rows(F.logsigmoid, fg[:, 0])  # (B,H)
     m_new = torch.maximum(logf + state["m"], ig[:, 0])
     f_s = torch.exp(logf + state["m"] - m_new)
     i_s = torch.exp(ig[:, 0] - m_new)
@@ -305,7 +305,8 @@ def _slstm_cell(cfg, r, xt, state):
     nh = cfg.num_heads
     hd = cfg.d_model // nh
     # recurrent contribution (block-diagonal per head)
-    rec = rp_einsum("bhk,hkg->bhg", h.reshape(b, nh, hd).to(r.dtype), r, cfg.reduce_dtype)
+    rec = rp_einsum("bhk,hkg->bhg", splittable(h, 1, nh).reshape(b, nh, hd).to(r.dtype), r,
+                    cfg.reduce_dtype)
     z, i, f, o = torch.split(xt.float() + rec.reshape(b, 4 * cfg.d_model).float(),
                              cfg.d_model, dim=-1)
     m_new = torch.maximum(f + m, i)  # exponential i, sigmoid-exp f stabilizer

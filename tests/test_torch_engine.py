@@ -175,6 +175,7 @@ _, _, lm_metrics = lm_step(lm, opt_init(OptConfig(), dict(lm.named_parameters())
 import tempfile
 from repro_torch.distributed import sharding
 from repro_torch.launch import mesh as launch_mesh, train as launch_train
+from repro_torch.launch import cost as launch_cost, dryrun as launch_dryrun, shapes as launch_shapes
 with tempfile.TemporaryDirectory() as ckpt:
     launched = launch_train.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu",
                                   "--steps", "1", "--batch", "2", "--seq", "8",

@@ -419,3 +419,47 @@ def elastic_restore(rank, world, tmp, directory):
             "w": w.full_tensor().tolist(), "b": restored["b"].full_tensor().tolist(),
             "w_ranks": sorted(set(w.device_mesh.mesh.flatten().tolist())),
             "w_local": list(w.to_local().shape)}
+
+
+def fake_safe_layouts(rank, world, tmp):
+    """The layout helpers the dry run needed at the production meshes, on
+    real values of a (2, 2) mesh: ``rp_einsum`` on rows split in strides (as
+    sequence-block attention leaves them; its weight's gradient partial
+    over the rows), ``splittable`` before a reshape the heads' split does
+    not divide, and ``local_span`` against DTensor's own offsets."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.layers import local_span, rp_einsum, splittable
+
+    mesh = make_host_mesh(model=2, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    x5 = torch.randn(4, 2, 4, 3, 5, generator=gen)  # (B, nq, Cq, H, K)
+    w = torch.randn(3, 5, 6, generator=gen)
+    # each model rank a share of every query chunk
+    xs = distribute_tensor(x5, mesh, [Shard(0), Shard(2)]).reshape(4, 8, 3, 5)
+    wd = distribute_tensor(w, mesh, [Replicate(), Replicate()]).requires_grad_()
+    y = rp_einsum("bshk,hkd->bsd", xs, wd)
+    y.sum().backward()
+    wp = w.clone().requires_grad_()
+    yp = torch.einsum("bshk,hkd->bsd", x5.reshape(4, 8, 3, 5), wp)
+    yp.sum().backward()
+
+    q = torch.randn(4, 1, 6, 2, generator=gen)  # 6 heads in 3 groups, split over 2 ranks
+    qd = splittable(distribute_tensor(q, mesh, [Shard(0), Shard(2)]), 2, 3)
+    spans = []
+    for shape, pl in (((9, 7), [Shard(0), Shard(1)]), ((9, 7), [Shard(1), Shard(1)]),
+                      ((5, 3), [Shard(0), Shard(0)])):
+        t = distribute_tensor(torch.zeros(shape), mesh, pl)
+        local, offset = compute_local_shape_and_global_offset(t.shape, mesh, t.placements)
+        spans.append([[list(local_span(t, d)) for d in range(2)],
+                      [[offset[d], local[d]] for d in range(2)]])
+    return {"strided": any(isinstance(p, _StridedShard) for p in xs.placements),
+            "y_err": float((y.full_tensor() - yp).abs().max()),
+            "dw_err": float((wd.grad.full_tensor() - wp.grad).abs().max()),
+            "q_err": float((qd.reshape(4, 1, 3, 2, 2).full_tensor()
+                            - q.reshape(4, 1, 3, 2, 2)).abs().max()),
+            "spans": spans}
