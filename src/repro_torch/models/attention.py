@@ -50,11 +50,13 @@ def attn_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-def _qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+def _qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+         idle: tuple = ()):
+    """q, k, v; ``idle``: the mesh dimensions over which a projection whose
+    heads leave them idle splits its contraction instead (decode)."""
     heads = ("batch", None, "model", None)
-    q = ashard(torch.einsum("bsd,dhk->bshk", x, params["wq"]), *heads)
-    k = ashard(torch.einsum("bsd,dhk->bshk", x, params["wk"]), *heads)
-    v = ashard(torch.einsum("bsd,dhk->bshk", x, params["wv"]), *heads)
+    q, k, v = (ashard(rp_einsum("bsd,dhk->bshk", x, params[w], cfg.reduce_dtype, idle), *heads)
+               for w in ("wq", "wk", "wv"))
     if cfg.use_qk_norm:
         q = rms_norm(q, params["qnorm"], cfg.norm_eps)
         k = rms_norm(k, params["knorm"], cfg.norm_eps)
@@ -211,7 +213,9 @@ def attention_decode(
     slot.  Returns (out, cache_k, cache_v)."""
     b = x.shape[0]
     positions = torch.full((b, 1), cache_index, dtype=torch.int32, device=x.device)
-    q, k, v = _qkv(params, cfg, x, positions)
+    # a projection whose heads do not divide ``model`` splits its
+    # contraction over it, as GSPMD places it
+    q, k, v = _qkv(params, cfg, x, positions, idle=("model",))
     s_max = cache_k.shape[1]
     # a sliding-window layer's cache is a ring buffer: KV footprint O(window)
     slot = cache_index % s_max if window > 0 else min(cache_index, s_max - 1)
@@ -233,5 +237,5 @@ def attention_decode(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqc,bckd->bqkgd", p.to(cache_v.dtype), cache_v)
     out = out.reshape(b, 1, -1, cfg.head_dim)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    y = rp_einsum("bshk,hkd->bsd", out, params["wo"], cfg.reduce_dtype)
     return y, cache_k, cache_v

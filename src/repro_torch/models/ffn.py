@@ -21,9 +21,10 @@ def ffn_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
 
 def ffn_apply(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     act = ACTIVATIONS[cfg.activation]
-    h = ashard(torch.einsum("bsd,df->bsf", x, params["wi"]), "batch", None, "model")
+    h = ashard(rp_einsum("bsd,df->bsf", x, params["wi"], cfg.reduce_dtype), "batch", None, "model")
     if cfg.glu:
-        g = ashard(torch.einsum("bsd,df->bsf", x, params["wg"]), "batch", None, "model")
+        g = ashard(rp_einsum("bsd,df->bsf", x, params["wg"], cfg.reduce_dtype),
+                   "batch", None, "model")
         h = act(g) * h
     else:
         h = act(h)

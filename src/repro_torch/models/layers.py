@@ -8,8 +8,9 @@ the port's modules (``models.convert``).
 
 On a device mesh the parameters and activations are DTensors, and
 ``repro``'s sharding helpers become placements: ``ashard`` redistributes an
-activation to the layout ``repro``'s constraint names, ``rp_einsum`` reduces
-a row-parallel product's partial sums in its ``reduce_dtype``, and
+activation, and its gradient (:func:`grad_in`), to the layout ``repro``'s
+constraint names, ``rp_einsum`` reduces a product's partial sums where the
+product is, in its ``reduce_dtype``, as XLA places them, and
 :func:`const` / :func:`mesh_full` make the tensors a layer builds for itself
 (positions, masks, pads, accumulators) DTensors too.  Every one of them is
 the identity on a plain tensor, so without a mesh a layer computes what it
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -161,6 +162,25 @@ def activation_mesh(mesh, rules: dict | None = None):
         set_activation_mesh(*old)
 
 
+# mesh dimensions a decode step with a batch of 1 leaves idle: each product
+# splits its contraction over those that neither operand splits
+_IDLE_AXES: tuple = ()
+
+
+@contextlib.contextmanager
+def idle_axes(names: tuple):
+    """:func:`rp_einsum` splits a product's contraction over the mesh
+    dimensions ``names`` wherever neither operand splits it, for the block;
+    GSPMD's placement of a decode step whose batch does not split over the
+    FSDP axes."""
+    global _IDLE_AXES
+    old, _IDLE_AXES = _IDLE_AXES, tuple(names)
+    try:
+        yield
+    finally:
+        _IDLE_AXES = old
+
+
 def activation_spec(shape: tuple, logical: tuple) -> tuple:
     """``repro``'s ``ashard`` layout of a tensor of ``shape`` under the
     activation mesh: a spec entry per dimension ("batch" → the fsdp axes,
@@ -193,16 +213,51 @@ def activation_placements(shape: tuple, *logical) -> tuple:
     return placements(activation_spec(shape, logical), _ACTIVATION_MESH)
 
 
+class _GradIn(torch.autograd.Function):
+    """The identity, whose backward redistributes the gradient to
+    ``placements``: the transpose of a sharding constraint constrains the
+    cotangent to the same layout."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g, None
+
+
+def grad_in(x: torch.Tensor, placements=None) -> torch.Tensor:
+    """``x``, its gradient redistributed to ``placements`` (by default
+    ``x``'s own, partial sums reduced) before it flows on into the backward
+    of what made ``x``.  XLA reduces a product's partial sums where the
+    product is; DTensor carries them lazily, and a backward product on a
+    partial gradient runs on gathered weights.  The identity on a plain
+    tensor, without a gradient and on a mesh of one."""
+    if (not isinstance(x, DTensor) or not x.requires_grad or not torch.is_grad_enabled()
+            or x.device_mesh.size() == 1):
+        return x
+    if placements is None:
+        placements = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    return _GradIn.apply(x, tuple(placements))
+
+
 def ashard(x: torch.Tensor, *logical) -> torch.Tensor:
     """``repro``'s activation sharding constraint from logical axis names
-    ("batch", "model", None): ``x`` redistributed to that layout.  The
+    ("batch", "model", None): ``x`` redistributed to that layout, and its
+    gradient too, as ``with_sharding_constraint`` constrains the cotangent
+    (DTensor would otherwise carry a gradient's partial sums on through the
+    backward, into products it then runs on gathered weights).  The
     identity without an activation mesh and on a plain tensor."""
     if _ACTIVATION_MESH is None or not isinstance(x, DTensor):
         return x
     want = activation_placements(tuple(x.shape), *logical)
-    if tuple(x.placements) == want:
-        return x
-    return x.redistribute(x.device_mesh, want)
+    if tuple(x.placements) != want:
+        x = x.redistribute(x.device_mesh, want)
+    return grad_in(x, want)
 
 
 def model_divides(n: int) -> bool:
@@ -231,10 +286,14 @@ def local_span(t: DTensor, dim: int) -> tuple[int, int]:
     ``torch.chunk``'s pieces, once for each mesh dimension that shards it,
     in mesh-dimension order.  Unlike DTensor's own offsets it reads no
     tensor, so it also holds under ``FakeTensorMode``."""
-    mesh = t.device_mesh
+    return shard_span(t.device_mesh, t.placements, dim, t.shape[dim])
+
+
+def shard_span(mesh, placements, dim: int, n: int) -> tuple[int, int]:
+    """:func:`local_span` of a dimension of size ``n`` in ``placements``."""
     coord = mesh.get_coordinate()
-    lo, n = 0, t.shape[dim]
-    for i, p in enumerate(t.placements):
+    lo = 0
+    for i, p in enumerate(placements):
         if p.is_shard(dim):
             chunk = -(-n // mesh.size(i))
             start = min(coord[i] * chunk, n)
@@ -369,20 +428,81 @@ def _einsum_rows(spec: str, x: DTensor, w: DTensor) -> DTensor:
                               stride=torch.empty(shape, device="meta").stride())
 
 
-def rp_einsum(spec: str, x: torch.Tensor, w: torch.Tensor, reduce_dtype: str = "f32"
-              ) -> torch.Tensor:
-    """Row-parallel einsum: a product that contracts a model-sharded
-    dimension is a sum of per-rank partial sums, reduced in ``reduce_dtype``
-    ("f32": the partials in f32, the sum cast back to ``x``'s dtype;
-    "bf16": the bf16 products' partials).  Where no rank holds a partial sum
-    (one device, or the contraction whole on each rank), ``torch.einsum``."""
+def _align(spec: str, x: DTensor, w: DTensor, idle: tuple) -> tuple:
+    """``x`` and ``w`` laid out so that ``x`` splits each contracted
+    dimension as ``w`` does where ``x`` is whole on that mesh dimension (a
+    local slice: a weight kept in its FSDP shards turns the product into
+    partial sums, as GSPMD places it), and both split a contracted dimension
+    (the first the mesh dimension divides; else ``w`` one of its output
+    dimensions) over the mesh dimensions named in ``idle`` that neither
+    splits yet (a projection whose heads leave the ``model`` axis idle)."""
+    ins, out = spec.split("->")
+    xs, ws = ins.split(",")
+    if "." in xs or "." in ws:
+        return x, w
+    mesh = x.device_mesh
+    xp, wp = list(x.placements), list(w.placements)
+    shared = [c for c in xs if c in ws and c not in out]
+    names = mesh.mesh_dim_names or ()
+    for i in range(mesh.ndim):
+        if mesh.size(i) == 1 or not xp[i].is_replicate():
+            continue
+        if wp[i].is_shard() and ws[wp[i].dim] in shared:
+            xp[i] = Shard(xs.index(ws[wp[i].dim]))
+        elif wp[i].is_replicate() and names and names[i] in idle:
+            for c in shared:
+                if _local_size(x, xs.index(c), xp) % mesh.size(i) == 0:
+                    xp[i], wp[i] = Shard(xs.index(c)), Shard(ws.index(c))
+                    break
+            else:  # else a dimension only the weight and the output have
+                for c in (c for c in ws if c in out and c not in xs):
+                    if _local_size(w, ws.index(c), wp) % mesh.size(i) == 0:
+                        wp[i] = Shard(ws.index(c))
+                        break
+    if xp != list(x.placements):
+        x = x.redistribute(mesh, xp)
+    if wp != list(w.placements):
+        w = w.redistribute(mesh, wp)
+    return x, w
+
+
+def _local_size(x: DTensor, dim: int, placements) -> int:
+    """The extent of ``x``'s dimension ``dim`` on a rank under
+    ``placements``, where the splits divide it."""
+    n = x.shape[dim]
+    for i, p in enumerate(placements):
+        if p.is_shard(dim):
+            n //= x.device_mesh.size(i)
+    return n
+
+
+def rp_einsum(spec: str, x: torch.Tensor, w: torch.Tensor, reduce_dtype: str = "f32",
+              idle: tuple = ()) -> torch.Tensor:
+    """A product with a weight whose contraction may be split over ranks: a
+    row-parallel product (the contraction on ``model``), or one whose weight
+    stays in its FSDP shards (:func:`_align`; ``idle``: mesh dimensions to
+    split the contraction over where neither operand splits it).  Its
+    partial sums are reduced where it is, in ``reduce_dtype`` ("f32": the
+    partials in f32, the sum cast back to ``x``'s dtype; "bf16": the bf16
+    products' partials).  Where no rank holds a partial sum (one device, or
+    the contraction whole on each rank), ``torch.einsum``."""
     if _strided_rows(spec, x, w):
         return _einsum_rows(spec, x, w)
-    if not _contraction_split(spec, x) or reduce_dtype == "bf16" or x.dtype == torch.float32:
-        return torch.einsum(spec, x, w)
-    y = einsum_f32(spec, x, w)
+    if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
+        # an operand's partial sums reduced before the product: a product on
+        # partial sums keeps them, against whole weights
+        x = x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                           for p in x.placements])
+    if isinstance(x, DTensor) and isinstance(w, DTensor):
+        x, w = _align(spec, x, w, tuple(idle) + _IDLE_AXES)
+    if not _contraction_split(spec, x):
+        return grad_in(torch.einsum(spec, x, w))
+    if reduce_dtype == "bf16" or x.dtype == torch.float32:
+        y = torch.einsum(spec, x, w)
+    else:
+        y = einsum_f32(spec, x, w)
     pl = [Replicate() if p.is_partial() else p for p in y.placements]
-    return y.redistribute(y.device_mesh, pl).to(x.dtype)
+    return grad_in(y.redistribute(y.device_mesh, pl).to(x.dtype))
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

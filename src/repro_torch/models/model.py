@@ -16,7 +16,9 @@ by ``frontend_proj`` and prepended to the token embeddings.
 On a device mesh (``train.train_step.shard_model``) the parameters are
 DTensors in ``repro``'s layouts.  Each layer's weights are gathered over the
 FSDP axes at use (:func:`_gather_fsdp`, inside the checkpointed repetition so
-that backward gathers again), the activations are constrained where
+that backward gathers again; a decode step whose batch the FSDP axes do not
+split keeps the shards, each product then partial sums over them), the
+activations are constrained where
 ``repro`` constrains them, and two computations run as explicit regions on
 the local shards: the embedding lookup and the chunked cross entropy over a
 vocabulary split over ``model`` (each rank's vocabulary slice, its partial
@@ -31,13 +33,13 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import P, placements
+from repro_torch.distributed.sharding import P, fsdp_axes, placements
 from repro_torch.graph.csr import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.attention import pick_chunk
 from repro_torch.models.layers import (
-    ParamDef, ParamTree, ashard, axes_tree, const, einsum_f32, from_local, local_span, rms_norm,
-    shape_tree, softcap, torch_dtype)
+    ParamDef, ParamTree, ashard, axes_tree, const, einsum_f32, from_local, idle_axes, local_span,
+    rms_norm, rp_einsum, shape_tree, softcap, torch_dtype)
 
 
 def model_defs(cfg: ModelConfig) -> dict:
@@ -232,11 +234,17 @@ def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
     return params["head"] if not cfg.tie_embeddings else params["embed"].T
 
 
-def logits_of(model: DecoderLM, x: torch.Tensor) -> torch.Tensor:
-    """The head and the logit softcap over hidden states ``x`` (B, S, D)."""
-    head = ashard(_head(model.tree(), model.cfg), None, "model")
-    logits = torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
-    return ashard(softcap(logits, model.cfg.logit_softcap), "batch", None, "model")
+def logits_of(model: DecoderLM, x: torch.Tensor, gather: bool = True, idle: tuple = ()
+              ) -> torch.Tensor:
+    """The head and the logit softcap over hidden states ``x`` (B, S, D); the
+    head's FSDP shards gathered first, or (``gather=False``) kept, the
+    product then partial sums over them; ``idle`` as :func:`rp_einsum`'s."""
+    cfg = model.cfg
+    head = _head(model.tree(), cfg)
+    if gather:
+        head = ashard(head, None, "model")
+    logits = rp_einsum("bsd,dv->bsv", x, head.to(x.dtype), cfg.reduce_dtype, idle)
+    return ashard(softcap(logits, cfg.logit_softcap), "batch", None, "model")
 
 
 def forward(
@@ -277,12 +285,23 @@ def decode_step(model: DecoderLM, tokens: torch.Tensor, cache: dict) -> Tuple[to
     x = _embed(params, cfg, tokens, None)
     index = cache["index"]
     defs, tp = model_defs(cfg)["layers"], cfg.tp_mode != "dp"
-    for i, kind in enumerate(cfg.layer_kinds()):
-        lp = _gather_fsdp(params["layers"][i], defs[i], tp)
-        x, cache["layers"][i] = blocks.block_decode(lp, cfg, kind, x, cache["layers"][i], index)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    # repro leaves the weights in their FSDP shards and GSPMD places each
+    # product: where the batch splits over the FSDP axes each rank takes
+    # its rows against the gathered weights; where it does not (a batch of
+    # 1), the shards stay, each product partial sums over them
+    # (``rp_einsum``), so the FSDP ranks do not all repeat the whole layer
+    gather = not tp or not isinstance(x, DTensor) or any(p.is_shard(0) for p in x.placements)
+    idle = () if gather else fsdp_axes(x.device_mesh)
+    with idle_axes(idle):
+        for i, kind in enumerate(cfg.layer_kinds()):
+            lp = _gather_fsdp(params["layers"][i], defs[i], tp) if gather else params["layers"][i]
+            x, cache["layers"][i] = blocks.block_decode(lp, cfg, kind, x, cache["layers"][i],
+                                                        index)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        # a vocabulary that does not divide ``model`` splits the contraction
+        logits = logits_of(model, x, gather, idle=("model",))
     cache["index"] = index + 1
-    return logits_of(model, x), cache
+    return logits, cache
 
 
 def _chunk_nll(xc, lc, head, cap):

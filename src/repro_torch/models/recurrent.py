@@ -17,11 +17,13 @@ and the recurrent states are f32 whatever the activations' dtype, as in
 ``repro``.  Without a mesh ``reduce_dtype`` changes values in one place
 only, the sLSTM's recurrent product, where ``"bf16"`` casts the state and
 ``r`` to bf16 first; on a mesh it is also the dtype in which ``rp_einsum``
-sums a row-parallel product's partial sums.  On a mesh the RG-LRU and mLSTM
-projections keep their width on ``model`` (``ashard``), the mLSTM's
-quadratic form its heads or, where they do not divide the axis, its q
-chunk, as ``repro``'s; the cumulative log-forget bias runs on each rank's
-whole time axis.
+sums a product's partial sums.  On a mesh the RG-LRU and mLSTM projections
+keep their width on ``model`` (``ashard``), the mLSTM's quadratic form its
+heads or, where they do not divide the axis, runs as a region on each
+rank's batch and q-chunk rows (:func:`_mlstm_local`), as ``repro`` shards
+its q chunk; the sLSTM's recurrence and down projection split over a
+``model`` axis their widths leave idle; the cumulative log-forget bias runs
+on each rank's whole time axis.
 """
 from __future__ import annotations
 
@@ -29,12 +31,13 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import pick_chunk
 from repro_torch.models.layers import (
-    ParamDef, _gelu, ashard, causal_conv1d, const, einsum_f32, local_rows, mesh_full,
-    model_divides, rp_einsum, splittable)
+    ParamDef, _gelu, activation_placements, ashard, causal_conv1d, const, einsum_f32, from_local,
+    grad_in, local_rows, mesh_full, model_divides, rp_einsum, shard_span, splittable)
 
 NEG_INF = -1e30
 
@@ -60,10 +63,10 @@ def rglru_defs(cfg: ModelConfig) -> dict:
     }
 
 
-def _rglru_gates(params, u):
+def _rglru_gates(params, cfg: ModelConfig, u):
     c = 8.0
-    r = torch.sigmoid(torch.einsum("...w,wv->...v", u, params["wa"]) + params["ba"])
-    i = torch.sigmoid(torch.einsum("...w,wv->...v", u, params["wi"]) + params["bi"])
+    r = torch.sigmoid(rp_einsum("bsw,wv->bsv", u, params["wa"], cfg.reduce_dtype) + params["ba"])
+    i = torch.sigmoid(rp_einsum("bsw,wv->bsv", u, params["wi"], cfg.reduce_dtype) + params["bi"])
     log_a = -c * F.softplus(params["lam"]).float() * r.float()
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
@@ -102,7 +105,7 @@ def rglru_train(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
     gate = _gelu(ashard(torch.einsum("bsd,dw->bsw", x, params["wgate"]), "batch", None, "model"))
     u = ashard(torch.einsum("bsd,dw->bsw", x, params["wx"]), "batch", None, "model")
     u, _ = causal_conv1d(u, params["conv_w"])
-    a, b = _rglru_gates(params, u)
+    a, b = _rglru_gates(params, cfg, u)
     _, h = affine_scan(a, b)
     h = h.to(x.dtype)
     return rp_einsum("bsw,wd->bsd", gate * h, params["wout"], cfg.reduce_dtype)
@@ -112,13 +115,14 @@ def rglru_decode(
     params: dict, cfg: ModelConfig, x: torch.Tensor, state: dict
 ) -> Tuple[torch.Tensor, dict]:
     """x: (B, 1, D); state: {'h': (B, W) f32, 'conv': (B, K-1, W)}."""
-    gate = _gelu(torch.einsum("bsd,dw->bsw", x, params["wgate"]))
-    u = torch.einsum("bsd,dw->bsw", x, params["wx"])
+    rd = cfg.reduce_dtype
+    gate = _gelu(rp_einsum("bsd,dw->bsw", x, params["wgate"], rd))
+    u = rp_einsum("bsd,dw->bsw", x, params["wx"], rd)
     u, conv_state = causal_conv1d(u, params["conv_w"], state["conv"])
-    a, b = _rglru_gates(params, u)
+    a, b = _rglru_gates(params, cfg, u)
     h = a[:, 0] * state["h"] + b[:, 0]
     y = gate * h[:, None].to(x.dtype)
-    return torch.einsum("bsw,wd->bsd", y, params["wout"]), {"h": h, "conv": conv_state}
+    return rp_einsum("bsw,wd->bsd", y, params["wout"], rd), {"h": h, "conv": conv_state}
 
 
 def rglru_init_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
@@ -170,53 +174,119 @@ def _mlstm_qkv_gates(params, cfg, x):
     return q.reshape(shp), k.reshape(shp), v.reshape(shp), ig, fg, z, uc
 
 
+def _mlstm_rows(q_blk, fq, q_idx, kg, vg, fk, ik, state, scale):
+    """One q block's rows of the blocked mLSTM against the key chunks
+    ``0 .. len(kg) - 1``: ``q_blk`` (B, R, H, hd) at positions ``q_idx``, its
+    F ``fq`` (B, H, R); each key chunk ``kg[j]``, ``vg[j]`` (B, C, H, hd), its
+    F and input gate ``fk[j]``, ``ik[j]`` (B, H, C); ``state`` the online
+    (max, numerator, denominator) to start from.  Returns (B, R, H, hd)."""
+    m, num, den = state
+    c = kg[0].shape[1]
+    for ki, (kc, vc) in enumerate(zip(kg, vg)):
+        # decay bias D_ij = F_i - F_j + i_j  (j <= i)
+        dmat = fq[..., :, None] - fk[ki][..., None, :] + ik[ki][..., None, :]
+        k_idx = ki * c + torch.arange(c, device=q_idx.device)
+        msk = const(q_blk, k_idx[None, :] <= q_idx[:, None])
+        dmat = torch.where(msk, dmat, const(q_blk, torch.tensor(NEG_INF, device=q_idx.device)))
+        m_new = torch.maximum(m, torch.amax(dmat, dim=-1))
+        w = torch.exp(dmat - m_new[..., None])
+        sw = einsum_f32("bqhd,bchd->bhqc", q_blk, kc) * scale * w
+        corr = torch.exp(m - m_new)
+        num = num * corr[..., None] + einsum_f32("bhqc,bchd->bhqd", sw.to(vc.dtype), vc)
+        den = den * corr + torch.sum(sw, dim=-1)
+        m = m_new
+    hout = num / torch.maximum(torch.abs(den), torch.exp(-m))[..., None]
+    return hout.transpose(1, 2)
+
+
+def _mlstm_form(q, k, v, big_f, ig, c: int, lo: int = 0, rows: int | None = None
+                ) -> torch.Tensor:
+    """The blocked quadratic form on plain tensors: q, k, v (B, S, H, hd),
+    F and the input gate (B, S, H), chunks of ``c``; of each q chunk only
+    the ``rows`` rows from ``lo`` (all by default).  Returns (B, n, rows, H,
+    hd) f32."""
+    b, s, h, hd = q.shape
+    n, rows = s // c, c if rows is None else rows
+    kg, vg = (t.reshape(b, n, c, h, hd) for t in (k, v))
+    qg = q.reshape(b, n, c, h, hd)[:, :, lo:lo + rows]
+    # (B, n, H, C): each chunk's F and input gate, heads before time
+    fg_ = big_f.reshape(b, n, c, h).transpose(2, 3)
+    ig_ = ig.reshape(b, n, c, h).transpose(2, 3)
+    fq_ = fg_[..., lo:lo + rows]
+    ks, vs, fs, gs = ([t[:, j] for j in range(n)] for t in (kg, vg, fg_, ig_))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    outs = []
+    for qi in range(n):
+        state = (torch.full((b, h, rows), NEG_INF, **f32), torch.zeros((b, h, rows, hd), **f32),
+                 torch.zeros((b, h, rows), **f32))
+        q_idx = qi * c + lo + torch.arange(rows, device=q.device)
+        outs.append(_mlstm_rows(qg[:, qi], fq_[:, qi], q_idx, ks[:qi + 1], vs[:qi + 1],
+                                fs[:qi + 1], gs[:qi + 1], state, hd**-0.5))
+    return torch.stack(outs, dim=1)
+
+
+def _mlstm_local(q, k, v, big_f, ig, c: int) -> torch.Tensor:
+    """:func:`_mlstm_form` on a mesh whose ``model`` axis does not divide
+    the heads, as a region on each rank's local tensors: the heads whole,
+    each rank its batch rows and its share of every q chunk's rows (as
+    ``repro`` shards the q-chunk dim), the keys of all earlier chunks
+    gathered.  The inputs' gradients are partial over the ranks that split
+    the rows; the output (B, S, H·hd) is in the layout of the projections
+    beside it, the feature dim on ``model``."""
+    mesh = q.device_mesh
+    b, s, h, hd = q.shape
+    n = s // c
+    lay = activation_placements((b, n, c, h * hd), "batch", None, "model", None)
+    batch = [i for i, p in enumerate(lay) if p.is_shard(0)]
+    split = [i for i, p in enumerate(lay) if p.is_shard(2)]
+    want = [Shard(0) if i in batch else Replicate() for i in range(mesh.ndim)]
+    grad = [Shard(0) if i in batch else Partial() if i in split else Replicate()
+            for i in range(mesh.ndim)]
+
+    def local(t):
+        if list(t.placements) != want:
+            t = t.redistribute(mesh, want)
+        # the partial gradients reduced here, not carried into the
+        # projections' backward
+        return grad_in(t, want).to_local(grad_placements=grad)
+
+    lo, rows = shard_span(mesh, lay, 2, c)
+    out = _mlstm_form(*(local(t) for t in (q, k, v, big_f, ig)), c, lo, rows)
+    out = from_local(out.reshape(out.shape[0], n, rows, h * hd), mesh, lay, (b, n, c, h * hd))
+    feat = activation_placements((b, n, c, h * hd), "batch", None, None, "model")
+    return out.redistribute(mesh, feat).reshape(b, s, h * hd)
+
+
 def mlstm_train(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Blocked parallel mLSTM. x: (B, S, D)."""
     q, k, v, ig, fg, z, uc = _mlstm_qkv_gates(params, cfg, x)
     b, s, h, hd = q.shape
-    scale = hd**-0.5
     # F_t = sum_{tau<=t} log f, along each rank's whole time axis
     big_f = local_rows(lambda t: torch.cumsum(F.logsigmoid(t), dim=1), fg)
     c = pick_chunk(s, cfg.attn_chunk)
-    n = s // c
-    qg, kg, vg = (t.reshape(b, n, c, h, hd) for t in (q, k, v))
-    # (B, n, H, C): each chunk's F and input gate, heads before time
-    fg_ = big_f.reshape(b, n, c, h).transpose(2, 3)
-    ig_ = ig.reshape(b, n, c, h).transpose(2, 3)
-    dev = x.device
-    # xLSTM head counts (4) rarely divide the model axis: on a mesh the
-    # quadratic form then shards its q-chunk dim instead
-    if model_divides(h):
-        q_ax, s_ax, a_ax = ("batch", None, "model", None), ("batch", "model", None), \
-            ("batch", "model", None, None)
-    else:
-        q_ax, s_ax, a_ax = ("batch", "model", None, None), ("batch", None, "model"), \
-            ("batch", None, "model", None)
-    outs = []
-    for qi in range(n):
-        q_blk, fq = ashard(qg[:, qi], *q_ax), fg_[:, qi]
-        m = mesh_full(q_blk, (b, h, c), NEG_INF, torch.float32, *s_ax)
-        num = mesh_full(q_blk, (b, h, c, hd), 0.0, torch.float32, *a_ax)
-        den = mesh_full(q_blk, (b, h, c), 0.0, torch.float32, *s_ax)
-        q_idx = qi * c + torch.arange(c, device=dev)
-        for ki in range(qi + 1):
-            kc, vc = kg[:, ki], vg[:, ki]
-            # decay bias D_ij = F_i - F_j + i_j  (j <= i)
-            dmat = fq[..., :, None] - fg_[:, ki][..., None, :] + ig_[:, ki][..., None, :]
-            k_idx = ki * c + torch.arange(c, device=dev)
-            msk = const(q_blk, k_idx[None, :] <= q_idx[:, None])
-            dmat = torch.where(msk, dmat, const(q_blk, torch.tensor(NEG_INF, device=dev)))
-            m_new = torch.maximum(m, torch.amax(dmat, dim=-1))
-            w = torch.exp(dmat - m_new[..., None])
-            sw = einsum_f32("bqhd,bchd->bhqc", q_blk, kc) * scale * w
-            corr = torch.exp(m - m_new)
-            num = num * corr[..., None] + einsum_f32("bhqc,bchd->bhqd", sw.to(vc.dtype), vc)
-            den = den * corr + torch.sum(sw, dim=-1)
-            m = m_new
-        hout = num / torch.maximum(torch.abs(den), torch.exp(-m))[..., None]
-        outs.append(hout.transpose(1, 2))  # (B, C, H, hd)
-    y = torch.cat(outs, dim=1).reshape(b, s, h * hd).to(x.dtype)
-    y = y + params["skip"] * uc
+    if not isinstance(q, DTensor):
+        y = _mlstm_form(q, k, v, big_f, ig, c).reshape(b, s, h * hd)
+    elif not model_divides(h):
+        # xLSTM head counts (4) rarely divide the model axis
+        y = _mlstm_local(q, k, v, big_f, ig, c)
+    else:  # the heads on model
+        n = s // c
+        qg, kg, vg = (t.reshape(b, n, c, h, hd) for t in (q, k, v))
+        fg_ = big_f.reshape(b, n, c, h).transpose(2, 3)
+        ig_ = ig.reshape(b, n, c, h).transpose(2, 3)
+        ks, vs, fs, gs = ([t[:, j] for j in range(n)] for t in (kg, vg, fg_, ig_))
+        outs = []
+        for qi in range(n):
+            q_blk = ashard(qg[:, qi], "batch", None, "model", None)
+            state = (mesh_full(q_blk, (b, h, c), NEG_INF, torch.float32, "batch", "model", None),
+                     mesh_full(q_blk, (b, h, c, hd), 0.0, torch.float32,
+                               "batch", "model", None, None),
+                     mesh_full(q_blk, (b, h, c), 0.0, torch.float32, "batch", "model", None))
+            q_idx = qi * c + torch.arange(c, device=x.device)
+            outs.append(_mlstm_rows(q_blk, fs[qi], q_idx, ks[:qi + 1], vs[:qi + 1],
+                                    fs[:qi + 1], gs[:qi + 1], state, hd**-0.5))
+        y = torch.cat(outs, dim=1).reshape(b, s, h * hd)
+    y = y.to(x.dtype) + params["skip"] * uc
     y = y * F.silu(z)
     return rp_einsum("bsp,pd->bsd", y, params["wdown"], cfg.reduce_dtype)
 
@@ -224,15 +294,15 @@ def mlstm_train(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
 def mlstm_decode(params, cfg: ModelConfig, x: torch.Tensor, state: dict
                  ) -> Tuple[torch.Tensor, dict]:
     """x: (B,1,D); state: {'C': (B,H,hd,hd), 'n': (B,H,hd), 'm': (B,H), 'conv': ...}."""
-    hn = cfg.num_heads
-    u = torch.einsum("bsd,dp->bsp", x, params["wup"])
-    z = torch.einsum("bsd,dp->bsp", x, params["wz"])
+    hn, rd = cfg.num_heads, cfg.reduce_dtype
+    u = rp_einsum("bsd,dp->bsp", x, params["wup"], rd)
+    z = rp_einsum("bsd,dp->bsp", x, params["wz"], rd)
     uc, conv_state = causal_conv1d(u, params["conv_w"], state["conv"])
     uc = F.silu(uc)
-    q = torch.einsum("bsp,pr->bsr", uc, params["wq"])
-    k = torch.einsum("bsp,pr->bsr", uc, params["wk"])
-    v = torch.einsum("bsp,pr->bsr", u, params["wv"])
-    gif = torch.einsum("bsp,pg->bsg", uc, params["wif"]) + params["bif"]
+    q = rp_einsum("bsp,pr->bsr", uc, params["wq"], rd)
+    k = rp_einsum("bsp,pr->bsr", uc, params["wk"], rd)
+    v = rp_einsum("bsp,pr->bsr", u, params["wv"], rd)
+    gif = rp_einsum("bsp,pg->bsg", uc, params["wif"], rd) + params["bif"]
     ig, fg = gif[..., :hn].float(), gif[..., hn:].float()
     b = x.shape[0]
     hd = q.shape[-1] // hn
@@ -252,7 +322,7 @@ def mlstm_decode(params, cfg: ModelConfig, x: torch.Tensor, state: dict
     hout = (num / den[..., None]).reshape(b, 1, hn * hd).to(x.dtype)
     y = hout + params["skip"] * uc
     y = y * F.silu(z)
-    return torch.einsum("bsp,pd->bsd", y, params["wdown"]), {
+    return rp_einsum("bsp,pd->bsd", y, params["wdown"], rd), {
         "C": cmat, "n": nvec, "m": m_new, "conv": conv_state,
     }
 
@@ -304,9 +374,11 @@ def _slstm_cell(cfg, r, xt, state):
     b = xt.shape[0]
     nh = cfg.num_heads
     hd = cfg.d_model // nh
-    # recurrent contribution (block-diagonal per head)
+    # recurrent contribution (block-diagonal per head); ``r`` is whole on
+    # every rank, so a ``model`` axis the batch leaves idle splits its
+    # contraction, as GSPMD places it
     rec = rp_einsum("bhk,hkg->bhg", splittable(h, 1, nh).reshape(b, nh, hd).to(r.dtype), r,
-                    cfg.reduce_dtype)
+                    cfg.reduce_dtype, idle=("model",))
     z, i, f, o = torch.split(xt.float() + rec.reshape(b, 4 * cfg.d_model).float(),
                              cfg.d_model, dim=-1)
     m_new = torch.maximum(f + m, i)  # exponential i, sigmoid-exp f stabilizer
@@ -318,16 +390,19 @@ def _slstm_cell(cfg, r, xt, state):
     return {"h": h_new, "c": c_new, "n": n_new, "m": m_new}
 
 
-def _slstm_mlp(params, hs: torch.Tensor) -> torch.Tensor:
+def _slstm_mlp(params, cfg: ModelConfig, hs: torch.Tensor) -> torch.Tensor:
     """The post up / gate / down MLP (xLSTM pf 4/3)."""
-    up = torch.einsum("bsd,du->bsu", hs, params["wup"])
-    gate = _gelu(torch.einsum("bsd,du->bsu", hs, params["wgate"]))
-    return torch.einsum("bsu,ud->bsd", up * gate, params["wdown"])
+    rd = cfg.reduce_dtype
+    up = rp_einsum("bsd,du->bsu", hs, params["wup"], rd)
+    gate = _gelu(rp_einsum("bsd,du->bsu", hs, params["wgate"], rd))
+    # a width ``model`` does not divide (1,365 of 16) leaves the axis idle:
+    # the down projection splits its output over it, as GSPMD places it
+    return rp_einsum("bsu,ud->bsd", up * gate, params["wdown"], rd, idle=("model",))
 
 
 def slstm_train(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     b, s, d = x.shape
-    xa = torch.einsum("bsd,dg->bsg", x, params["wx"]) + params["bx"]
+    xa = rp_einsum("bsd,dg->bsg", x, params["wx"], cfg.reduce_dtype) + params["bx"]
     # the state in the activations' batch layout on a mesh
     state = {k: mesh_full(x, (b, d), v, torch.float32, "batch", None)
              for k, v in SLSTM_INIT.items()}
@@ -336,14 +411,14 @@ def slstm_train(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
     for t in range(s):
         state = _slstm_cell(cfg, r, xa[:, t], state)
         hs.append(state["h"])
-    return _slstm_mlp(params, torch.stack(hs, dim=1).to(x.dtype))
+    return _slstm_mlp(params, cfg, torch.stack(hs, dim=1).to(x.dtype))
 
 
 def slstm_decode(params, cfg: ModelConfig, x: torch.Tensor, state: dict
                  ) -> Tuple[torch.Tensor, dict]:
-    xa = torch.einsum("bsd,dg->bsg", x, params["wx"]) + params["bx"]
+    xa = rp_einsum("bsd,dg->bsg", x, params["wx"], cfg.reduce_dtype) + params["bx"]
     new = _slstm_cell(cfg, params["r"].to(_rec_dtype(cfg)), xa[:, 0], state)
-    return _slstm_mlp(params, new["h"][:, None].to(x.dtype)), new
+    return _slstm_mlp(params, cfg, new["h"][:, None].to(x.dtype)), new
 
 
 #: the sLSTM's initial state, each entry filled with its value
