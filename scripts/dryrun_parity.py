@@ -17,7 +17,9 @@ For every applicable (architecture × cell) of the 16 × 16 (or, with
    (``python -m repro_torch.launch.dryrun``);
 3. prints, and writes to ``results/dryrun_parity/<mesh>.json``, both
    ``flops_per_device``, the port's over ``repro``'s, both
-   ``useful_flop_ratio``s and both collective counts.
+   ``useful_flop_ratio``s and both collective counts; a ratio above 1.10
+   (``within_bound`` false) or below 0.90 (``below`` true: the port's rank
+   does less, a layout that departs from ``repro``'s) is flagged.
 
 The FLOPs are counts of a rank's work (XLA's HLO through ``repro``'s
 ``hlo_analysis.analyze``; the port's ``launch/cost.py::OpCounter``), not
@@ -46,6 +48,7 @@ ROOT = Path(__file__).resolve().parents[1]
 MESHES = {False: ((16, 16), ("data", "model"), "pod16x16"),
           True: ((2, 16, 16), ("pod", "data", "model"), "pod2x16x16")}
 BOUND = 1.10  # the port's FLOPs a rank over repro's that the parity asks
+LOW = 0.90  # below this the port's layout departs from repro's: flagged
 
 
 def reference_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str, *,
@@ -164,6 +167,7 @@ def compare(ref: dict | None, port: dict | None) -> dict:
     row["ratio"] = (row["port_flops"] / row["ref_flops"]
                     if ok(ref) and ok(port) and row["ref_flops"] else None)
     row["within_bound"] = row["ratio"] is not None and row["ratio"] <= BOUND
+    row["below"] = row["ratio"] is not None and row["ratio"] < LOW
     return row
 
 
@@ -224,7 +228,8 @@ def main(argv=None) -> int:
               f"{fmt(row['port_flops'], '12.4e')} {fmt(row['ratio'], '7.3f')} "
               f"{fmt(row['ref_useful'], '.4f'):>7s}/{fmt(row['port_useful'], '.4f'):7s} "
               f"{fmt(row['ref_collectives'], 'd'):>6s}/{fmt(row['port_collectives'], 'd'):6s}"
-              + ("" if row["within_bound"] else "  <-- above the bound or missing"),
+              + ("" if row["within_bound"] else "  <-- above the bound or missing")
+              + (f"  <-- below {LOW}" if row["below"] else ""),
               flush=True)
         for side, rec in (("repro", ref), ("port", port)) if args.dots else ():
             for label, flops in (rec or {}).get("top_flops", [])[:args.dots]:
@@ -232,9 +237,11 @@ def main(argv=None) -> int:
     out = ROOT / args.out
     out.mkdir(parents=True, exist_ok=True)
     with open(out / f"{mesh_name}.json", "w") as f:
-        json.dump({"bound": BOUND, "cells": rows}, f, indent=1)
+        json.dump({"bound": BOUND, "low": LOW, "cells": rows}, f, indent=1)
     above = [r for r in rows if not r["within_bound"]]
-    print(f"{len(rows) - len(above)} of {len(rows)} cells within {BOUND} × repro's FLOPs a rank")
+    below = [r for r in rows if r["below"]]
+    print(f"{len(rows) - len(above)} of {len(rows)} cells within {BOUND} × repro's FLOPs a rank; "
+          f"{len(below)} below {LOW}")
     return 0
 
 

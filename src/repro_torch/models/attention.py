@@ -22,8 +22,8 @@ from repro_torch.configs.base import ModelConfig
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.layers import (
-    ParamDef, ashard, const, einsum_f32, local_span, mesh_full, model_divides, rms_norm, rope,
-    rp_einsum, softcap, splittable)
+    ParamDef, ashard, const, einsum_f32, idle, idle_axes, local_span, mesh_full, model_divides,
+    rms_norm, rope, rp_einsum, softcap, splittable)
 
 NEG_INF = -1e30
 
@@ -50,12 +50,9 @@ def attn_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-def _qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-         idle: tuple = ()):
-    """q, k, v; ``idle``: the mesh dimensions over which a projection whose
-    heads leave them idle splits its contraction instead (decode)."""
+def _qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
     heads = ("batch", None, "model", None)
-    q, k, v = (ashard(rp_einsum("bsd,dhk->bshk", x, params[w], cfg.reduce_dtype, idle), *heads)
+    q, k, v = (ashard(rp_einsum("bsd,dhk->bshk", x, params[w], cfg.reduce_dtype), *heads)
                for w in ("wq", "wk", "wv"))
     if cfg.use_qk_norm:
         q = rms_norm(q, params["qnorm"], cfg.norm_eps)
@@ -213,9 +210,7 @@ def attention_decode(
     slot.  Returns (out, cache_k, cache_v)."""
     b = x.shape[0]
     positions = torch.full((b, 1), cache_index, dtype=torch.int32, device=x.device)
-    # a projection whose heads do not divide ``model`` splits its
-    # contraction over it, as GSPMD places it
-    q, k, v = _qkv(params, cfg, x, positions, idle=("model",))
+    q, k, v = _qkv(params, cfg, x, positions)
     s_max = cache_k.shape[1]
     # a sliding-window layer's cache is a ring buffer: KV footprint O(window)
     slot = cache_index % s_max if window > 0 else min(cache_index, s_max - 1)
@@ -237,5 +232,8 @@ def attention_decode(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqc,bckd->bqkgd", p.to(cache_v.dtype), cache_v)
     out = out.reshape(b, 1, -1, cfg.head_dim)
-    y = rp_einsum("bshk,hkd->bsd", out, params["wo"], cfg.reduce_dtype)
+    # the output projection runs whole on each ``model`` rank, as GSPMD
+    # places it: only the FSDP axes a batch of 1 leaves idle split it
+    with idle_axes(tuple(a for a in idle() if a != "model")):
+        y = rp_einsum("bshk,hkd->bsd", out, params["wo"], cfg.reduce_dtype)
     return y, cache_k, cache_v

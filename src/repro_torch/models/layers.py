@@ -162,23 +162,27 @@ def activation_mesh(mesh, rules: dict | None = None):
         set_activation_mesh(*old)
 
 
-# mesh dimensions a decode step with a batch of 1 leaves idle: each product
-# splits its contraction over those that neither operand splits
+# mesh dimensions a decode step leaves idle (``model.decode_step``): each
+# product splits its contraction over those that neither operand splits
 _IDLE_AXES: tuple = ()
 
 
 @contextlib.contextmanager
 def idle_axes(names: tuple):
     """:func:`rp_einsum` splits a product's contraction over the mesh
-    dimensions ``names`` wherever neither operand splits it, for the block;
-    GSPMD's placement of a decode step whose batch does not split over the
-    FSDP axes."""
+    dimensions ``names`` wherever neither operand splits it, for the block:
+    GSPMD's placement of a decode step (:func:`idle`)."""
     global _IDLE_AXES
     old, _IDLE_AXES = _IDLE_AXES, tuple(names)
     try:
         yield
     finally:
         _IDLE_AXES = old
+
+
+def idle() -> tuple:
+    """The mesh dimensions that the enclosing :func:`idle_axes` names."""
+    return _IDLE_AXES
 
 
 def activation_spec(shape: tuple, logical: tuple) -> tuple:
@@ -428,14 +432,13 @@ def _einsum_rows(spec: str, x: DTensor, w: DTensor) -> DTensor:
                               stride=torch.empty(shape, device="meta").stride())
 
 
-def _align(spec: str, x: DTensor, w: DTensor, idle: tuple) -> tuple:
+def _align(spec: str, x: DTensor, w: DTensor) -> tuple:
     """``x`` and ``w`` laid out so that ``x`` splits each contracted
     dimension as ``w`` does where ``x`` is whole on that mesh dimension (a
     local slice: a weight kept in its FSDP shards turns the product into
     partial sums, as GSPMD places it), and both split a contracted dimension
-    (the first the mesh dimension divides; else ``w`` one of its output
-    dimensions) over the mesh dimensions named in ``idle`` that neither
-    splits yet (a projection whose heads leave the ``model`` axis idle)."""
+    (the first the mesh dimension divides) over the mesh dimensions that
+    :func:`idle` names and neither splits yet."""
     ins, out = spec.split("->")
     xs, ws = ins.split(",")
     if "." in xs or "." in ws:
@@ -449,16 +452,11 @@ def _align(spec: str, x: DTensor, w: DTensor, idle: tuple) -> tuple:
             continue
         if wp[i].is_shard() and ws[wp[i].dim] in shared:
             xp[i] = Shard(xs.index(ws[wp[i].dim]))
-        elif wp[i].is_replicate() and names and names[i] in idle:
+        elif wp[i].is_replicate() and names and names[i] in _IDLE_AXES:
             for c in shared:
                 if _local_size(x, xs.index(c), xp) % mesh.size(i) == 0:
                     xp[i], wp[i] = Shard(xs.index(c)), Shard(ws.index(c))
                     break
-            else:  # else a dimension only the weight and the output have
-                for c in (c for c in ws if c in out and c not in xs):
-                    if _local_size(w, ws.index(c), wp) % mesh.size(i) == 0:
-                        wp[i] = Shard(ws.index(c))
-                        break
     if xp != list(x.placements):
         x = x.redistribute(mesh, xp)
     if wp != list(w.placements):
@@ -476,12 +474,12 @@ def _local_size(x: DTensor, dim: int, placements) -> int:
     return n
 
 
-def rp_einsum(spec: str, x: torch.Tensor, w: torch.Tensor, reduce_dtype: str = "f32",
-              idle: tuple = ()) -> torch.Tensor:
+def rp_einsum(spec: str, x: torch.Tensor, w: torch.Tensor, reduce_dtype: str = "f32"
+              ) -> torch.Tensor:
     """A product with a weight whose contraction may be split over ranks: a
-    row-parallel product (the contraction on ``model``), or one whose weight
-    stays in its FSDP shards (:func:`_align`; ``idle``: mesh dimensions to
-    split the contraction over where neither operand splits it).  Its
+    row-parallel product (the contraction on ``model``), one whose weight
+    stays in its FSDP shards, or one split over the mesh dimensions a decode
+    step leaves idle (:func:`_align`).  Its
     partial sums are reduced where it is, in ``reduce_dtype`` ("f32": the
     partials in f32, the sum cast back to ``x``'s dtype; "bf16": the bf16
     products' partials).  Where no rank holds a partial sum (one device, or
@@ -494,7 +492,7 @@ def rp_einsum(spec: str, x: torch.Tensor, w: torch.Tensor, reduce_dtype: str = "
         x = x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
                                            for p in x.placements])
     if isinstance(x, DTensor) and isinstance(w, DTensor):
-        x, w = _align(spec, x, w, tuple(idle) + _IDLE_AXES)
+        x, w = _align(spec, x, w)
     if not _contraction_split(spec, x):
         return grad_in(torch.einsum(spec, x, w))
     if reduce_dtype == "bf16" or x.dtype == torch.float32:

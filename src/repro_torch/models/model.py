@@ -38,8 +38,8 @@ from repro_torch.graph.csr import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.attention import pick_chunk
 from repro_torch.models.layers import (
-    ParamDef, ParamTree, ashard, axes_tree, const, einsum_f32, from_local, idle_axes, local_span,
-    rms_norm, rp_einsum, shape_tree, softcap, torch_dtype)
+    ParamDef, ParamTree, ashard, axes_tree, const, einsum_f32, from_local, idle, idle_axes,
+    local_span, rms_norm, rp_einsum, shape_tree, softcap, torch_dtype)
 
 
 def model_defs(cfg: ModelConfig) -> dict:
@@ -234,16 +234,16 @@ def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
     return params["head"] if not cfg.tie_embeddings else params["embed"].T
 
 
-def logits_of(model: DecoderLM, x: torch.Tensor, gather: bool = True, idle: tuple = ()
-              ) -> torch.Tensor:
+def logits_of(model: DecoderLM, x: torch.Tensor) -> torch.Tensor:
     """The head and the logit softcap over hidden states ``x`` (B, S, D); the
-    head's FSDP shards gathered first, or (``gather=False``) kept, the
-    product then partial sums over them; ``idle`` as :func:`rp_einsum`'s."""
+    head's FSDP shards gathered first, or kept where a decode step leaves
+    the FSDP axes idle (:func:`_decode_idle`), the product then partial sums
+    over them."""
     cfg = model.cfg
     head = _head(model.tree(), cfg)
-    if gather:
+    if not (isinstance(head, DTensor) and set(fsdp_axes(head.device_mesh)) & set(idle())):
         head = ashard(head, None, "model")
-    logits = rp_einsum("bsd,dv->bsv", x, head.to(x.dtype), cfg.reduce_dtype, idle)
+    logits = rp_einsum("bsd,dv->bsv", x, head.to(x.dtype), cfg.reduce_dtype)
     return ashard(softcap(logits, cfg.logit_softcap), "batch", None, "model")
 
 
@@ -291,17 +291,29 @@ def decode_step(model: DecoderLM, tokens: torch.Tensor, cache: dict) -> Tuple[to
     # 1), the shards stay, each product partial sums over them
     # (``rp_einsum``), so the FSDP ranks do not all repeat the whole layer
     gather = not tp or not isinstance(x, DTensor) or any(p.is_shard(0) for p in x.placements)
-    idle = () if gather else fsdp_axes(x.device_mesh)
-    with idle_axes(idle):
+    with idle_axes(_decode_idle(x, gather)):
         for i, kind in enumerate(cfg.layer_kinds()):
             lp = _gather_fsdp(params["layers"][i], defs[i], tp) if gather else params["layers"][i]
             x, cache["layers"][i] = blocks.block_decode(lp, cfg, kind, x, cache["layers"][i],
                                                         index)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        # a vocabulary that does not divide ``model`` splits the contraction
-        logits = logits_of(model, x, gather, idle=("model",))
+        logits = logits_of(model, x)
     cache["index"] = index + 1
     return logits, cache
+
+
+def _decode_idle(x: torch.Tensor, gather: bool) -> tuple:
+    """The mesh dimensions a decode step leaves idle, over which
+    ``rp_einsum`` splits a contraction that neither operand splits, as GSPMD
+    places the step (the dry runs' records): ``model`` on a mesh without a
+    ``pod`` axis (a projection whose heads or vocabulary it does not divide;
+    on 2 × 16 × 16 GSPMD runs those whole on each ``model`` rank), and the
+    FSDP axes where the batch does not split over them (``gather`` false)."""
+    if not isinstance(x, DTensor):
+        return ()
+    names = x.device_mesh.mesh_dim_names or ()
+    model = ("model",) if "model" in names and "pod" not in names else ()
+    return model + (() if gather else fsdp_axes(x.device_mesh))
 
 
 def _chunk_nll(xc, lc, head, cap):

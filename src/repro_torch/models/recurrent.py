@@ -21,9 +21,10 @@ sums a product's partial sums.  On a mesh the RG-LRU and mLSTM projections
 keep their width on ``model`` (``ashard``), the mLSTM's quadratic form its
 heads or, where they do not divide the axis, runs as a region on each
 rank's batch and q-chunk rows (:func:`_mlstm_local`), as ``repro`` shards
-its q chunk; the sLSTM's recurrence and down projection split over a
-``model`` axis their widths leave idle; the cumulative log-forget bias runs
-on each rank's whole time axis.
+its q chunk; the sLSTM's recurrence splits its head width over ``model``,
+and in the train step its down projection its output where ``model`` does
+not divide the width; the cumulative log-forget bias runs on each rank's
+whole time axis.
 """
 from __future__ import annotations
 
@@ -201,26 +202,30 @@ def _mlstm_rows(q_blk, fq, q_idx, kg, vg, fk, ik, state, scale):
 
 def _mlstm_form(q, k, v, big_f, ig, c: int, lo: int = 0, rows: int | None = None
                 ) -> torch.Tensor:
-    """The blocked quadratic form on plain tensors: q, k, v (B, S, H, hd),
-    F and the input gate (B, S, H), chunks of ``c``; of each q chunk only
-    the ``rows`` rows from ``lo`` (all by default).  Returns (B, n, rows, H,
-    hd) f32."""
+    """The blocked quadratic form: q, k, v (B, S, H, hd), F and the input
+    gate (B, S, H), chunks of ``c``; of each q chunk only the ``rows`` rows
+    from ``lo`` (all by default).  On a mesh whose ``model`` axis divides
+    the heads, each q block and its state keep their heads on ``model``
+    (``ashard`` and ``mesh_full`` are identities on plain and local
+    tensors).  Returns (B, n, rows, H, hd) f32."""
     b, s, h, hd = q.shape
     n, rows = s // c, c if rows is None else rows
     kg, vg = (t.reshape(b, n, c, h, hd) for t in (k, v))
-    qg = q.reshape(b, n, c, h, hd)[:, :, lo:lo + rows]
+    qg = q.reshape(b, n, c, h, hd)
     # (B, n, H, C): each chunk's F and input gate, heads before time
     fg_ = big_f.reshape(b, n, c, h).transpose(2, 3)
     ig_ = ig.reshape(b, n, c, h).transpose(2, 3)
-    fq_ = fg_[..., lo:lo + rows]
     ks, vs, fs, gs = ([t[:, j] for j in range(n)] for t in (kg, vg, fg_, ig_))
-    f32 = dict(dtype=torch.float32, device=q.device)
+    part = slice(lo, lo + rows) if rows < c else slice(None)
+    heads = ("batch", "model", None)
     outs = []
     for qi in range(n):
-        state = (torch.full((b, h, rows), NEG_INF, **f32), torch.zeros((b, h, rows, hd), **f32),
-                 torch.zeros((b, h, rows), **f32))
+        q_blk = ashard(qg[:, qi, part], "batch", None, "model", None)
+        state = (mesh_full(q_blk, (b, h, rows), NEG_INF, torch.float32, *heads),
+                 mesh_full(q_blk, (b, h, rows, hd), 0.0, torch.float32, *heads, None),
+                 mesh_full(q_blk, (b, h, rows), 0.0, torch.float32, *heads))
         q_idx = qi * c + lo + torch.arange(rows, device=q.device)
-        outs.append(_mlstm_rows(qg[:, qi], fq_[:, qi], q_idx, ks[:qi + 1], vs[:qi + 1],
+        outs.append(_mlstm_rows(q_blk, fs[qi][..., part], q_idx, ks[:qi + 1], vs[:qi + 1],
                                 fs[:qi + 1], gs[:qi + 1], state, hd**-0.5))
     return torch.stack(outs, dim=1)
 
@@ -264,28 +269,11 @@ def mlstm_train(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
     # F_t = sum_{tau<=t} log f, along each rank's whole time axis
     big_f = local_rows(lambda t: torch.cumsum(F.logsigmoid(t), dim=1), fg)
     c = pick_chunk(s, cfg.attn_chunk)
-    if not isinstance(q, DTensor):
-        y = _mlstm_form(q, k, v, big_f, ig, c).reshape(b, s, h * hd)
-    elif not model_divides(h):
+    if isinstance(q, DTensor) and not model_divides(h):
         # xLSTM head counts (4) rarely divide the model axis
         y = _mlstm_local(q, k, v, big_f, ig, c)
-    else:  # the heads on model
-        n = s // c
-        qg, kg, vg = (t.reshape(b, n, c, h, hd) for t in (q, k, v))
-        fg_ = big_f.reshape(b, n, c, h).transpose(2, 3)
-        ig_ = ig.reshape(b, n, c, h).transpose(2, 3)
-        ks, vs, fs, gs = ([t[:, j] for j in range(n)] for t in (kg, vg, fg_, ig_))
-        outs = []
-        for qi in range(n):
-            q_blk = ashard(qg[:, qi], "batch", None, "model", None)
-            state = (mesh_full(q_blk, (b, h, c), NEG_INF, torch.float32, "batch", "model", None),
-                     mesh_full(q_blk, (b, h, c, hd), 0.0, torch.float32,
-                               "batch", "model", None, None),
-                     mesh_full(q_blk, (b, h, c), 0.0, torch.float32, "batch", "model", None))
-            q_idx = qi * c + torch.arange(c, device=x.device)
-            outs.append(_mlstm_rows(q_blk, fs[qi], q_idx, ks[:qi + 1], vs[:qi + 1],
-                                    fs[:qi + 1], gs[:qi + 1], state, hd**-0.5))
-        y = torch.cat(outs, dim=1).reshape(b, s, h * hd)
+    else:
+        y = _mlstm_form(q, k, v, big_f, ig, c).reshape(b, s, h * hd)
     y = y.to(x.dtype) + params["skip"] * uc
     y = y * F.silu(z)
     return rp_einsum("bsp,pd->bsd", y, params["wdown"], cfg.reduce_dtype)
@@ -374,11 +362,9 @@ def _slstm_cell(cfg, r, xt, state):
     b = xt.shape[0]
     nh = cfg.num_heads
     hd = cfg.d_model // nh
-    # recurrent contribution (block-diagonal per head); ``r`` is whole on
-    # every rank, so a ``model`` axis the batch leaves idle splits its
-    # contraction, as GSPMD places it
+    # recurrent contribution (block-diagonal per head)
     rec = rp_einsum("bhk,hkg->bhg", splittable(h, 1, nh).reshape(b, nh, hd).to(r.dtype), r,
-                    cfg.reduce_dtype, idle=("model",))
+                    cfg.reduce_dtype)
     z, i, f, o = torch.split(xt.float() + rec.reshape(b, 4 * cfg.d_model).float(),
                              cfg.d_model, dim=-1)
     m_new = torch.maximum(f + m, i)  # exponential i, sigmoid-exp f stabilizer
@@ -395,9 +381,19 @@ def _slstm_mlp(params, cfg: ModelConfig, hs: torch.Tensor) -> torch.Tensor:
     rd = cfg.reduce_dtype
     up = rp_einsum("bsd,du->bsu", hs, params["wup"], rd)
     gate = _gelu(rp_einsum("bsd,du->bsu", hs, params["wgate"], rd))
-    # a width ``model`` does not divide (1,365 of 16) leaves the axis idle:
-    # the down projection splits its output over it, as GSPMD places it
-    return rp_einsum("bsu,ud->bsd", up * gate, params["wdown"], rd, idle=("model",))
+    wdown = params["wdown"]
+    if torch.is_grad_enabled() and not model_divides(wdown.shape[0]):
+        # a width ``model`` does not divide (1,365 of 16): the train step
+        # splits the down projection's output over ``model``; prefill and
+        # decode run it whole on each rank, as GSPMD places them
+        wdown = ashard(wdown, None, "model")
+    return rp_einsum("bsu,ud->bsd", up * gate, wdown, rd)
+
+
+def _slstm_r(params, cfg: ModelConfig) -> torch.Tensor:
+    """``r`` in :func:`_rec_dtype`, on a mesh its head width split over
+    ``model`` (the recurrence's contraction, as GSPMD places it)."""
+    return ashard(params["r"].to(_rec_dtype(cfg)), None, "model", None)
 
 
 def slstm_train(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -406,7 +402,7 @@ def slstm_train(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
     # the state in the activations' batch layout on a mesh
     state = {k: mesh_full(x, (b, d), v, torch.float32, "batch", None)
              for k, v in SLSTM_INIT.items()}
-    r = params["r"].to(_rec_dtype(cfg))
+    r = _slstm_r(params, cfg)
     hs = []
     for t in range(s):
         state = _slstm_cell(cfg, r, xa[:, t], state)
@@ -417,7 +413,7 @@ def slstm_train(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
 def slstm_decode(params, cfg: ModelConfig, x: torch.Tensor, state: dict
                  ) -> Tuple[torch.Tensor, dict]:
     xa = rp_einsum("bsd,dg->bsg", x, params["wx"], cfg.reduce_dtype) + params["bx"]
-    new = _slstm_cell(cfg, params["r"].to(_rec_dtype(cfg)), xa[:, 0], state)
+    new = _slstm_cell(cfg, _slstm_r(params, cfg), xa[:, 0], state)
     return _slstm_mlp(params, cfg, new["h"][:, None].to(x.dtype)), new
 
 

@@ -16,7 +16,10 @@ by side, for four smoke-config cells:
 - ``expert_train``: ``arctic_480b``'s train step (experts).
 
 Each asserts that the port's rank does at most 1.10 × ``repro``'s FLOPs
-(XLA's HLO through ``hlo_analysis.analyze``; the port's ``OpCounter``).  The
+(XLA's HLO through ``hlo_analysis.analyze``; the port's ``OpCounter``), and
+the three train cells, whose layouts agree with ``repro``'s at this size,
+at least 0.90 × (the script's flag for a layout that departs downward;
+measured 1.08, 1.02 and 1.05; the batch-1 decode 0.89).  The
 reference's records also keep their four largest products (the script's
 ``--dots``).
 """
@@ -34,6 +37,7 @@ from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
 BOUND = 1.10
+LOW = 0.90
 
 CASES = {
     "glu_train": ("internlm2_1_8b", {}, {"kind": "train", "seq": 32, "batch": 8}),
@@ -109,6 +113,12 @@ def test_port_rank_does_at_most_repro_work(counts, case):
     assert port["flops"] <= BOUND * ref["flops"], (case, port["flops"] / ref["flops"])
 
 
+@pytest.mark.parametrize("case", ["glu_train", "xlstm_model_train", "expert_train"])
+def test_port_rank_keeps_repro_layout(counts, case):
+    ref, port = counts["ref"][case], counts["port"][case]
+    assert port["flops"] >= LOW * ref["flops"], (case, port["flops"] / ref["flops"])
+
+
 def test_reference_keeps_its_largest_products(counts):
     """``dots``: the reference record keeps its largest products, XLA's dot
     shapes with their FLOPs, in descending order and within the total."""
@@ -123,7 +133,8 @@ def test_reference_keeps_its_largest_products(counts):
 
 
 def test_compare_row():
-    """The script's row: both counts, the ratio, the bound."""
+    """The script's row: both counts, the ratio, the bound, and the flag
+    for a ratio below 0.90."""
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
     import dryrun_parity
 
@@ -131,7 +142,11 @@ def test_compare_row():
            "collectives": {"all-reduce": {"count": 3, "bytes": 8.0},
                            "all-gather": {"count": 2, "bytes": 4.0}}}
     row = dryrun_parity.compare(rec, dict(rec, flops_per_device=2.3))
-    assert row["ratio"] == pytest.approx(1.15) and not row["within_bound"]
+    assert row["ratio"] == pytest.approx(1.15) and not row["within_bound"] and not row["below"]
     assert row["ref_collectives"] == row["port_collectives"] == 5
+    row = dryrun_parity.compare(rec, dict(rec, flops_per_device=1.7))
+    assert row["ratio"] == pytest.approx(0.85) and row["within_bound"] and row["below"]
+    row = dryrun_parity.compare(rec, dict(rec, flops_per_device=1.8))
+    assert row["within_bound"] and not row["below"]
     row = dryrun_parity.compare(rec, {"status": "error"})
-    assert row["ratio"] is None and not row["within_bound"]
+    assert row["ratio"] is None and not row["within_bound"] and not row["below"]

@@ -355,15 +355,26 @@ def four_rank_steps(rank, world, tmp, archs, mb_arch):
     return out
 
 
+def _split_cfg(arch: str, split: bool = True):
+    """``arch``'s smoke config in ``tp_mode="model"``, with 3 heads at a
+    width of 48, which a ``model`` axis of 2 does not divide (``split``), or
+    with its own heads, which it divides."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = dataclasses.replace(get_smoke_config(arch), tp_mode="model")
+    return dataclasses.replace(cfg, num_heads=3, num_kv_heads=3, d_model=48) if split else cfg
+
+
 def four_rank_more(rank, world, tmp, archs, serve_archs, split_archs=(), single_archs=()):
     """4 ranks, the (data 2, model 2) mesh: 2 train steps of ``archs``
-    against one process, and of ``split_archs`` in ``tp_mode="model"`` with
-    3 heads at a width of 48, which the ``model`` axis does not divide (one
+    against one process, and of ``split_archs`` in ``tp_mode="model"``, with
+    their own heads, which the ``model`` axis divides, and with 3 heads at a
+    width of 48, which it does not divide (one
     head, at the smoke width, is ill-conditioned: its one-process gradients
     move by 1e-4 of their scale under a 1e-7 jitter of the weights, 3 heads
     at 48 by 1.8e-6, the smoke config's 2 by 2.4e-6); then prefill and
     greedy decode of ``serve_archs`` at 4 rows and of ``single_archs`` at 1
-    row."""
+    row, and of ``split_archs``' split config at both."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.train import optimizer as opt
@@ -371,23 +382,25 @@ def four_rank_more(rank, world, tmp, archs, serve_archs, split_archs=(), single_
     mesh = make_host_mesh(model=2, device="cpu")
     out = {"mesh": list(mesh.shape)}
     out["train"], out["seconds"] = _train_archs(mesh, archs)
-    for arch in split_archs:
+    for arch, split in [(a, s) for a in split_archs for s in (True, False)]:
         t0 = time.perf_counter()
-        cfg = dataclasses.replace(get_smoke_config(arch), tp_mode="model", num_heads=3,
-                                  num_kv_heads=3, d_model=48)
+        cfg = _split_cfg(arch, split)
         ocfg = opt.OptConfig(kind=cfg.optimizer, lr=1e-3, warmup_steps=1)
-        out["train"][f"{arch}_split"] = _compare(cfg, ocfg, mesh, _batch(cfg, 8), 2)
-        out["seconds"][f"{arch}_split"] = time.perf_counter() - t0
+        key = f"{arch}_split" if split else f"{arch}_model"
+        out["train"][key] = _compare(cfg, ocfg, mesh, _batch(cfg, 8), 2)
+        out["seconds"][key] = time.perf_counter() - t0
     # prefill of 4 (or 1) × 24 tokens and 2 greedy decode steps on the
     # (2, 2) mesh
     t0 = time.perf_counter()
     out["serve"] = {}
-    for arch, rows in [(a, 4) for a in serve_archs] + [(a, 1) for a in single_archs]:
-        cfg = get_smoke_config(arch)
+    runs = ([(a, get_smoke_config(a), 4, a) for a in serve_archs]
+            + [(a, get_smoke_config(a), 1, f"{a}_rows1") for a in single_archs]
+            + [(a, _split_cfg(a), r, f"{a}_split_rows{r}") for a in split_archs for r in (4, 1)])
+    for arch, cfg, rows, key in runs:
         tokens = _batch(cfg, rows, 24)["tokens"]
         pre, steps = _decode(cfg, None, tokens, 2)
         pre_m, steps_m = _decode(cfg, mesh, tokens, 2)
-        out["serve"][arch if rows == 4 else f"{arch}_rows{rows}"] = {
+        out["serve"][key] = {
             "prefill_err": float(np.abs(pre_m - pre).max()),
             "prefill_scale": float(np.abs(pre).max()),
             "decode_err": [float(np.abs(b - a).max()) for a, b in zip(steps, steps_m)],
